@@ -1,0 +1,299 @@
+"""4-level 3D U-Net in PyTorch, NDHWC, for the serving forward.
+
+The port of ``pcmseg_tpu/models/unet3d.py`` (and the eval arithmetic of
+``pcmseg_tpu/models/norm.py``). Module names follow the reference PyTorch
+model, so a ``params_to_torch_state_dict`` export loads with
+``strict=True``:
+
+  ``inc.conv.{0,3}``, ``down{i}.maxpool_conv.1.conv.{0,3}``, ``up{i}.up``,
+  ``up{i}.conv.conv.{0,3}``, ``outc``; BatchNorm at ``.1`` / ``.4``.
+
+Tensors are channels-last (N, D, H, W, C) as in the JAX package. Every 3³
+conv goes through ``ops.kernels.conv3d.conv3x3x3``: the hand-written CUDA
+kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor. With
+``norm_layer='none'`` (the BN-folded serving graph) the ReLU is fused into
+the kernel's epilogue. Max-pool, the 2³ stride-2 transposed conv, pad-align,
+concat and the 1×1×1 head are stock PyTorch, as the JAX package leaves them
+to XLA.
+
+Parameters are fp32; activations run in ``dtype`` (bf16 by default); the
+logits come back fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
+
+MIN_INPUT_SIZE = 16  # four 2x max-pools
+NORM_LAYERS = ("batch", "none")
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class Conv3x3(nn.Module):
+    """3³ SAME conv, stride 1, with bias, over NDHWC; ReLU fused if ``relu``.
+
+    ``weight`` is (Co, Ci, 3, 3, 3) as in ``nn.Conv3d``. The kernel's packed
+    weight is built the first time a forward needs it after a load or a
+    move, and reused until the parameter changes again.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, relu: bool, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3, 3, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+        self.relu = relu
+        self._packed = None  # (key, packed weight)
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weight
+        # an inference-mode tensor has no version counter (and cannot be
+        # changed in place outside inference mode)
+        key = (w.device, dtype, w.data_ptr(), None if w.is_inference() else w._version)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                self._packed = (key, pack_weight(w.detach(), dtype))
+        return self._packed[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3x3(x, self.packed_weight(x.dtype), self.bias.detach(), self.relu)
+
+
+class BatchNorm(nn.BatchNorm3d):
+    """Eval-mode BatchNorm over NDHWC with the JAX package's arithmetic.
+
+    ``mult = gamma * rsqrt(var + eps)`` and ``shift = beta - mean * mult``
+    in fp32, applied to the tensor in its own dtype (``norm.py:77-82``).
+    State-dict keys are ``nn.BatchNorm3d``'s. Training-mode statistics
+    come with the training step and are refused here.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm batch statistics (training mode) are not ported; "
+                "call .eval() to use the running statistics"
+            )
+        mult = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        shift = self.bias.float() - self.running_mean.float() * mult
+        return x * mult.to(x.dtype) + shift.to(x.dtype)
+
+
+class DoubleConv(nn.Module):
+    """(3³ conv → norm → ReLU) × 2, as ``conv`` = Sequential of 6."""
+
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+        super().__init__()
+        fused = norm_layer == "none"
+        layers = []
+        for ci in (in_ch, out_ch):
+            layers += [
+                Conv3x3(ci, out_ch, relu=fused, device=device),
+                nn.Identity() if fused else BatchNorm(out_ch, device=device),
+                nn.Identity() if fused else nn.ReLU(),
+            ]
+        self.conv = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class MaxPool2x(nn.Module):
+    """2³ stride-2 max-pool over NDHWC; odd trailing voxels are dropped."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, d, h, w, c = x.shape
+        d2, h2, w2 = d // 2, h // 2, w // 2
+        x = x[:, : 2 * d2, : 2 * h2, : 2 * w2]
+        return x.reshape(n, d2, 2, h2, 2, w2, 2, c).amax(dim=(2, 4, 6))
+
+
+class ConvTranspose2x(nn.Module):
+    """2³ stride-2 transposed conv over NDHWC, as one matmul + pixel shuffle.
+
+    ``weight`` is (Ci, Co, 2, 2, 2) as in ``nn.ConvTranspose3d``:
+    ``out[n, 2d+a, 2h+b, 2w+c, o] = Σ_i x[n, d, h, w, i] · W[i, o, a, b, c]
+    + bias[o]`` (``MatmulConvTranspose``, ``unet3d.py:258-298``, whose
+    kernel is stored spatially flipped on the JAX side).
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 2, 2, 2, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, d, h, w, ci = x.shape
+        co = self.weight.shape[1]
+        k = self.weight.to(x.dtype).permute(0, 2, 3, 4, 1).reshape(ci, 8 * co)
+        y = (x.reshape(-1, ci) @ k).reshape(n, d, h, w, 2, 2, 2, co)
+        y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(n, 2 * d, 2 * h, 2 * w, co)
+        return y + self.bias.to(x.dtype)
+
+
+def _pad_to_match(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Zero-pad x's spatial dims to ref's; the low side gets diff // 2."""
+    pads = []
+    for ax in (3, 2, 1):  # F.pad lists the last dim first
+        diff = ref.shape[ax] - x.shape[ax]
+        pads += [diff // 2, diff - diff // 2]
+    if any(pads):
+        x = F.pad(x, [0, 0] + pads)
+    return x
+
+
+class Down(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(
+            MaxPool2x(), DoubleConv(in_ch, out_ch, norm_layer, device)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv(x)
+
+
+class Up(nn.Module):
+    """Transposed conv to ``out_ch``, pad-align, concat [skip, up], DoubleConv."""
+
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+        super().__init__()
+        self.up = ConvTranspose2x(in_ch, out_ch, device)
+        self.conv = DoubleConv(2 * out_ch, out_ch, norm_layer, device)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = _pad_to_match(self.up(x), skip)
+        return self.conv(torch.cat([skip.to(x.dtype), x], dim=-1))
+
+
+class Conv1x1(nn.Module):
+    """The 1×1×1 output conv; ``weight`` is (K, C, 1, 1, 1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1, 1, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)
+        return F.linear(x, w, self.bias.to(x.dtype))
+
+
+class UNet3D(nn.Module):
+    """4-level 3D U-Net: (N, D, H, W, n_modalities) → fp32 logits
+    (N, D, H, W, n_classes). Base 64 with 5 modalities has 90,311,361
+    parameters.
+
+    ``generator`` seeds the kaiming fan_out init (it must live on
+    ``device``); on the ``meta`` device nothing is initialised, which counts
+    parameters without allocating them.
+    """
+
+    def __init__(
+        self,
+        n_modalities: int = 5,
+        n_classes: int = 1,
+        base_features: int = 64,
+        norm_layer: str = "batch",
+        dtype: torch.dtype = torch.bfloat16,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if norm_layer not in NORM_LAYERS:
+            raise NotImplementedError(
+                f"norm_layer={norm_layer!r} is not ported; expected one of {NORM_LAYERS}"
+            )
+        self.n_modalities = n_modalities
+        self.n_classes = n_classes
+        self.norm_layer = norm_layer
+        self.dtype = dtype
+        f = base_features
+        self.inc = DoubleConv(n_modalities, f, norm_layer, device)
+        self.down1 = Down(f, 2 * f, norm_layer, device)
+        self.down2 = Down(2 * f, 4 * f, norm_layer, device)
+        self.down3 = Down(4 * f, 8 * f, norm_layer, device)
+        self.down4 = Down(8 * f, 16 * f, norm_layer, device)
+        self.up1 = Up(16 * f, 8 * f, norm_layer, device)
+        self.up2 = Up(8 * f, 4 * f, norm_layer, device)
+        self.up3 = Up(4 * f, 2 * f, norm_layer, device)
+        self.up4 = Up(2 * f, f, norm_layer, device)
+        self.outc = Conv1x1(f, n_classes, device)
+        if torch.device(device or "cpu").type != "meta":
+            self.reset_parameters(generator)
+
+    @classmethod
+    def from_config(cls, config, norm_layer: Optional[str] = None, **kwargs) -> "UNet3D":
+        return cls(
+            n_modalities=config.n_modalities,
+            n_classes=config.n_classes,
+            base_features=config.base_features,
+            norm_layer=norm_layer or config.norm_layer,
+            dtype=DTYPES[config.compute_dtype],
+            **kwargs,
+        )
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Kaiming-normal fan_out (ReLU gain) weights, zero biases, BN γ=1 β=0."""
+        for m in self.modules():
+            if isinstance(m, (Conv3x3, Conv1x1)):
+                fan_out = m.weight.shape[0] * math.prod(m.weight.shape[2:])
+            elif isinstance(m, ConvTranspose2x):
+                fan_out = m.weight.shape[1] * math.prod(m.weight.shape[2:])
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+                continue
+            else:
+                continue
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.n_modalities:
+            raise ValueError(
+                f"expected {self.n_modalities} input channels (NDHWC), "
+                f"got shape {tuple(x.shape)}"
+            )
+        if any(s < MIN_INPUT_SIZE for s in x.shape[1:4]):
+            raise ValueError(
+                f"spatial dims {tuple(x.shape[1:4])} too small: the 4-level "
+                f"U-Net needs every spatial dim >= {MIN_INPUT_SIZE}"
+            )
+        x = x.to(self.dtype)
+        x1 = self.inc(x)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        x4 = self.down3(x3)
+        x5 = self.down4(x4)
+        x = self.up1(x5, x4)
+        x = self.up2(x, x3)
+        x = self.up3(x, x2)
+        x = self.up4(x, x1)
+        return self.outc(x).float()
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """Sigmoid probabilities, or softmax over channels for K >= 2."""
+        logits = self(x)
+        if self.n_classes >= 2:
+            return torch.softmax(logits, dim=-1)
+        return torch.sigmoid(logits)
+
+    def inference(self, x: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+        """Binary mask at ``threshold``, or the argmax label map for K >= 2
+        (float, keeping the trailing channel dim)."""
+        probs = self.predict(x)
+        if self.n_classes >= 2:
+            return probs.argmax(dim=-1, keepdim=True).float()
+        return (probs > threshold).float()
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

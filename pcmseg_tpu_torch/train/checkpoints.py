@@ -1,0 +1,119 @@
+"""Reference-layout ``.pth`` checkpoints and the JAX-parameter bridge.
+
+The port's state dict is the reference PyTorch model's (module names in
+``models/unet3d.py``), so the ``.pth`` files that
+``pcmseg_tpu.train.checkpoints.export_torch_checkpoint`` writes load here
+unchanged: ``{'model_state_dict': ..., 'config': {...}}``, or a bare state
+dict.
+
+Weight layouts:
+  * JAX conv kernel (kD, kH, kW, I, O) ↔ ``.pth`` conv weight (O, I, kD, kH, kW);
+  * JAX transposed-conv kernel (kD, kH, kW, I, O), stored spatially flipped
+    (``pcmseg_tpu/train/checkpoints.py:335-339``) ↔ ``.pth`` (I, O, kD, kH, kW);
+  * BN scale/bias/mean/var ↔ weight/bias/running_mean/running_var.
+The conv kernel's own packed layout is built from the ``.pth`` layout at
+run time (``ops/kernels/conv3d.py::pack_weight``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)).copy())
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    # (kD, kH, kW, I, O) -> (O, I, kD, kH, kW)
+    return _tensor(np.transpose(np.asarray(kernel), (4, 3, 0, 1, 2)))
+
+
+def _conv_transpose_weight(kernel) -> torch.Tensor:
+    # undo the JAX side's spatial flip, then (kD, kH, kW, I, O) -> (I, O, kD, kH, kW)
+    a = np.asarray(kernel)[::-1, ::-1, ::-1]
+    return _tensor(np.transpose(a, (3, 4, 0, 1, 2)))
+
+
+def state_dict_from_jax_params(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """The port's state dict from the JAX package's params as numpy trees.
+
+    Mirrors ``pcmseg_tpu.train.checkpoints.params_to_torch_state_dict``
+    without importing JAX. BN-folded trees (no ``norm{i}`` entries) give a
+    state dict for ``UNet3D(norm_layer='none')``.
+    """
+    batch_stats = batch_stats or {}
+    sd: Dict[str, torch.Tensor] = {}
+
+    def double_conv(prefix: str, ours: Mapping, stats: Optional[Mapping]) -> None:
+        for ti, (cname, nname) in ((0, ("conv0", "norm0")), (3, ("conv1", "norm1"))):
+            sd[f"{prefix}.{ti}.weight"] = _conv_weight(ours[cname]["kernel"])
+            sd[f"{prefix}.{ti}.bias"] = _tensor(ours[cname]["bias"])
+            if nname not in ours:
+                continue
+            sd[f"{prefix}.{ti + 1}.weight"] = _tensor(ours[nname]["scale"])
+            sd[f"{prefix}.{ti + 1}.bias"] = _tensor(ours[nname]["bias"])
+            if stats and nname in stats:
+                sd[f"{prefix}.{ti + 1}.running_mean"] = _tensor(stats[nname]["mean"])
+                sd[f"{prefix}.{ti + 1}.running_var"] = _tensor(stats[nname]["var"])
+                sd[f"{prefix}.{ti + 1}.num_batches_tracked"] = torch.zeros(
+                    (), dtype=torch.int64
+                )
+
+    double_conv("inc.conv", params["inc"], batch_stats.get("inc"))
+    for i in range(1, 5):
+        double_conv(
+            f"down{i}.maxpool_conv.1.conv",
+            params[f"down{i}"]["double_conv"],
+            (batch_stats.get(f"down{i}") or {}).get("double_conv"),
+        )
+    for i in range(1, 5):
+        up = params[f"up{i}"]
+        sd[f"up{i}.up.weight"] = _conv_transpose_weight(up["up"]["kernel"])
+        sd[f"up{i}.up.bias"] = _tensor(up["up"]["bias"])
+        double_conv(
+            f"up{i}.conv.conv",
+            up["double_conv"],
+            (batch_stats.get(f"up{i}") or {}).get("double_conv"),
+        )
+    sd["outc.weight"] = _conv_weight(params["outc"]["kernel"])
+    sd["outc.bias"] = _tensor(params["outc"]["bias"])
+    return sd
+
+
+def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
+    """(state dict, config snapshot or None) from a reference-layout .pth.
+
+    Loads with ``weights_only=True``: tensors and plain containers only.
+    """
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict):
+        raise ValueError(f"{path}: expected a state dict or a checkpoint dict")
+    if "model_state_dict" in payload:
+        return dict(payload["model_state_dict"]), payload.get("config") or None
+    return dict(payload), None
+
+
+def save_pth(
+    path: str, state_dict: Mapping[str, torch.Tensor], config: Optional[dict] = None
+) -> str:
+    """Write ``{'model_state_dict': ..., 'config': ...}`` atomically."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    payload = {"model_state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
+    if config:
+        payload["config"] = config
+    tmp = os.path.join(os.path.dirname(path), f".tmp-{os.getpid()}-{os.path.basename(path)}")
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
