@@ -1,9 +1,10 @@
-"""Command line of the PyTorch package: ``predict`` and ``serve``.
+"""Command line of the PyTorch package: ``train``, ``predict`` and ``serve``.
 
 The flags are the JAX package's own (``pcmseg_tpu.cli.main.build_parser``
 and ``_config_from_args``), so a command line moves between the two
 packages unchanged. The other verbs are not ported yet and exit non-zero.
 
+    python -m pcmseg_tpu_torch train --data_dir DATA --save_dir CKPT [--epochs N ...]
     python -m pcmseg_tpu_torch predict --model_path m.pth --input_dir CASE --output_dir OUT
     python -m pcmseg_tpu_torch serve --model_path m.pth --input_root IN --output_dir OUT --once
 """
@@ -17,7 +18,26 @@ from typing import List, Optional
 
 from pcmseg_tpu.cli.main import _config_from_args, build_parser
 
-PORTED = ("predict", "serve")
+PORTED = ("train", "predict", "serve")
+
+
+def cmd_train(args) -> int:
+    if args.interactive:
+        choice = input("select training mode: [1] single-split  [2] cross-validation: ").strip()
+        args.cross_validation = choice == "2"
+    if args.cross_validation:
+        raise NotImplementedError(
+            "--cross_validation is not ported to the PyTorch package yet; "
+            "run it with the JAX package: python run.py train --cross_validation"
+        )
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    config = _config_from_args(args, preset=args.preset)
+    if getattr(args, "data_augmentation", False):
+        config = config.replace(data_augmentation=True)
+    history = Trainer(config).train()
+    print(f"trained {len(history['train_loss'])} epochs; checkpoints in {config.save_dir}")
+    return 0
 
 
 def cmd_predict(args) -> int:
@@ -76,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             file=sys.stderr,
         )
         return 1
-    handlers = {"predict": cmd_predict, "serve": cmd_serve}
+    handlers = {"train": cmd_train, "predict": cmd_predict, "serve": cmd_serve}
     try:
         return handlers[args.command](args)
     except Exception:  # noqa: BLE001 — top-level trap, like the JAX CLI's

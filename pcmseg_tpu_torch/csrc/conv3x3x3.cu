@@ -44,15 +44,11 @@
 // those layers fill the 132 SMs. Not yet used: wgmma and TMA, the only way
 // to the card's full bf16 rate; that is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
 
-namespace {
+#include "mma_common.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int BM = 128;        // output voxels per block
 constexpr int BK = 32;         // K per pipeline stage (one channel chunk of one tap)
@@ -65,37 +61,6 @@ constexpr int THREADS = 256;   // 8 warps
 constexpr int TZ = 4, TY = 4, TX = 8;
 constexpr int HZ = TZ + 2, HY = TY + 2, HX = TX + 2;
 constexpr int HALO = HZ * HY * HX;  // 360 rows
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;  // 0 bytes read -> 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                            uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // The warp layout shared by both kernels: 8 warps over a BM x BN tile, each
 // warp MT m16 tiles by NT = 4 n8 tiles (32 columns).
@@ -471,17 +436,6 @@ Plan make_plan(int N, int D, int H, int W, int Ci, int Co, int sms) {
   return p;
 }
 
-int sm_count(int device) {
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 132;
-  return sms;
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <int BN>
 cudaError_t launch_halo(const Plan& p, const bf16* x, const bf16* w, const float* bias, bf16* out,
                         float* workspace, int N, int D, int H, int W, int Ci, int Co, int Kpad,
@@ -535,10 +489,8 @@ long long pcmseg_conv3x3x3_workspace_bytes(int N, int D, int H, int W, int Ci, i
 int pcmseg_conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* out,
                           void* workspace, long long workspace_bytes, int N, int D, int H, int W,
                           int Ci, int Co, int relu, void* stream, int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   const Plan p = make_plan(N, D, H, W, Ci, Co, sm_count(device));
   if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
   const int Kpad = (27 * Ci + BK - 1) / BK * BK;

@@ -1,9 +1,8 @@
-"""4-level 3D U-Net in PyTorch, NDHWC, for the serving forward.
+"""4-level 3D U-Net in PyTorch, NDHWC, for serving and training.
 
-The port of ``pcmseg_tpu/models/unet3d.py`` (and the eval arithmetic of
-``pcmseg_tpu/models/norm.py``). Module names follow the reference PyTorch
-model, so a ``params_to_torch_state_dict`` export loads with
-``strict=True``:
+The port of ``pcmseg_tpu/models/unet3d.py`` and ``pcmseg_tpu/models/norm.py``.
+Module names follow the reference PyTorch model, so a
+``params_to_torch_state_dict`` export loads with ``strict=True``:
 
   ``inc.conv.{0,3}``, ``down{i}.maxpool_conv.1.conv.{0,3}``, ``up{i}.up``,
   ``up{i}.conv.conv.{0,3}``, ``outc``; BatchNorm at ``.1`` / ``.4``.
@@ -12,9 +11,12 @@ Tensors are channels-last (N, D, H, W, C) as in the JAX package. Every 3³
 conv goes through ``ops.kernels.conv3d.conv3x3x3``: the hand-written CUDA
 kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor. With
 ``norm_layer='none'`` (the BN-folded serving graph) the ReLU is fused into
-the kernel's epilogue. Max-pool, the 2³ stride-2 transposed conv, pad-align,
-concat and the 1×1×1 head are stock PyTorch, as the JAX package leaves them
-to XLA.
+the kernel's epilogue. With grad enabled a conv runs
+``ops.hybrid_conv.conv3x3``, whose backward is the kernels too (dx and dW).
+Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm and
+the 1×1×1 head are stock PyTorch, as the JAX package leaves them to XLA.
+With ``remat`` the blocks (``inc``, ``down1-4``, ``up1-4``) are recomputed
+in the backward (``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
 
 Parameters are fp32; activations run in ``dtype`` (bf16 by default); the
 logits come back fp32.
@@ -22,13 +24,17 @@ logits come back fp32.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 
 MIN_INPUT_SIZE = 16  # four 2x max-pools
@@ -63,27 +69,98 @@ class Conv3x3(nn.Module):
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3x3(x, self.packed_weight(x.dtype), self.bias.detach(), self.relu)
+        packed = self.packed_weight(x.dtype)
+        if torch.is_grad_enabled():
+            y = conv3x3_train(x, self.weight, self.bias, packed)
+            return torch.relu(y) if self.relu else y
+        return conv3x3x3(x, packed, self.bias.detach(), self.relu)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``y = x·mult + shift`` with batch statistics; returns (y, mean, var).
+
+    Statistics in fp32 over (N, D, H, W): mean and E[x²] − mean² clamped at
+    0 (``norm.py:58-66``); the normalization in x's dtype. The backward is
+    the analytic one, in fp32, saving only x in its own dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = tuple(range(x.dim() - 1))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+        r = torch.rsqrt(var + eps)
+        mult = weight.to(mean.dtype) * r
+        shift = bias.to(mean.dtype) - mean * mult
+        ctx.save_for_backward(x, weight, mean, r, mult)
+        ctx.mark_non_differentiable(mean, var)
+        return x * mult.to(x.dtype) + shift.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, r, mult = ctx.saved_tensors
+        dims = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        dyf = dy.to(mean.dtype)
+        xc = x.to(mean.dtype) - mean
+        ds = dyf.sum(dims)  # dL/dshift
+        dxc = (dyf * xc).sum(dims)  # Σ dy·(x − mean)
+        # mult = γ·r, shift = β − mean·mult, r = (var + eps)^-½
+        dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc
+        dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds / n
+        return dx.to(x.dtype), r * dxc, ds, None
 
 
 class BatchNorm(nn.BatchNorm3d):
-    """Eval-mode BatchNorm over NDHWC with the JAX package's arithmetic.
+    """BatchNorm over NDHWC with the JAX package's arithmetic (``norm.py``).
 
-    ``mult = gamma * rsqrt(var + eps)`` and ``shift = beta - mean * mult``
-    in fp32, applied to the tensor in its own dtype (``norm.py:77-82``).
-    State-dict keys are ``nn.BatchNorm3d``'s. Training-mode statistics
-    come with the training step and are refused here.
+    Eval: ``mult = gamma * rsqrt(var + eps)`` and ``shift = beta - mean *
+    mult`` in fp32 from the running statistics, applied to the tensor in
+    its own dtype (``norm.py:77-82``). Training: the same with the batch's
+    statistics (``_BatchNormTrain``), and the running statistics move by
+    momentum 0.1 (flax 0.9) toward the batch mean and the unbiased batch
+    variance, once per forward: not while a rematerialized block recomputes
+    its forward in the backward (``update_running_stats`` is then False).
+    State-dict keys are ``nn.BatchNorm3d``'s.
     """
+
+    update_running_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics (training mode) are not ported; "
-                "call .eval() to use the running statistics"
-            )
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            if self.update_running_stats:
+                n = x.numel() // x.shape[-1]
+                keep = 1.0 - self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                    self.running_var.copy_(
+                        keep * self.running_var + self.momentum * (var * (n / max(n - 1, 1)))
+                    )
+                    self.num_batches_tracked.add_(1)
+            return y
         mult = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * mult
         return x * mult.to(x.dtype) + shift.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _frozen_running_stats(module: nn.Module):
+    """BatchNorm layers of ``module`` leave their running statistics alone:
+    the context of a rematerialized block's recomputation."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.update_running_stats
+
+
+def _remat_contexts(module: nn.Module):
+    return contextlib.nullcontext(), _frozen_running_stats(module)
 
 
 class DoubleConv(nn.Module):
@@ -106,13 +183,15 @@ class DoubleConv(nn.Module):
 
 
 class MaxPool2x(nn.Module):
-    """2³ stride-2 max-pool over NDHWC; odd trailing voxels are dropped."""
+    """2³ stride-2 max-pool over NDHWC; odd trailing voxels are dropped.
+
+    ``F.max_pool3d`` on the channels-last NCDHW view: its gradient goes to
+    the first maximum of each window, as XLA's select-and-scatter does for
+    ``nn.max_pool`` (ReLU outputs tie at 0 often)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, d, h, w, c = x.shape
-        d2, h2, w2 = d // 2, h // 2, w // 2
-        x = x[:, : 2 * d2, : 2 * h2, : 2 * w2]
-        return x.reshape(n, d2, 2, h2, 2, w2, 2, c).amax(dim=(2, 4, 6))
+        y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel_size=2, stride=2)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class ConvTranspose2x(nn.Module):
@@ -193,7 +272,8 @@ class UNet3D(nn.Module):
 
     ``generator`` seeds the kaiming fan_out init (it must live on
     ``device``); on the ``meta`` device nothing is initialised, which counts
-    parameters without allocating them.
+    parameters without allocating them. ``remat`` recomputes each block in
+    the backward instead of keeping its activations (training only).
     """
 
     def __init__(
@@ -205,6 +285,7 @@ class UNet3D(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         device=None,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ):
         super().__init__()
         if norm_layer not in NORM_LAYERS:
@@ -215,6 +296,7 @@ class UNet3D(nn.Module):
         self.n_classes = n_classes
         self.norm_layer = norm_layer
         self.dtype = dtype
+        self.remat = remat
         f = base_features
         self.inc = DoubleConv(n_modalities, f, norm_layer, device)
         self.down1 = Down(f, 2 * f, norm_layer, device)
@@ -237,6 +319,7 @@ class UNet3D(nn.Module):
             base_features=config.base_features,
             norm_layer=norm_layer or config.norm_layer,
             dtype=DTYPES[config.compute_dtype],
+            remat=config.remat,
             **kwargs,
         )
 
@@ -268,16 +351,26 @@ class UNet3D(nn.Module):
                 f"U-Net needs every spatial dim >= {MIN_INPUT_SIZE}"
             )
         x = x.to(self.dtype)
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        x1 = self._block(self.inc, x)
+        x2 = self._block(self.down1, x1)
+        x3 = self._block(self.down2, x2)
+        x4 = self._block(self.down3, x3)
+        x5 = self._block(self.down4, x4)
+        x = self._block(self.up1, x5, x4)
+        x = self._block(self.up2, x, x3)
+        x = self._block(self.up3, x, x2)
+        x = self._block(self.up4, x, x1)
         return self.outc(x).float()
+
+    def _block(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        """Run one block; with ``remat`` in training, keep only its inputs and
+        recompute it in the backward (block-level, ``unet3d.py:446-455``)."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(
+                block, *args, use_reentrant=False,
+                context_fn=functools.partial(_remat_contexts, block),
+            )
+        return block(*args)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Sigmoid probabilities, or softmax over channels for K >= 2."""

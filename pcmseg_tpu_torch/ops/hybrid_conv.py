@@ -1,0 +1,86 @@
+"""The training 3³ conv: forward, dx and dW each a hand-written kernel.
+
+The port of ``pcmseg_tpu/ops/hybrid_conv.py::conv3x3_hybrid`` with
+``dw_impl='pallas'``, as a ``torch.autograd.Function`` over NDHWC:
+
+  * forward: ``conv3x3x3`` (kernel B1) with bias and no ReLU (BatchNorm
+    follows the conv in training);
+  * dx: B1 again, on ``dy`` with the weight spatially flipped and Ci↔Co
+    transposed, no bias, no ReLU; computed only when x needs a gradient
+    (not for the input conv, whose x is the image);
+  * dW: ``conv3x3_dw`` (kernel B2), brought back to the (Co, Ci, 3, 3, 3)
+    parameter layout;
+  * db: Σ dy in fp32.
+
+On CPU tensors every kernel wrapper runs its plain PyTorch version.
+``conv3x3_plain`` is the plain version of the whole Function: autograd of
+``F.conv3d`` in x's dtype, with the bias added in fp32 as B1 does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
+from pcmseg_tpu_torch.ops.kernels.conv3d_grad import conv3x3_dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, w_packed):
+        ctx.save_for_backward(x, weight)
+        return conv3x3x3(x, w_packed, bias, relu=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            if dy.is_cuda and weight.shape[1] % 8:
+                # dx's output channels are the layer's Ci, which B1 takes only
+                # in multiples of 8; the one such layer of the model (the
+                # input conv) needs no dx
+                raise RuntimeError(
+                    f"dx of a conv with Ci={weight.shape[1]} (not a multiple of 8) is "
+                    "not supported; the input of such a conv must not require grad"
+                )
+            w_t = pack_weight(weight.detach().flip(2, 3, 4).transpose(0, 1), dy.dtype)
+            dx = conv3x3x3(dy, w_t, None, relu=False)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_dw(x, dy).permute(4, 3, 0, 1, 2).to(weight.dtype).contiguous()
+        if ctx.needs_input_grad[2]:
+            db = dy.sum((0, 1, 2, 3), dtype=torch.promote_types(dy.dtype, torch.float32))
+        return dx, dw, db, None
+
+
+def conv3x3(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, w_packed: torch.Tensor
+) -> torch.Tensor:
+    """Differentiable 3³ SAME conv + bias over NDHWC.
+
+    Args:
+      x: (N, D, H, W, Ci); bf16 on CUDA.
+      weight: (Co, Ci, 3, 3, 3) parameter (fp32).
+      bias: (Co,) fp32 parameter.
+      w_packed: ``pack_weight(weight, x.dtype)``, the forward kernel's copy
+        (gradients reach ``weight`` through the Function, not through it).
+    Returns (N, D, H, W, Co) in x's dtype.
+    """
+    return _Conv3x3.apply(x, weight, bias, w_packed)
+
+
+def conv3x3_plain(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`conv3x3` (``w_packed`` is ignored)."""
+    del w_packed
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype), padding=1).permute(0, 2, 3, 4, 1)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (y.to(acc) + bias.to(acc)).to(x.dtype).contiguous()

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one shared library
-with a plain C interface, under ``build/pcmseg_tpu_torch/`` at the repository
-root, on first use. The library's file name carries a hash of the sources and
-flags, so a changed source builds anew and an unchanged one is reused. A
-failed build raises with nvcc's output. Nothing here runs at import time.
+Each ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, under ``build/pcmseg_tpu_torch/`` at the
+repository root, on first use. The library's file name carries a hash of the
+sources, headers and flags, so a changed source builds anew and an unchanged
+one is reused. A failed build raises with nvcc's output. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "pcmseg_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -31,6 +33,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -50,7 +56,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libpcmseg_kernels-{digest.hexdigest()[:16]}.so"
@@ -65,17 +71,38 @@ def build() -> dict:
     if path.exists():
         return {"path": str(path), "seconds": 0.0, "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    objects, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f".{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objects.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+    except BaseException:
+        for _, other in procs:  # stop the compiles still running
+            other.kill()
+            other.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return {"path": str(path), "seconds": seconds, "cached": False}
 
@@ -90,6 +117,10 @@ def load_library() -> ctypes.CDLL:
         lib.pcmseg_conv3x3x3_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3x3_bf16.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3x3_bf16.restype = i
+        lib.pcmseg_conv3x3_dw_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.pcmseg_conv3x3_dw_workspace_bytes.restype = ll
+        lib.pcmseg_conv3x3_dw_bf16.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3_dw_bf16.restype = i
         lib.pcmseg_cuda_error_string.argtypes = [i]
         lib.pcmseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

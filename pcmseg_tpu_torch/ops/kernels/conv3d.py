@@ -52,12 +52,14 @@ def conv3x3x3_reference(
     relu: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``F.conv3d`` in x's dtype on an NCDHW view,
-    then bias in fp32, ReLU, and a cast back to x's dtype."""
+    then bias in fp32 (float64 for a float64 x), ReLU, and a cast back to
+    x's dtype."""
     w = unpack_weight(w_packed, x.shape[-1]).to(x.dtype)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
-    y = y.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = y.to(acc)
     if b is not None:
-        y = y + b.float()
+        y = y + b.to(acc)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype).contiguous()

@@ -1,0 +1,90 @@
+"""Weight gradient of the 3³ SAME conv over NDHWC: CUDA kernel and plain version.
+
+``conv3x3_dw`` replaces the Pallas TPU kernel
+``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``. A CUDA tensor goes to
+the hand-written ``sm_90a`` kernel (``csrc/conv3x3_dw.cu``); a CPU tensor
+goes to ``conv3x3_dw_reference``, the same function in plain PyTorch. There
+is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# kernel launches since the count was last set to 0 (CPU calls not counted)
+launches = 0
+
+
+def conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``torch.nn.grad.conv3d_weight`` in x's dtype
+    on NCDHW views, returned as (3, 3, 3, Ci, Co) in fp32 (float64 for a
+    float64 x)."""
+    ci, co = x.shape[-1], dy.shape[-1]
+    gw = torch.nn.grad.conv3d_weight(
+        x.permute(0, 4, 1, 2, 3), (co, ci, 3, 3, 3), dy.to(x.dtype).permute(0, 4, 1, 2, 3), padding=1
+    )
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return gw.to(acc).permute(2, 3, 4, 1, 0).contiguous()
+
+
+def _check_cuda_args(x: torch.Tensor, dy: torch.Tensor) -> None:
+    if x.dim() != 5 or dy.dim() != 5 or x.shape[:4] != dy.shape[:4]:
+        raise ValueError(
+            f"x (N, D, H, W, Ci) and dy (N, D, H, W, Co) must share N, D, H, W; "
+            f"got {tuple(x.shape)} and {tuple(dy.shape)}"
+        )
+    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bf16 x and dy, got {x.dtype} / {dy.dtype}")
+    co = dy.shape[-1]
+    if co % 8:
+        raise ValueError(f"the CUDA kernel needs Co % 8 == 0, got Co={co}")
+    if dy.device != x.device:
+        raise ValueError(f"x and dy must be on one device, got {x.device} and {dy.device}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous tensors")
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned x and dy")
+    if x.numel() == 0 or dy.numel() == 0:
+        raise ValueError(f"empty input {tuple(x.shape)} / {tuple(dy.shape)}")
+    if x.shape[:4].numel() >= 2**31:
+        raise ValueError(f"the CUDA kernel takes fewer than 2^31 voxels, got {tuple(x.shape)}")
+
+
+def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``dW`` of ``y = conv3d_same(x, W)`` given ``dy``.
+
+    Args:
+      x: (N, D, H, W, Ci) forward input; bf16 on CUDA, any float dtype on the CPU.
+      dy: (N, D, H, W, Co) output gradient in x's dtype.
+    Returns (3, 3, 3, Ci, Co) fp32 (the JAX kernel's layout), summed over
+    every voxel of the batch.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_dw_reference(x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_cuda_args(x, dy)
+    from pcmseg_tpu_torch.ops.kernels.build import load_library
+
+    lib = load_library()
+    n, d, h, w, ci = x.shape
+    co = dy.shape[-1]
+    dev = x.device.index
+    out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
+    # fp32 split-K partials, for the layers whose (27·Ci, Co) output alone is
+    # too few tiles to fill the card
+    ws_bytes = lib.pcmseg_conv3x3_dw_workspace_bytes(n, d, h, w, ci, co, dev)
+    workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
+    rc = lib.pcmseg_conv3x3_dw_bf16(
+        x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+        None if workspace is None else workspace.data_ptr(), ws_bytes,
+        n, d, h, w, ci, co, torch.cuda.current_stream(x.device).cuda_stream, dev,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"conv3x3_dw launch failed: {lib.pcmseg_cuda_error_string(rc).decode()} "
+            f"(x {tuple(x.shape)}, Co={co})"
+        )
+    global launches
+    launches += 1
+    return out

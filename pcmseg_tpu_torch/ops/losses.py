@@ -1,0 +1,172 @@
+"""Binary segmentation losses in PyTorch, the port of ``pcmseg_tpu/ops/losses.py``.
+
+Same formulas and reductions as the JAX package (``losses.py:24-183``):
+sigmoid → global flatten over the whole batch → fp32 sums, whatever the
+logits' dtype (the sums run over up to 2 M voxels per sample). An optional
+(N,) 0/1 ``weight`` masks padded samples out: for the overlap losses their
+probabilities and targets are zeroed before the sums, for the per-voxel
+losses the mean runs over the real samples only. The multi-class (softmax)
+losses come with K-class training, in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def _acc_dtype(x: Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _sample_weight(weight: Tensor, like: Tensor) -> Tensor:
+    """(N,) per-sample weight → broadcastable (N, 1, ..., 1)."""
+    return weight.reshape((like.shape[0],) + (1,) * (like.dim() - 1)).to(_acc_dtype(like))
+
+
+def _masked(logits: Tensor, targets: Tensor, weight: Optional[Tensor]):
+    if logits.shape != targets.shape:
+        raise ValueError(
+            f"shape mismatch: logits {tuple(logits.shape)} vs targets {tuple(targets.shape)}"
+        )
+    probs = torch.sigmoid(logits.to(_acc_dtype(logits)))
+    t = targets.to(probs.dtype)
+    if weight is not None:
+        w = _sample_weight(weight, logits)
+        probs = probs * w
+        t = t * w
+    return probs, t
+
+
+def _weighted_mean(per_elem: Tensor, weight: Optional[Tensor]) -> Tensor:
+    if weight is None:
+        return per_elem.mean()
+    # samples all have the same voxel count, so the masked per-voxel mean is
+    # the weighted mean of the per-sample means
+    w = weight.to(per_elem.dtype)
+    per_sample = per_elem.mean(dim=tuple(range(1, per_elem.dim())))
+    return (per_sample * w).sum() / w.sum().clamp_min(1.0)
+
+
+def _neg_log_pt(logits: Tensor, targets: Tensor):
+    """Stable per-voxel BCE with logits: max(x,0) − x·t + log(1 + exp(−|x|))."""
+    x = logits.to(_acc_dtype(logits))
+    t = targets.to(x.dtype)
+    return x, t, F.relu(x) - x * t + torch.log1p(torch.exp(-x.abs()))
+
+
+def dice_loss(logits: Tensor, targets: Tensor, smooth: float = 1.0, weight=None) -> Tensor:
+    """``1 − (2·∩ + smooth) / (Σp + Σt + smooth)`` over the global flatten."""
+    probs, t = _masked(logits, targets, weight)
+    intersection = (probs * t).sum()
+    return 1.0 - (2.0 * intersection + smooth) / (probs.sum() + t.sum() + smooth)
+
+
+def bce_loss(logits: Tensor, targets: Tensor, weight=None) -> Tensor:
+    """Mean binary cross-entropy with logits (``BCEWithLogitsLoss``)."""
+    return _weighted_mean(_neg_log_pt(logits, targets)[2], weight)
+
+
+def bce_dice_loss(
+    logits: Tensor,
+    targets: Tensor,
+    bce_weight: float = 0.5,
+    dice_weight: float = 0.5,
+    smooth: float = 1.0,
+    weight=None,
+) -> Tensor:
+    return bce_weight * bce_loss(logits, targets, weight) + dice_weight * dice_loss(
+        logits, targets, smooth, weight
+    )
+
+
+def tversky_loss(
+    logits: Tensor,
+    targets: Tensor,
+    alpha: float = 0.3,
+    beta: float = 0.7,
+    smooth: float = 1.0,
+    weight=None,
+) -> Tensor:
+    """``1 − (TP + s) / (TP + α·FP + β·FN + s)`` over the global flatten."""
+    probs, t = _masked(logits, targets, weight)
+    tp = (probs * t).sum()
+    fp = probs.sum() - tp
+    fn = t.sum() - tp
+    return 1.0 - (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
+
+
+def focal_loss(
+    logits: Tensor, targets: Tensor, gamma: float = 2.0, alpha: float = 0.25, weight=None
+) -> Tensor:
+    """Binary focal loss ``−α_t (1 − p_t)^γ log p_t``, mean reduction."""
+    _, t, neg_log_pt = _neg_log_pt(logits, targets)
+    pt = torch.exp(-neg_log_pt)
+    alpha_t = alpha * t + (1.0 - alpha) * (1.0 - t)
+    return _weighted_mean(alpha_t * torch.pow(1.0 - pt, gamma) * neg_log_pt, weight)
+
+
+def focal_dice_loss(
+    logits: Tensor,
+    targets: Tensor,
+    focal_weight: float = 0.5,
+    dice_weight: float = 0.5,
+    gamma: float = 2.0,
+    alpha: float = 0.25,
+    smooth: float = 1.0,
+    weight=None,
+) -> Tensor:
+    return focal_weight * focal_loss(logits, targets, gamma, alpha, weight) + dice_weight * dice_loss(
+        logits, targets, smooth, weight
+    )
+
+
+def make_loss_fn(name: str, n_classes: int = 1, **kwargs) -> Callable:
+    """Loss factory keyed by config names (``losses.py:356``); the returned
+    function takes (logits, targets, weight=None)."""
+    if n_classes >= 2:
+        raise NotImplementedError(
+            f"n_classes={n_classes}: the multi-class (softmax) losses are not ported "
+            "to the PyTorch package yet"
+        )
+    smooth = kwargs.get("dice_smooth", 1.0)
+    if name == "dice":
+        return lambda logits, targets, weight=None: dice_loss(logits, targets, smooth, weight)
+    if name == "bce_dice":
+        return lambda logits, targets, weight=None: bce_dice_loss(
+            logits, targets, kwargs.get("bce_weight", 0.5), kwargs.get("dice_weight", 0.5),
+            smooth, weight,
+        )
+    if name == "tversky":
+        return lambda logits, targets, weight=None: tversky_loss(
+            logits, targets, kwargs.get("tversky_alpha", 0.3), kwargs.get("tversky_beta", 0.7),
+            smooth, weight,
+        )
+    if name == "focal":
+        return lambda logits, targets, weight=None: focal_loss(
+            logits, targets, kwargs.get("focal_gamma", 2.0), kwargs.get("focal_alpha", 0.25), weight
+        )
+    if name == "focal_dice":
+        return lambda logits, targets, weight=None: focal_dice_loss(
+            logits, targets, kwargs.get("bce_weight", 0.5), kwargs.get("dice_weight", 0.5),
+            kwargs.get("focal_gamma", 2.0), kwargs.get("focal_alpha", 0.25), smooth, weight,
+        )
+    raise ValueError(f"unknown loss: {name!r}")
+
+
+def loss_fn_from_config(config) -> Callable:
+    return make_loss_fn(
+        config.loss,
+        n_classes=config.n_classes,
+        dice_smooth=config.dice_smooth,
+        bce_weight=config.bce_weight,
+        dice_weight=config.dice_weight,
+        tversky_alpha=config.tversky_alpha,
+        tversky_beta=config.tversky_beta,
+        focal_gamma=config.focal_gamma,
+        focal_alpha=config.focal_alpha,
+    )

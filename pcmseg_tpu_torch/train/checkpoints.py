@@ -1,4 +1,5 @@
-"""Reference-layout ``.pth`` checkpoints and the JAX-parameter bridge.
+"""Reference-layout ``.pth`` checkpoints, the JAX-parameter bridge, and the
+trainer's checkpoints.
 
 The port's state dict is the reference PyTorch model's (module names in
 ``models/unet3d.py``), so the ``.pth`` files that
@@ -18,6 +19,7 @@ run time (``ops/kernels/conv3d.py::pack_weight``).
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -104,16 +106,87 @@ def save_pth(
     path: str, state_dict: Mapping[str, torch.Tensor], config: Optional[dict] = None
 ) -> str:
     """Write ``{'model_state_dict': ..., 'config': ...}`` atomically."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {"model_state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
     if config:
         payload["config"] = config
+    return _atomic_write(path, lambda tmp: torch.save(payload, tmp))
+
+
+def _atomic_write(path: str, write) -> str:
+    """``write(tmp)`` to a temporary name beside ``path``, then ``os.replace``
+    it into place, so an interrupted write leaves the previous file."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = os.path.join(os.path.dirname(path), f".tmp-{os.getpid()}-{os.path.basename(path)}")
     try:
-        torch.save(payload, tmp)
+        write(tmp)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+# ---- training checkpoints ----------------------------------------------------
+#
+# The Orbax half of ``pcmseg_tpu/train/checkpoints.py``: one file per name
+# (``latest``, ``best``, ``epoch_{e}``) holding the model state dict (BN
+# running statistics included), the optimizer state, the EMA, the step count
+# and the trainer's meta (epoch, history, best monitor, scheduler and early
+# stopping), written with ``torch.save`` to a temporary name and moved into
+# place with ``os.replace``, so an interrupted save leaves the previous file.
+
+TRAIN_SUFFIX = ".pt"
+
+
+def train_checkpoint_path(directory: str, name: str) -> str:
+    return os.path.join(os.path.abspath(os.path.expanduser(directory)), name + TRAIN_SUFFIX)
+
+
+def save_train_checkpoint(directory: str, name: str, state, meta: Optional[dict] = None) -> str:
+    """Write ``state`` (a ``train.steps.TrainState``) and ``meta`` under
+    ``{directory}/{name}.pt``; returns the path."""
+    payload = {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "ema": state.ema,
+        "step": state.step,
+        "meta": meta or {},
+    }
+    return _atomic_write(train_checkpoint_path(directory, name), lambda tmp: torch.save(payload, tmp))
+
+
+def copy_train_checkpoint(directory: str, src: str, dst: str) -> str:
+    """Duplicate checkpoint ``src`` as ``dst`` (a file copy, atomically
+    moved into place), without serializing the state again."""
+    src_path = train_checkpoint_path(directory, src)
+    return _atomic_write(train_checkpoint_path(directory, dst), lambda tmp: shutil.copyfile(src_path, tmp))
+
+
+def load_train_checkpoint(path: str, state) -> dict:
+    """Restore ``state`` in place from a ``save_train_checkpoint`` file (onto
+    the devices its tensors already live on); returns the meta dict. A
+    checkpoint without an EMA restarts the EMA from the restored params."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    if state.ema is not None:
+        ema = payload.get("ema") or {k: p.detach() for k, p in state.model.named_parameters()}
+        for k, v in state.ema.items():
+            v.copy_(ema[k])
+    return dict(payload.get("meta") or {})
+
+
+def prune_periodic(directory: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` ``epoch_{e}`` checkpoints (0 keeps all)."""
+    if keep <= 0:
+        return
+    directory = os.path.abspath(os.path.expanduser(directory))
+    found = []
+    for entry in os.listdir(directory):
+        stem = entry[: -len(TRAIN_SUFFIX)] if entry.endswith(TRAIN_SUFFIX) else ""
+        if stem.startswith("epoch_") and stem[len("epoch_"):].isdigit():
+            found.append((int(stem[len("epoch_"):]), entry))
+    for _, entry in sorted(found)[:-keep]:
+        os.remove(os.path.join(directory, entry))

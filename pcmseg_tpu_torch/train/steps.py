@@ -1,0 +1,236 @@
+"""Train and eval steps, the port of ``pcmseg_tpu/train/steps.py`` (binary head).
+
+One train step: forward with batch-statistics BatchNorm → loss → backward
+→ clip by global norm → Adam with coupled L2 weight decay → EMA, with the
+BN running statistics updated by each forward. Every 3³ conv of the forward
+and of the backward runs a hand-written kernel on CUDA tensors
+(``ops/hybrid_conv.py``).
+
+Optimizer parity with the JAX chain (``steps.py:57-73``):
+``clip_by_global_norm → add_decayed_weights → scale_by_adam → −lr``. The
+clip is applied to the gradients before ``torch.optim.Adam`` runs, with
+optax's formula ``g / ‖g‖ · max_norm`` when ‖g‖ ≥ max_norm (no ``+ 1e-6`` as
+in ``clip_grad_norm_``); Adam's ``weight_decay`` adds ``wd·p`` to the clipped
+gradient before the moments, which is optax's ``add_decayed_weights`` (coupled
+L2, not AdamW). The learning rate lives in the param group.
+
+Metrics stay device tensors so the trainer can fetch a step's loss after
+the next step is queued.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
+from pcmseg_tpu_torch.ops.metrics import per_sample_dice_iou
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and BN running statistics), its optimizer, the
+    EMA of the parameters (None when ``ema_decay`` is 0) and the count of
+    optimizer steps taken."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    step: int = 0
+
+
+def make_optimizer(model: nn.Module, config) -> torch.optim.Adam:
+    if config.optimizer != "adam":
+        raise ValueError(f"unsupported optimizer: {config.optimizer!r}")
+    return torch.optim.Adam(
+        model.parameters(),
+        lr=config.learning_rate,
+        betas=tuple(config.betas),
+        eps=config.eps,
+        weight_decay=config.weight_decay,
+    )
+
+
+def create_train_state(model: nn.Module, config) -> TrainState:
+    ema = None
+    if config.ema_decay > 0:
+        ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return TrainState(model=model, optimizer=make_optimizer(model, config), ema=ema)
+
+
+def get_learning_rate(state: TrainState) -> float:
+    return float(state.optimizer.param_groups[0]["lr"])
+
+
+def set_learning_rate(state: TrainState, lr: float) -> None:
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ ‖t‖²) over the list, as optax's ``global_norm``."""
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """optax's ``clip_by_global_norm``, in place and without a host sync:
+    each g becomes ``g / norm * max_norm`` when ``norm >= max_norm``."""
+    clip = norm >= max_norm
+    den = torch.where(clip, norm, torch.ones_like(norm))
+    num = torch.where(clip, torch.full_like(norm, max_norm), torch.ones_like(norm))
+    for g in grads:
+        g.div_(den).mul_(num)
+
+
+def apply_gradients(state: TrainState, max_norm: float) -> torch.Tensor:
+    """The optimizer update from each parameter's ``grad``, flax's
+    ``TrainState.apply_gradients`` over the JAX optimizer chain: optax's
+    clip by global norm when ``max_norm`` > 0, then Adam with coupled L2.
+    Counts the step. Returns the global norm before clipping."""
+    grads = [p.grad for p in state.model.parameters() if p.requires_grad]
+    norm = global_norm(grads)
+    if max_norm > 0:
+        clip_by_global_norm_(grads, norm, max_norm)
+    state.optimizer.step()
+    state.step += 1
+    return norm
+
+
+def align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Labels shaped like ``logits`` (``steps.py:155-169``): add the trailing
+    channel dim if missing, then nearest-resize each differing spatial dim
+    with ``jax.image.resize``'s half-pixel rule: source index
+    ``floor((i + 0.5) · in / out)``, in exact integer arithmetic."""
+    if labels.dim() == logits.dim() - 1:
+        labels = labels[..., None]
+    for axis in range(1, logits.dim() - 1):
+        m, n = labels.shape[axis], logits.shape[axis]
+        if m != n:
+            idx = (2 * torch.arange(n) + 1) * m // (2 * n)
+            labels = labels.index_select(axis, idx.to(labels.device))
+    return labels
+
+
+def unported_training_options(config) -> List[str]:
+    """The config's training options that this package has not ported."""
+    refused = []
+    for name in ("data_parallel", "spatial_parallel", "tensor_parallel"):
+        if getattr(config, name) > 1:
+            refused.append(f"{name}={getattr(config, name)}")
+    if config.async_checkpoint:
+        refused.append("async_checkpoint")
+    if config.profile_dir:
+        refused.append("profile_dir (profiling)")
+    if config.n_classes >= 2:
+        refused.append(f"n_classes={config.n_classes} (K-class training)")
+    if config.deep_supervision:
+        refused.append("deep_supervision")
+    if config.norm_layer != "batch":
+        refused.append(f"norm_layer={config.norm_layer!r}")
+    return refused
+
+
+def refuse_unported_training(config) -> None:
+    refused = unported_training_options(config)
+    if refused:
+        raise NotImplementedError("not ported to the PyTorch package yet: " + ", ".join(refused))
+
+
+def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None) -> Callable:
+    """(state, batch) -> {'loss', 'grad_norm'} (device tensors), updating
+    ``state`` in place.
+
+    ``batch`` holds 'image' (N, D, H, W, C), 'label' (N, D, H, W[, 1]) and
+    optionally 'weight' (N,) 0/1, which masks padded samples out of the
+    loss. With ``accum_steps`` > 1 the batch runs as that many microbatches
+    in order, each forward updating the BN running statistics; the gradients
+    are summed and divided by ``accum_steps`` and the loss is the mean of
+    the microbatch losses (``steps.py:244-276``). ``grad_norm`` is the global
+    norm before clipping.
+    """
+    refuse_unported_training(config)
+    loss_fn = loss_fn or loss_fn_from_config(config)
+    accum = max(1, int(config.accum_steps))
+    ema_decay = float(config.ema_decay)
+    clip = float(config.grad_clip_norm or 0.0)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        images = batch["image"]
+        labels = align_labels(images[..., :1], batch["label"])
+        weight = batch.get("weight")
+        model.train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        if accum == 1:
+            out = model(images)
+            loss = loss_fn(out, align_labels(out, labels), weight)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            if images.shape[0] % accum:
+                raise ValueError(
+                    f"batch size {images.shape[0]} not divisible by accum_steps={accum}"
+                )
+            micro = images.shape[0] // accum
+            if weight is None:
+                weight = torch.ones(images.shape[0], device=images.device)
+            loss = torch.zeros((), device=images.device)
+            for i in range(accum):
+                sl = slice(i * micro, (i + 1) * micro)
+                out = model(images[sl])
+                part = loss_fn(out, align_labels(out, labels[sl]), weight[sl])
+                part.backward()
+                loss = loss + part.detach()
+            loss = loss / accum
+            for p in params:
+                p.grad.div_(accum)
+        norm = apply_gradients(state, clip)
+        if state.ema is not None:
+            # Polyak average with tf-style warmup; t counts steps after this one
+            t = state.step
+            d = min(ema_decay, (1.0 + t) / (10.0 + t))
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+        return {"loss": loss, "grad_norm": norm}
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, config, loss_fn: Optional[Callable] = None) -> Callable:
+    """(state, batch) -> {'loss', 'dice', 'iou', 'dice_sum', 'iou_sum',
+    'weight_sum'}: the batch loss with the running statistics, and Dice/IoU
+    per sample at ``config.threshold`` (``steps.py:389-414``). With EMA on
+    (and ``ema_eval``) the averaged parameters are scored."""
+    refuse_unported_training(config)
+    loss_fn = loss_fn or loss_fn_from_config(config)
+    threshold = config.threshold
+    use_ema = config.ema_decay > 0 and config.ema_eval
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        images, weight = batch["image"], batch.get("weight")
+        model.eval()
+        if use_ema and state.ema is not None:
+            logits = torch.func.functional_call(model, state.ema, (images,))
+        else:
+            logits = model(images)
+        labels = align_labels(logits, batch["label"])
+        loss = loss_fn(logits, labels, weight)
+        pred = (torch.sigmoid(logits.float()) > threshold).float()
+        dice, iou = per_sample_dice_iou(pred, labels)
+        w = weight.float() if weight is not None else torch.ones_like(dice)
+        return {
+            "loss": loss,
+            "dice": dice,
+            "iou": iou,
+            "dice_sum": (dice * w).sum(),
+            "iou_sum": (iou * w).sum(),
+            "weight_sum": w.sum(),
+        }
+
+    return eval_step

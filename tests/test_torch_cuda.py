@@ -118,3 +118,92 @@ def test_tiled_predict_on_the_card_matches_whole_volume(cuda_device):
         whole = model.predict(x[None])[0]
     # one window covers the volume: the blend divides by its own weight
     assert torch.allclose(tiled, whole, atol=1e-6)
+
+
+# ---- the training path: weight-gradient kernel, conv Function, train step ----
+
+
+@pytest.mark.parametrize(
+    "n,spatial,ci,co",
+    [
+        (1, (16, 16, 16), 5, 64),  # the input conv: scalar gather, M = 135 padded
+        (2, (9, 7, 13), 8, 24),  # 8-row groups spanning taps, ragged K and Co
+        (1, (5, 6, 7), 40, 16),
+        (1, (8, 8, 8), 1024, 1024),  # the bottleneck: many blocks, no split
+        (1, (32, 32, 32), 64, 64),  # split over voxels, fixed-order reduce
+        (2, (16, 16, 16), 256, 512),
+    ],
+)
+def test_dw_kernel_matches_plain(cuda_device, n, spatial, ci, co):
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co)
+    x = torch.randn((n, *spatial, ci), generator=g, device=cuda_device).to(torch.bfloat16)
+    dy = torch.randn((n, *spatial, co), generator=g, device=cuda_device).to(torch.bfloat16)
+    before = conv3d_grad.launches
+    got = conv3d_grad.conv3x3_dw(x, dy)
+    again = conv3d_grad.conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert conv3d_grad.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, ci, co)
+    assert torch.equal(got, again)  # the split-K partials are summed in a fixed order
+    want = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
+    # fp32 sums of the same bf16 products in another order
+    assert (got - want).abs().max().item() <= 2e-3 * want.abs().max().item()
+
+
+def test_dw_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    x = torch.zeros(1, 4, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv3d_grad.conv3x3_dw(x.float(), x.float())
+    with pytest.raises(ValueError):
+        conv3d_grad.conv3x3_dw(x, x[..., :4].contiguous())  # Co % 8 != 0
+    with pytest.raises(ValueError):
+        conv3d_grad.conv3x3_dw(x, x[:, :2].contiguous())  # spatial mismatch
+    with pytest.raises(ValueError):
+        conv3d_grad.conv3x3_dw(x.transpose(1, 2), x)  # not contiguous
+
+
+def test_conv_function_on_the_card_matches_fp32(cuda_device):
+    from pcmseg_tpu_torch.ops import hybrid_conv
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((2, 12, 10, 16, 32), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((64, 32, 3, 3, 3), generator=g, device=cuda_device) * 0.05
+    b = torch.randn((64,), generator=g, device=cuda_device)
+    dy = torch.randn((2, 12, 10, 16, 64), generator=g, device=cuda_device).to(torch.bfloat16)
+    results = []
+    for dtype, fn in ((torch.bfloat16, hybrid_conv.conv3x3), (torch.float32, hybrid_conv.conv3x3_plain)):
+        xi = x.to(dtype).detach().requires_grad_()
+        wi, bi = w.clone().requires_grad_(), b.clone().requires_grad_()
+        b1, b2 = conv3d.launches, conv3d_grad.launches
+        y = fn(xi, wi, bi, conv3d.pack_weight(w, dtype))
+        y.backward(dy.to(dtype))
+        if dtype == torch.bfloat16:
+            assert (conv3d.launches - b1, conv3d_grad.launches - b2) == (2, 1)  # forward + dx, dW
+        results.append([t.float() for t in (y, xi.grad, wi.grad, bi.grad)])
+    for name, got, want in zip(("y", "dx", "dw", "db"), *results):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), (name, err)  # bf16 operands and outputs
+
+
+def test_train_step_on_the_card_launches_every_kernel(cuda_device):
+    from pcmseg_tpu.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    config = get_config(base_features=8, batch_size=2, accum_steps=2, remat=True)
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    state = create_train_state(model, config)
+    batch = {"image": torch.randn((2, 32, 32, 32, 5), device=cuda_device).to(torch.bfloat16),
+             "label": (torch.rand((2, 32, 32, 32, 1), device=cuda_device) > 0.7).to(torch.uint8)}
+    b1, b2 = conv3d.launches, conv3d_grad.launches
+    metrics = make_train_step(model, config)(state, batch)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))
+    # per microbatch: 18 forward, 18 recomputed (remat), 17 dx; 18 dW
+    assert conv3d.launches - b1 == 2 * (18 + 18 + 17)
+    assert conv3d_grad.launches - b2 == 2 * 18

@@ -120,8 +120,8 @@ def test_guards():
         model(torch.zeros(1, 16, 8, 16, 5))
     with pytest.raises(NotImplementedError):
         UNet3D(base_features=4, norm_layer="group")
-    with pytest.raises(NotImplementedError, match="eval"):
-        model.train()(torch.zeros(1, 16, 16, 16, 5))
+    with pytest.raises(ValueError, match=">= 16"):  # the guard holds in training mode too
+        model.train()(torch.zeros(1, 16, 16, 8, 5))
 
 
 def test_packed_weight_follows_loads_and_edits():

@@ -1,6 +1,7 @@
-"""pcmseg_tpu_torch runs with JAX absent: every module imports, and a tiny
-Predictor segments a volume on the CPU, with jax, flax, optax, orbax and
-ml_dtypes blocked in sys.modules of a fresh interpreter."""
+"""pcmseg_tpu_torch runs with JAX absent: every module imports, a tiny
+Predictor segments a volume and a train step runs on the CPU, with jax,
+flax, optax, orbax and ml_dtypes blocked in sys.modules of a fresh
+interpreter."""
 
 import os
 import subprocess
@@ -47,6 +48,20 @@ SCRIPT = textwrap.dedent(
         assert main(["predict", "--model_path", pth, "--input_dir", case,
                      "--output_dir", os.path.join(d, "out")]) == 0
         assert os.path.exists(os.path.join(d, "out", "segmentation.nii.gz"))
+    # one train step (forward, loss, backward, clip, Adam, BN statistics)
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    train_cfg = get_config(base_features=4, compute_dtype="float32", batch_size=2, accum_steps=2)
+    model = UNet3D.from_config(train_cfg, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, train_cfg)
+    rng = np.random.default_rng(1)
+    batch = {"image": torch.from_numpy(rng.normal(size=(2, 16, 16, 16, 5)).astype(np.float32)),
+             "label": torch.from_numpy((rng.random((2, 16, 16, 16, 1)) > 0.5).astype(np.uint8))}
+    before = model.inc.conv[0].weight.detach().clone()
+    metrics = make_train_step(model, train_cfg)(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    assert not torch.equal(before, model.inc.conv[0].weight)
+    assert int(model.inc.conv[1].num_batches_tracked) == 2
     print("modules", len(modules))
     """
 )
@@ -60,4 +75,4 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
-    assert n_modules >= 15
+    assert n_modules >= 25

@@ -209,7 +209,8 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys):
             "--output_dir", out, "--base_features", "4"]
     assert torch_main(argv) == 0
     assert read_volume(os.path.join(out, "segmentation.nii.gz")).shape == CASE_SHAPES["case_b"]
-    for verb in (["train"], ["validate", "--model_path", pth], ["check"]):
+    for verb in (["export", "--model_path", pth, "--output", str(tmp_path / "x.pth")],
+                 ["validate", "--model_path", pth], ["check"]):
         assert torch_main(verb) != 0
         assert "not yet ported" in capsys.readouterr().err
 
