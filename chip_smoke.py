@@ -14,13 +14,17 @@ model's full width and checks every hand-written kernel on them:
      off, at N=1 and N=4, against its plain PyTorch version in fp32 from the
      same bf16 inputs, with max|kernel − ref| ≤ 8e-3·|ref| + 1e-3·max|ref|
      (one bf16 rounding plus fp32 reassociation); median CUDA-event times at
-     N=1 of the kernel, the plain version and cuDNN's conv alone;
+     N=1 of the kernel, the plain version and cuDNN's conv alone, and each
+     shape's TFLOP/s and share of its bound (the larger of its FLOP at the
+     card's 989 TFLOP/s and its bytes, each input read once and each output
+     written once, at 3.35 TB/s);
   4. B1 as dx: the 17 transposed shapes (relu off, no bias), same bound;
+     times beside the plain version and cuDNN's data gradient alone;
   5. B2 (weight gradient) vs plain: the 14 shapes at N=1, bf16 inputs,
      against the plain version in fp32, max|kernel − ref| ≤ 2e-3·max|ref|
      (fp32 sums of up to 2.1 M bf16 products in another order), two launches
      bitwise equal; times of the kernel, the plain version and cuDNN's
-     weight gradient alone;
+     weight gradient alone, TFLOP/s and share of the bound;
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
@@ -60,7 +64,9 @@ model's full width and checks every hand-written kernel on them:
 
 Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
-before doing anything. The last lines are the kernels' JSON record, the
+before doing anything. The last lines are the kernels' JSON record (per
+kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
+call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use), the
 nvidia-smi line, and the device JSON.
 """
 
@@ -98,6 +104,10 @@ PLAIN_MEAN_DP = 1e-2
 # profile phase: 128³ cases in the warm run_once, forwards under torch.profiler
 PROFILE_CASES = 4
 PROFILE_FORWARDS = 5
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): dense bf16 tensor
+# rate and HBM3 bandwidth, for the least time a conv could take
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -110,6 +120,36 @@ def card_label() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False):
+    """(least ms, FLOP, whether the operations and not the bytes bound it)
+    of one 3³ conv at these shapes on one H100: the larger of its FLOP at
+    PEAK_FLOPS and its bytes at PEAK_BYTES, each input read once and each
+    output written once. Forward and dx read x (or dy) and the bf16 weight
+    and write y (or dx), plus the fp32 bias; dW reads x and dy and writes
+    the fp32 (27, Ci, Co) gradient. Ci is the real channel count (5 at the
+    input conv, not the 8 the kernel reads)."""
+    vox = n * size**3
+    flop = 2 * 27 * ci * co * vox
+    moved = 2 * vox * (ci + co) + (4 * 27 * ci * co if dw else 2 * 27 * ci * co + 4 * co)
+    ops_s, bytes_s = flop / PEAK_FLOPS, moved / PEAK_BYTES
+    return max(ops_s, bytes_s) * 1e3, flop, ops_s >= bytes_s
+
+
+def shape_line(k_ms: float, bound_ms: float, flop: int) -> str:
+    return f"kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s, {bound_ms / k_ms:.3f} of the bound {bound_ms:.4f} ms)"
+
+
+def summed(rows) -> dict:
+    """Sums over layers of [(layers, kernel ms, plain ms, library ms, bound ms,
+    ops-bound ms)]: the JSON record's times."""
+    ms = sum(n * k for n, k, *_ in rows)
+    ops = sum(n * o for n, *_, o in rows)
+    bound = sum(n * b for n, _, _, _, b, _ in rows)
+    return {"ms": ms, "plain_ms": sum(n * p for n, _, p, *_ in rows),
+            "library_ms": sum(n * c for n, _, _, c, *_ in rows), "bound_ms": bound,
+            "bound_by": "operations" if ops >= bound / 2 else "bytes"}
 
 
 def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -136,7 +176,7 @@ def check_kernels(device, card: str, batches) -> dict:
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(0)
     for ci, co, s, layers in CONV_SHAPES:
         w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
@@ -165,22 +205,23 @@ def check_kernels(device, card: str, batches) -> dict:
         w5 = conv3d.unpack_weight(packed, ci).contiguous(memory_format=torch.channels_last_3d)
         xc = x.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: F.conv3d(xc, w5, padding=1))
-        flop = 2 * 27 * ci * co * s**3 * batches[0]
+        bound, flop, ops = conv_bound(ci, co, s, batches[0])
         log(f"conv {ci}->{co} @{s}^3 x{layers}: ok at N={'/'.join(map(str, batches))}, "
-            f"max_abs_err {shape_err:.4g}; N={batches[0]}: kernel {k_ms:.4f} ms "
-            f"({flop / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, cudnn conv alone "
-            f"{c_ms:.4f} ms [{card}]")
-        ms += layers * k_ms
-        plain_ms += layers * p_ms
+            f"max_abs_err {shape_err:.4g}; N={batches[0]}: {shape_line(k_ms, bound, flop)}, "
+            f"plain {p_ms:.4f} ms, cudnn conv alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, w, b, packed
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    out = {"max_abs_err": max_err, **summed(rows)}
+    log(f"forward, 18 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+        f"cudnn conv alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
+    return out
 
 
 def write_cases(root: str, modalities) -> None:
     """Synthetic int16 MRI-like volumes: a bright ellipsoid plus noise."""
     import numpy as np
 
-    from pcmseg_tpu.data.nifti import write_nifti
+    from pcmseg_tpu_torch.data.nifti import write_nifti
 
     rng = np.random.default_rng(0)
     for case_id, shape in CASES.items():
@@ -244,7 +285,7 @@ def serve(work: str, config, device, card: str):
     import numpy as np
     import torch
 
-    from pcmseg_tpu.data.io import read_volume
+    from pcmseg_tpu_torch.data.io import read_volume
     from pcmseg_tpu_torch.infer.serve import PredictionServer
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
@@ -476,7 +517,7 @@ def check_dw_kernels(device, card: str) -> dict:
 
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
 
-    max_err, ms, plain_ms, cudnn_ms = 0.0, 0.0, 0.0, 0.0
+    max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(1)
     for ci, co, s, layers in CONV_SHAPES:
         x = torch.randn((1, s, s, s, ci), generator=g, device=device).to(torch.bfloat16)
@@ -498,27 +539,26 @@ def check_dw_kernels(device, card: str) -> dict:
         p_ms = median_ms(lambda: conv3d_grad.conv3x3_dw_reference(x, dy))
         xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), dyc, padding=1))
-        flop = 2 * 27 * ci * co * s**3
+        least, flop, ops = conv_bound(ci, co, s, dw=True)
         log(f"dW {ci}->{co} @{s}^3 x{layers}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise "
-            f"repeat; kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
-            f"cudnn wgrad alone {c_ms:.4f} ms [{card}]")
-        ms += layers * k_ms
-        plain_ms += layers * p_ms
-        cudnn_ms += layers * c_ms
+            f"repeat; {shape_line(k_ms, least, flop)}, plain {p_ms:.4f} ms, cudnn wgrad alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, least, least if ops else 0.0))
         del x, dy
-    log(f"dW, 18 layers of one 128^3 microbatch: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"cudnn wgrad alone {cudnn_ms:.3f} ms [{card}]")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "cudnn_ms": cudnn_ms}
+    out = {"max_abs_err": max_err, **summed(rows)}
+    log(f"dW, 18 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+        f"cudnn wgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
+    return out
 
 
 def check_dx_kernels(device, card: str) -> dict:
     """B1 as dx (relu off, no bias) at the 17 transposed shapes, N=1, against
-    its plain version, with B1's bound; median times."""
+    its plain version, with B1's bound; median times of the kernel, the
+    plain version and cuDNN's data gradient alone."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(2)
     for ci, co, s, layers in DX_SHAPES:
         dy = torch.randn((1, s, s, s, ci), generator=g, device=device).to(torch.bfloat16)
@@ -536,12 +576,22 @@ def check_dx_kernels(device, card: str) -> dict:
         del got, ref, err, bound
         k_ms = median_ms(lambda: conv3d.conv3x3x3(dy, packed, None, False))
         p_ms = median_ms(lambda: conv3d.conv3x3x3_reference(dy, packed, None, False))
-        log(f"dx {ci}->{co} @{s}^3 x{layers}: ok; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
-        ms += layers * k_ms
-        plain_ms += layers * p_ms
-        del dy, w, packed
-    log(f"dx, 17 layers of one 128^3 microbatch: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        # cuDNN's data gradient of the layer (ci <- co here), as autograd
+        # calls it: the layer's own weight and a real channels-last input
+        w_bf = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        dyc = dy.permute(0, 4, 1, 2, 3)
+        xc = torch.empty((1, s, s, s, co), dtype=torch.bfloat16, device=device).permute(0, 4, 1, 2, 3)
+        c_ms = median_ms(lambda: torch.ops.aten.convolution_backward(
+            dyc, xc, w_bf, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)))
+        bound, flop, ops = conv_bound(ci, co, s)
+        log(f"dx {ci}->{co} @{s}^3 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
+            f"cudnn dgrad alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
+        del dy, w, packed, w_bf, dyc, xc
+    out = {"max_abs_err": max_err, **summed(rows)}
+    log(f"dx, 17 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+        f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
+    return out
 
 
 @contextlib.contextmanager
@@ -763,7 +813,7 @@ def write_train_tree(root: str, modalities, n_cases: int) -> None:
     ({root}/BPH-PCA/BPH/{modality}/{case}.nii.gz, labels under ROI(BPH+PCA))."""
     import numpy as np
 
-    from pcmseg_tpu.data.nifti import write_nifti
+    from pcmseg_tpu_torch.data.nifti import write_nifti
 
     rng = np.random.default_rng(3)
     shape = TRAIN["target_size"]
@@ -800,7 +850,7 @@ def train(work: str, device, card: str):
     import numpy as np
     import torch
 
-    from pcmseg_tpu.core.config import get_config
+    from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.infer.predict import Predictor
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
     from pcmseg_tpu_torch.train.checkpoints import train_checkpoint_path
@@ -859,7 +909,7 @@ def train(work: str, device, card: str):
         os.makedirs(os.path.join(case, m))
         shutil.copy(os.path.join(data, "BPH-PCA", "BPH", m, "case000.nii.gz"), os.path.join(case, m, "t.nii.gz"))
     out = predictor.predict_and_save(case, os.path.join(work, "served", "segmentation.nii.gz"))
-    from pcmseg_tpu.data.io import read_volume
+    from pcmseg_tpu_torch.data.io import read_volume
 
     mask = read_volume(out).data
     if mask.dtype != np.uint8 or mask.shape != TRAIN["target_size"]:
@@ -879,7 +929,7 @@ def time_steps(device, card: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from pcmseg_tpu.core.config import get_config
+    from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
@@ -955,8 +1005,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from pcmseg_tpu.core.config import get_config
-    from pcmseg_tpu.data.native import get_native_lib
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.data.native import get_native_lib
     from pcmseg_tpu_torch.ops.kernels import build
 
     device = torch.device("cuda")
@@ -997,10 +1047,9 @@ def main() -> int:
             "launches": train_launches[0],
             "launches_by_path": {"train": train_launches[0], "serve": serve_launches},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
-            "ms": record["ms"],
-            "plain_ms": record["plain_ms"],
-            "dx_ms": dx["ms"],
-            "dx_plain_ms": dx["plain_ms"],
+            # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
+            **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"dx_{k}": dx[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
         {
             "name": "conv3x3_dw",

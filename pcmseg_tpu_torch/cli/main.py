@@ -1,8 +1,10 @@
 """Command line of the PyTorch package: ``train``, ``predict`` and ``serve``.
 
-The flags are the JAX package's own (``pcmseg_tpu.cli.main.build_parser``
-and ``_config_from_args``), so a command line moves between the two
-packages unchanged. The other verbs are not ported yet and exit non-zero.
+The flags are the JAX package's own (copied into ``cli/parser.py``), so a
+command line moves between the two packages unchanged, plus ``--device
+{cuda,cpu}`` (default ``cuda``; without a card the commands fail unless
+given ``--device cpu``). The other verbs are not ported yet and exit
+non-zero.
 
     python -m pcmseg_tpu_torch train --data_dir DATA --save_dir CKPT [--epochs N ...]
     python -m pcmseg_tpu_torch predict --model_path m.pth --input_dir CASE --output_dir OUT
@@ -16,7 +18,7 @@ import sys
 import traceback
 from typing import List, Optional
 
-from pcmseg_tpu.cli.main import _config_from_args, build_parser
+from pcmseg_tpu_torch.cli.parser import _config_from_args, build_parser
 
 PORTED = ("train", "predict", "serve")
 
@@ -35,7 +37,7 @@ def cmd_train(args) -> int:
     config = _config_from_args(args, preset=args.preset)
     if getattr(args, "data_augmentation", False):
         config = config.replace(data_augmentation=True)
-    history = Trainer(config).train()
+    history = Trainer(config, device=args.device).train()
     print(f"trained {len(history['train_loss'])} epochs; checkpoints in {config.save_dir}")
     return 0
 
@@ -44,7 +46,7 @@ def cmd_predict(args) -> int:
     from pcmseg_tpu_torch.infer.predict import Predictor
 
     config, explicit = _config_from_args(args, with_explicit=True)
-    predictor = Predictor(config, args.model_path, explicit=explicit)
+    predictor = Predictor(config, args.model_path, explicit=explicit, device=args.device)
     out = predictor.predict_and_save(
         args.input_dir,
         os.path.join(args.output_dir, args.output_name),
@@ -70,6 +72,7 @@ def cmd_serve(args) -> int:
         output_name=args.output_name,
         explicit=explicit,
         min_age=min_age,
+        device=args.device,
     )
     if args.once:
         stats = server.run_once()

@@ -26,9 +26,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pcmseg_tpu.core.config import DEFAULT_MODALITIES
-from pcmseg_tpu.data.io import ALL_EXTS, read_header, read_volume, strip_ext
-from pcmseg_tpu.data.resample import normalize_intensity, resample_array
+from pcmseg_tpu_torch.core.config import DEFAULT_MODALITIES
+from pcmseg_tpu_torch.data.io import ALL_EXTS, read_header, read_volume, strip_ext
+from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
 
 LABEL_DIR = "ROI(BPH+PCA)"
 
@@ -280,7 +280,7 @@ class ProstateDataset:
                 return np.zeros(self.target_size, dtype=np.float32)
             raise
         if ref_vol is not None:
-            from pcmseg_tpu.data.resample import resample_to_grid
+            from pcmseg_tpu_torch.data.resample import resample_to_grid
 
             vol = resample_to_grid(vol, ref_vol, mode="linear")
         data = resample_array(vol.data, self.target_size, mode="linear")
@@ -325,7 +325,7 @@ class ProstateDataset:
 
         label_vol = read_volume(rec.label_path)
         if ref_vol is not None:
-            from pcmseg_tpu.data.resample import resample_to_grid
+            from pcmseg_tpu_torch.data.resample import resample_to_grid
 
             label_vol = resample_to_grid(label_vol, ref_vol, mode="nearest")
         label = resample_array(label_vol.data, self.target_size, mode="nearest")

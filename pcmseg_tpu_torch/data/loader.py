@@ -4,7 +4,7 @@ The port of ``pcmseg_tpu/data/loader.py`` (``:27-235``, ``:284-310``):
 ``DataLoader`` with the same ``(seed + epoch)`` shuffle, ``_padded_plan``
 padding (ragged tail batches cycle real samples and mark them weight 0),
 the bounded window of threaded decodes and ``set_epoch`` for resume. The
-host ``Augmenter`` is the JAX package's (``pcmseg_tpu.data.augment``),
+host ``Augmenter`` is the port's copy of the JAX package's (``data/augment.py``),
 called per (epoch, index) as there, its float32 output rounded back to
 bf16 values. ``prefetch_to_device`` replaces
 ``background_prefetch`` and ``jax.device_put``: one producer thread,

@@ -30,12 +30,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pcmseg_tpu.core.config import Config, DEFAULT_MODALITIES
-from pcmseg_tpu.data.io import ALL_EXTS, read_volume, write_volume
-from pcmseg_tpu.data.native import native_normalize_into
-from pcmseg_tpu.data.resample import normalize_intensity, resample_array
-from pcmseg_tpu.data.volume import Volume
-from pcmseg_tpu.utils.logging import get_logger
+from pcmseg_tpu_torch.core.config import Config, DEFAULT_MODALITIES
+from pcmseg_tpu_torch.data.io import ALL_EXTS, read_volume, write_volume
+from pcmseg_tpu_torch.data.native import native_normalize_into
+from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
+from pcmseg_tpu_torch.data.volume import Volume
+from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.infer.fold_bn import fold_batchnorm, has_batchnorm
 from pcmseg_tpu_torch.infer.sliding_window import make_sliding_window
 from pcmseg_tpu_torch.infer.validate import (
@@ -101,7 +101,7 @@ def load_multimodal_images(
                 )
             vol = reference
         if coregister:
-            from pcmseg_tpu.data.resample import grids_match, resample_to_grid
+            from pcmseg_tpu_torch.data.resample import grids_match, resample_to_grid
 
             if not grids_match(vol, reference):
                 vol = resample_to_grid(vol, reference, mode="linear")
@@ -160,13 +160,22 @@ def unported_options(config: Config) -> List[str]:
     return refused
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """``device``, by default the current CUDA device. A CUDA device without
+    a card raises: the port runs on the CPU only when the caller asks for
+    it (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device=\"cpu\" (--device cpu on the command line) "
+            "to run on the CPU"
+        )
+    return device
 
 
 class Predictor:
     """Loads one ``.pth`` checkpoint once and segments cases on ``device``
-    (default: the current CUDA device, else the CPU)."""
+    (default: the current CUDA device; without one, pass ``device="cpu"``)."""
 
     def __init__(
         self,
@@ -191,7 +200,7 @@ class Predictor:
             )
         self.config = config
         self.log = get_logger("pcmseg.predict")
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self.dtype = DTYPES[config.compute_dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotImplementedError(

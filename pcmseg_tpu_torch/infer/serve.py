@@ -23,8 +23,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
-from pcmseg_tpu.core.config import Config
-from pcmseg_tpu.utils.logging import get_logger
+from pcmseg_tpu_torch.core.config import Config
+from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.infer.predict import Predictor, _find_volume_file
 
 

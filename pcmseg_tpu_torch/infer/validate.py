@@ -12,8 +12,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from pcmseg_tpu.core.config import Config
-from pcmseg_tpu.utils.logging import get_logger
+from pcmseg_tpu_torch.core.config import Config
+from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.models.unet3d import UNet3D
 from pcmseg_tpu_torch.train.checkpoints import load_pth
 

@@ -7,9 +7,11 @@ hand-written ``sm_90a`` kernel (``csrc/conv3x3x3.cu``); a CPU tensor goes to
 fallback from one to the other.
 
 Weights are packed once per load (``pack_weight``) from the module layout
-(Co, Ci, 3, 3, 3) into the kernel's (Co, Kpad) GEMM matrix: column
-``tap * Ci + ci`` with ``tap = (kd * 3 + kh) * 3 + kw``, zero-padded to a
-multiple of the kernel's K tile.
+(Co, Ci, 3, 3, 3) into the kernel's (Co, 27 * ci_pad(Ci)) GEMM matrix:
+column ``tap * ci_pad(Ci) + ci`` with ``tap = (kd * 3 + kh) * 3 + kw``. The
+kernel reads x in 64-channel chunks, or as one 8-channel slab: the channels
+are padded with zeros to 8 (Ci <= 8, the 5-modality input conv) or to a
+multiple of 64, in the packed weight and, by the wrapper, in x.
 """
 
 from __future__ import annotations
@@ -19,14 +21,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-BK = 32  # the kernel's K tile; the packed weight's K is padded to it
-
 # kernel launches since the count was last set to 0 (CPU calls not counted)
 launches = 0
 
 
+def ci_pad(ci: int) -> int:
+    """The channel count the kernels read: 8 for Ci <= 8, else Ci rounded up to 64."""
+    return 8 if ci <= 8 else -(-ci // 64) * 64
+
+
 def packed_k(ci: int) -> int:
-    return -(-27 * ci // BK) * BK
+    return 27 * ci_pad(ci)
+
+
+def pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """x (..., Ci) with its channels zero-padded to ci_pad(Ci) (x itself if none)."""
+    ci = x.shape[-1]
+    return x if ci == ci_pad(ci) else F.pad(x, (0, ci_pad(ci) - ci)).contiguous()
 
 
 def pack_weight(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -34,15 +45,15 @@ def pack_weight(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> to
     if weight.dim() != 5 or tuple(weight.shape[2:]) != (3, 3, 3):
         raise ValueError(f"expected a (Co, Ci, 3, 3, 3) weight, got {tuple(weight.shape)}")
     co, ci = weight.shape[:2]
-    packed = weight.new_zeros((co, packed_k(ci)), dtype=dtype or weight.dtype)
-    packed[:, : 27 * ci] = weight.permute(0, 2, 3, 4, 1).reshape(co, 27 * ci)
-    return packed
+    packed = weight.new_zeros((co, 27, ci_pad(ci)), dtype=dtype or weight.dtype)
+    packed[:, :, :ci] = weight.permute(0, 2, 3, 4, 1).reshape(co, 27, ci)
+    return packed.reshape(co, packed_k(ci))
 
 
 def unpack_weight(packed: torch.Tensor, ci: int) -> torch.Tensor:
     """Inverse of :func:`pack_weight` -> (Co, Ci, 3, 3, 3)."""
     co = packed.shape[0]
-    return packed[:, : 27 * ci].reshape(co, 3, 3, 3, ci).permute(0, 4, 1, 2, 3)
+    return packed.reshape(co, 27, ci_pad(ci))[:, :, :ci].reshape(co, 3, 3, 3, ci).permute(0, 4, 1, 2, 3)
 
 
 def conv3x3x3_reference(
@@ -120,6 +131,7 @@ def conv3x3x3(
     from pcmseg_tpu_torch.ops.kernels.build import load_library
 
     lib = load_library()
+    x = pad_channels(x)
     n, d, h, w, ci = x.shape
     co = w_packed.shape[0]
     dev = x.device.index

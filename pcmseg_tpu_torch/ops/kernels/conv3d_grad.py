@@ -4,12 +4,16 @@
 ``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``. A CUDA tensor goes to
 the hand-written ``sm_90a`` kernel (``csrc/conv3x3_dw.cu``); a CPU tensor
 goes to ``conv3x3_dw_reference``, the same function in plain PyTorch. There
-is no fallback from one to the other.
+is no fallback from one to the other. The kernel reads x's channels padded
+with zeros as the forward kernel does (``conv3d.ci_pad``); the wrapper pads
+x and returns the rows of the real channels.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pcmseg_tpu_torch.ops.kernels.conv3d import pad_channels
 
 # kernel launches since the count was last set to 0 (CPU calls not counted)
 launches = 0
@@ -67,6 +71,8 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     from pcmseg_tpu_torch.ops.kernels.build import load_library
 
     lib = load_library()
+    real_ci = x.shape[-1]
+    x = pad_channels(x)
     n, d, h, w, ci = x.shape
     co = dy.shape[-1]
     dev = x.device.index
@@ -87,4 +93,4 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         )
     global launches
     launches += 1
-    return out
+    return out if ci == real_ci else out[:, :, :, :real_ci].contiguous()

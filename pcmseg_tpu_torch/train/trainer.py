@@ -32,10 +32,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pcmseg_tpu.core.config import Config
-from pcmseg_tpu.utils.logging import StepTimer, get_logger
+from pcmseg_tpu_torch.core.config import Config
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.loader import DataLoader, prefetch_to_device
+from pcmseg_tpu_torch.infer.predict import resolve_device
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
 from pcmseg_tpu_torch.train.checkpoints import (
     copy_train_checkpoint,
@@ -46,6 +46,7 @@ from pcmseg_tpu_torch.train.checkpoints import (
     train_checkpoint_path,
 )
 from pcmseg_tpu_torch.train.schedule import EarlyStopping, make_scheduler
+from pcmseg_tpu_torch.utils.logging import StepTimer, get_logger
 from pcmseg_tpu_torch.train.steps import (
     create_train_state,
     make_eval_step,
@@ -57,13 +58,13 @@ from pcmseg_tpu_torch.train.steps import (
 
 class Trainer:
     """Config-driven trainer over one train(/val) split on ``device``
-    (default: the current CUDA device, else the CPU)."""
+    (default: the current CUDA device; without one, pass ``device="cpu"``)."""
 
     def __init__(self, config: Config, device=None):
         refuse_unported_training(config)
         self.config = config
         self.log = get_logger("pcmseg.trainer")
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.dtype = DTYPES[config.compute_dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotImplementedError(
@@ -108,7 +109,7 @@ class Trainer:
 
         augmenter = None
         if config.data_augmentation or config.train_crop:
-            from pcmseg_tpu.data.augment import Augmenter
+            from pcmseg_tpu_torch.data.augment import Augmenter
 
             aug_on = config.data_augmentation
             augmenter = Augmenter(

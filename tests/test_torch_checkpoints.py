@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from pcmseg_tpu.core.config import get_config
+from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu.infer.fold_bn import fold_batchnorm as jax_fold_batchnorm
 from pcmseg_tpu.models import UNet3D as JaxUNet3D
 from pcmseg_tpu.train.checkpoints import params_to_torch_state_dict

@@ -14,6 +14,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from pcmseg_tpu.ops.pallas.conv3d import conv3x3x3 as pallas_conv3x3x3
+from pcmseg_tpu.ops.pallas.conv3d import conv3x3x3_reference as jax_conv3x3x3_reference
 from pcmseg_tpu_torch.ops.kernels import conv3d
 
 
@@ -67,16 +68,36 @@ def test_cpu_calls_do_not_count_launches():
     assert conv3d.launches == before
 
 
-@pytest.mark.parametrize("ci", [5, 8, 64])
+@pytest.mark.parametrize("ci", [5, 8, 16, 64, 128, 256, 512, 1024])  # every Ci of the model and of its dx
 def test_pack_weight_round_trips(ci):
-    w = torch.randn(16, ci, 3, 3, 3, generator=torch.Generator().manual_seed(ci))
+    w = torch.randn(8, ci, 3, 3, 3, generator=torch.Generator().manual_seed(ci))
     packed = conv3d.pack_weight(w)
-    assert packed.shape == (16, conv3d.packed_k(ci))
-    assert conv3d.packed_k(ci) % conv3d.BK == 0 and conv3d.packed_k(ci) >= 27 * ci
+    cp = conv3d.ci_pad(ci)
+    assert cp == (8 if ci <= 8 else -(-ci // 64) * 64) and cp >= ci
+    assert packed.shape == (8, conv3d.packed_k(ci)) == (8, 27 * cp)
     assert torch.equal(conv3d.unpack_weight(packed, ci), w)
-    # column tap * Ci + ci with tap = (kd * 3 + kh) * 3 + kw; padding is zero
-    assert torch.equal(packed[:, (1 * 9 + 2 * 3 + 0) * ci + ci - 1], w[:, ci - 1, 1, 2, 0])
-    assert not packed[:, 27 * ci :].any()
+    # column tap * ci_pad + c with tap = (kd * 3 + kh) * 3 + kw; padded channels are zero
+    assert torch.equal(packed[:, (1 * 9 + 2 * 3 + 0) * cp + ci - 1], w[:, ci - 1, 1, 2, 0])
+    assert not packed.reshape(8, 27, cp)[:, :, ci:].any()
+    # the padded weight is the weight of the zero-padded input
+    assert torch.equal(conv3d.pack_weight(conv3d.unpack_weight(packed, cp)), packed)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("ci", [5, 24])
+def test_channel_padding_matches_jax_reference(ci, relu):
+    """What the CUDA wrapper hands its kernel: x's channels zero-padded to
+    ci_pad(Ci) against the packed weight, here through the plain version,
+    equals JAX's conv3x3x3_reference on the real channels."""
+    x, w, b = _inputs(10 + ci, (1, 4, 6, 5), ci, 16)
+    padded = conv3d.pad_channels(torch.from_numpy(x))
+    assert padded.shape[-1] == conv3d.ci_pad(ci) and not padded[..., ci:].any()
+    assert torch.equal(padded[..., :ci], torch.from_numpy(x))
+    got = conv3d.conv3x3x3_reference(padded, conv3d.pack_weight(_port_weight(w)), torch.from_numpy(b), relu)
+    want = jax_conv3x3x3_reference(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), relu=relu)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    x64 = torch.zeros(1, 2, 2, 2, 64)
+    assert conv3d.pad_channels(x64) is x64
 
 
 def test_pack_weight_rejects_non_3x3x3():

@@ -52,6 +52,19 @@ def test_dw_plain_matches_pallas_interpret(n, spatial, ci, co):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("ci", [5, 40])
+def test_dw_channel_padding_matches_jax_reference(ci):
+    """What the CUDA wrapper does: dW of x's channels zero-padded to
+    ci_pad(Ci), here through the plain version, sliced back to the real
+    channels, equals JAX's conv3x3_dw_reference; the padded rows are 0."""
+    x = _rand((1, 5, 4, 6, ci), seed=ci)
+    dy = _rand((1, 5, 4, 6, 16), seed=7)
+    full = conv3d_grad.conv3x3_dw_reference(conv3d.pad_channels(torch.from_numpy(x)), torch.from_numpy(dy))
+    assert tuple(full.shape) == (3, 3, 3, conv3d.ci_pad(ci), 16) and not full[:, :, :, ci:].any()
+    want = np.asarray(jax_dw.conv3x3_dw_reference(jnp.asarray(x), jnp.asarray(dy)))
+    np.testing.assert_allclose(full[:, :, :, :ci].numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_dw_plain_on_cpu_launches_no_kernel():
     before = conv3d_grad.launches
     conv3d_grad.conv3x3_dw(torch.zeros(1, 4, 4, 4, 8), torch.zeros(1, 4, 4, 4, 8))

@@ -38,17 +38,17 @@ def _within_bf16_bound(got, want):
 @pytest.mark.parametrize(
     "n,spatial,ci,co",
     [
-        (1, (16, 16, 16), 5, 64),  # the input conv: Ci = 5, gather kernel, K padded
-        (1, (5, 5, 5), 3, 136),  # gather kernel with the 128-wide N tile, ragged Co
-        (2, (9, 7, 13), 8, 24),  # halo kernel, one partial channel chunk, ragged tiles
-        (1, (6, 5, 7), 40, 16),  # a full chunk and a partial one, Co below one N tile
-        (1, (3, 3, 3), 24, 136),  # partial chunk, Co not a multiple of the N tile
-        (1, (8, 8, 8), 128, 256),  # K split over 4 chunk ranges
+        (1, (16, 16, 16), 5, 64),  # the input conv: Ci = 5 padded to one 8-channel slab
+        (1, (5, 5, 5), 3, 136),  # 8-channel slab, ragged Co over 64-wide N tiles
+        (2, (9, 7, 13), 8, 24),  # ragged tiles in every dimension, Co below one N tile
+        (1, (6, 5, 7), 40, 16),  # Ci padded to one 64-channel chunk
+        (1, (3, 3, 3), 24, 136),  # a volume smaller than one tile
+        (1, (8, 8, 8), 128, 256),  # K split over the 2 chunks
         (1, (5, 6, 7), 64, 8),
         (4, (8, 8, 8), 1024, 1024),  # the bottleneck's 56.6 MB weight, tile batch 4
-        (1, (40, 37, 20), 32, 64),  # ragged y and x tiles, no split
-        (2, (32, 32, 32), 64, 128),  # two volumes, no split
-        (1, (16, 16, 16), 256, 512),  # K split over 3 chunk ranges
+        (1, (40, 37, 20), 32, 64),  # ragged y and x tiles
+        (2, (32, 32, 32), 64, 128),  # two volumes, 128-wide N tiles, no split
+        (1, (16, 16, 16), 256, 512),  # K split over chunk ranges
     ],
 )
 @pytest.mark.parametrize("relu", [True, False])
@@ -82,7 +82,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         conv3d.conv3x3x3(x, packed[:4])  # Co % 8 != 0
     with pytest.raises(ValueError):
-        conv3d.conv3x3x3(x[..., :4].contiguous(), packed)  # packed K does not match Ci
+        conv3d.conv3x3x3(torch.zeros(1, 4, 4, 4, 16, device=cuda_device, dtype=torch.bfloat16), packed)
+        # (packed K does not match Ci)
     with pytest.raises(ValueError):
         conv3d.conv3x3x3(x.transpose(1, 2), packed)  # not contiguous
     with pytest.raises(ValueError):
@@ -126,9 +127,9 @@ def test_tiled_predict_on_the_card_matches_whole_volume(cuda_device):
 @pytest.mark.parametrize(
     "n,spatial,ci,co",
     [
-        (1, (16, 16, 16), 5, 64),  # the input conv: scalar gather, M = 135 padded
-        (2, (9, 7, 13), 8, 24),  # 8-row groups spanning taps, ragged K and Co
-        (1, (5, 6, 7), 40, 16),
+        (1, (16, 16, 16), 5, 64),  # the input conv: Ci padded to 8, all 27 taps in one block
+        (2, (9, 7, 13), 8, 24),  # ragged tiles, Co below one N tile
+        (1, (5, 6, 7), 40, 16),  # Ci padded to 64
         (1, (8, 8, 8), 1024, 1024),  # the bottleneck: many blocks, no split
         (1, (32, 32, 32), 64, 64),  # split over voxels, fixed-order reduce
         (2, (16, 16, 16), 256, 512),
@@ -191,7 +192,7 @@ def test_conv_function_on_the_card_matches_fp32(cuda_device):
 
 
 def test_train_step_on_the_card_launches_every_kernel(cuda_device):
-    from pcmseg_tpu.core.config import get_config
+    from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
 

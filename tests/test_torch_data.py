@@ -8,11 +8,12 @@ import ml_dtypes
 import numpy as np
 import pytest
 
-from pcmseg_tpu.data.augment import Augmenter
+from pcmseg_tpu.data.augment import Augmenter as JaxAugmenter
 from pcmseg_tpu.data.dataset import ProstateDataset as JaxDataset
 from pcmseg_tpu.data.loader import DataLoader as JaxLoader
 from pcmseg_tpu.data.synthetic import make_synthetic_dataset
 from pcmseg_tpu_torch.data import dataset as port_dataset
+from pcmseg_tpu_torch.data.augment import Augmenter
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.loader import DataLoader
 
@@ -91,7 +92,7 @@ def test_loader_batches_match_jax(tree, aug):
     jax_ds, ds = _datasets(tree)
     kw = dict(batch_size=2, shuffle=True, indices=[0, 1, 3, 4], pad_to=3, seed=11, num_workers=2)
     ours = DataLoader(ds, augmenter=Augmenter(seed=5, **aug) if aug else None, **kw)
-    theirs = JaxLoader(jax_ds, augmenter=Augmenter(seed=5, **aug) if aug else None, **kw)
+    theirs = JaxLoader(jax_ds, augmenter=JaxAugmenter(seed=5, **aug) if aug else None, **kw)
     runs = []
     for loader in (ours, theirs):
         epochs = [list(loader), list(loader)]

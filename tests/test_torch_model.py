@@ -135,8 +135,7 @@ def test_packed_weight_follows_loads_and_edits():
         assert not torch.equal(model(x), before)
         model.load_state_dict(UNet3D(base_features=4, norm_layer="none").state_dict())
         np.testing.assert_array_equal(
-            conv.packed_weight(torch.float32)[:, : 27 * 5].numpy(),
-            conv.weight.permute(0, 2, 3, 4, 1).reshape(4, -1).numpy(),
+            conv3d.unpack_weight(conv.packed_weight(torch.float32), 5).numpy(), conv.weight.numpy()
         )
     with torch.inference_mode():  # parameters made in inference mode have no version counter
         made_here = UNet3D(base_features=4, norm_layer="none", dtype=torch.float32).eval()

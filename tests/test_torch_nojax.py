@@ -1,8 +1,10 @@
-"""pcmseg_tpu_torch runs with JAX absent: every module imports, a tiny
-Predictor segments a volume and a train step runs on the CPU, with jax,
-flax, optax, orbax and ml_dtypes blocked in sys.modules of a fresh
-interpreter."""
+"""pcmseg_tpu_torch runs with JAX and the JAX package absent: every module
+imports, a tiny Predictor segments a volume and a train step runs on the
+CPU, with pcmseg_tpu, jax, flax, optax, orbax and ml_dtypes blocked in
+sys.modules of a fresh interpreter; and no module of the port or
+``chip_smoke.py`` imports pcmseg_tpu."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -13,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import importlib, os, pkgutil, sys, tempfile
-    for name in ("jax", "flax", "optax", "orbax", "ml_dtypes"):
+    for name in ("pcmseg_tpu", "jax", "flax", "optax", "orbax", "ml_dtypes"):
         sys.modules[name] = None  # any import of them raises ImportError
 
     import numpy as np
@@ -26,9 +28,9 @@ SCRIPT = textwrap.dedent(
     for name in modules:
         importlib.import_module(name)
 
-    from pcmseg_tpu.core.config import get_config
-    from pcmseg_tpu.data.nifti import write_nifti
     from pcmseg_tpu_torch.cli.main import main
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.data.nifti import write_nifti
     from pcmseg_tpu_torch.infer.predict import Predictor
     from pcmseg_tpu_torch.models.unet3d import UNet3D
     from pcmseg_tpu_torch.train.checkpoints import save_pth
@@ -46,7 +48,7 @@ SCRIPT = textwrap.dedent(
             os.makedirs(os.path.join(case, m))
             write_nifti(image[..., 0], os.path.join(case, m, "t.nii.gz"))
         assert main(["predict", "--model_path", pth, "--input_dir", case,
-                     "--output_dir", os.path.join(d, "out")]) == 0
+                     "--output_dir", os.path.join(d, "out"), "--device", "cpu"]) == 0
         assert os.path.exists(os.path.join(d, "out", "segmentation.nii.gz"))
     # one train step (forward, loss, backward, clip, Adam, BN statistics)
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
@@ -76,3 +78,28 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
     assert n_modules >= 25
+
+
+def _imported_modules(path):
+    """Every module name an import statement of the file at ``path`` names."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_module_of_the_port_imports_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "pcmseg_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    offenders = [
+        f"{os.path.relpath(path, REPO)}: {name}"
+        for path in files
+        for name in _imported_modules(path)
+        if name == "pcmseg_tpu" or name.startswith("pcmseg_tpu.")
+    ]
+    assert offenders == []

@@ -5,8 +5,9 @@ round-trip through ``load_state_dict``."""
 
 import pytest
 
-from pcmseg_tpu.core.config import get_config
+from pcmseg_tpu.core.config import get_config as jax_get_config
 from pcmseg_tpu.train import schedule as jax_schedule
+from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu_torch.train import schedule
 
 # improving, then flat, then worse: every plateau/cooldown branch fires
@@ -16,9 +17,10 @@ LOSSES = [1.0, 0.9, 0.85, 0.85, 0.86, 0.849, 0.9, 0.95, 0.95, 0.95, 0.97, 0.99, 
 @pytest.mark.parametrize("warmup", [0, 3])
 @pytest.mark.parametrize("kind", ["reduce_on_plateau", "cosine", "poly", "constant"])
 def test_lr_sequence_matches_jax(kind, warmup):
-    config = get_config(scheduler=kind, warmup_epochs=warmup, num_epochs=len(LOSSES),
-                        plateau_patience=2, plateau_cooldown=1, learning_rate=1e-3, min_lr=1e-6)
-    ours, theirs = schedule.make_scheduler(config), jax_schedule.make_scheduler(config)
+    kw = dict(scheduler=kind, warmup_epochs=warmup, num_epochs=len(LOSSES),
+              plateau_patience=2, plateau_cooldown=1, learning_rate=1e-3, min_lr=1e-6)
+    config = get_config(**kw)
+    ours, theirs = schedule.make_scheduler(config), jax_schedule.make_scheduler(jax_get_config(**kw))
     assert type(ours).__name__ == type(theirs).__name__
     seq_ours, seq_theirs = [ours.lr], [theirs.lr]
     for i, loss in enumerate(LOSSES):

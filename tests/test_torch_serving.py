@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from pcmseg_tpu.core.config import get_config
+from pcmseg_tpu.core.config import get_config as jax_get_config
 from pcmseg_tpu.data.io import read_volume
 from pcmseg_tpu.data.nifti import write_nifti
 from pcmseg_tpu.infer.predict import Predictor as JaxPredictor
@@ -27,6 +27,7 @@ from pcmseg_tpu.models import UNet3D as JaxUNet3D
 from pcmseg_tpu.train.checkpoints import export_torch_checkpoint
 from pcmseg_tpu.train.steps import create_train_state
 from pcmseg_tpu_torch.cli.main import main as torch_main
+from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu_torch.infer import sliding_window
 from pcmseg_tpu_torch.infer.predict import Predictor, load_multimodal_images
 from pcmseg_tpu_torch.infer.serve import PredictionServer
@@ -35,6 +36,14 @@ from pcmseg_tpu_torch.train.checkpoints import load_pth, save_pth
 PROB_ATOL = 2e-4  # the JAX package's own folded-vs-unfolded bound (test_fold_bn.py)
 UNDECIDED = 1e-3  # masks may differ only where |p - 0.5| is below this
 CASE_SHAPES = {"case_a": (32, 32, 32), "case_b": (20, 36, 24)}
+# each package's config is built from these same arguments
+CONFIG_ARGS = dict(base_features=4, remat=False, compute_dtype="float32", target_size=(16, 16, 16))
+
+
+def _configs(**overrides):
+    """(the JAX package's config, the port's), from the same arguments."""
+    kw = {**CONFIG_ARGS, **overrides}
+    return jax_get_config("quick", **kw), get_config("quick", **kw)
 
 
 @pytest.fixture(autouse=True)
@@ -57,12 +66,9 @@ def _write_case(root, case_id, shape, modalities, rng):
 @pytest.fixture(scope="module")
 def slice_setup(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_serving")
-    config = get_config(
-        "quick", base_features=4, remat=False, compute_dtype="float32",
-        target_size=(16, 16, 16),
-    )
-    model = JaxUNet3D.from_config(config)
-    state = create_train_state(config, jax.random.key(0), model, (1, 16, 16, 16, 5))
+    jax_config, config = _configs()
+    model = JaxUNet3D.from_config(jax_config)
+    state = create_train_state(jax_config, jax.random.key(0), model, (1, 16, 16, 16, 5))
     rng = np.random.default_rng(0)
     stats = jax.tree_util.tree_map_with_path(
         lambda path, a: (
@@ -74,7 +80,7 @@ def slice_setup(tmp_path_factory):
     )
     state = state.replace(batch_stats=stats)
     pth = str(root / "model.pth")
-    export_torch_checkpoint(pth, state, meta={"config": config.to_dict()})
+    export_torch_checkpoint(pth, state, meta={"config": jax_config.to_dict()})
 
     inbox = str(root / "inbox")
     for case_id, shape in CASE_SHAPES.items():
@@ -92,10 +98,9 @@ def slice_setup(tmp_path_factory):
 
 @pytest.fixture(scope="module", params=["whole", "tiled"])
 def predictors(request, slice_setup):
-    config, pth, inbox, image = slice_setup
-    if request.param == "tiled":
-        config = config.replace(window_size=(16, 16, 16))
-    return JaxPredictor(config, pth), Predictor(config, pth, device="cpu"), image
+    _, pth, inbox, image = slice_setup
+    jax_config, config = _configs(**({"window_size": (16, 16, 16)} if request.param == "tiled" else {}))
+    return JaxPredictor(jax_config, pth), Predictor(config, pth, device="cpu"), image
 
 
 def test_probabilities_match_jax(predictors):
@@ -170,10 +175,10 @@ def test_missing_modality_strategies_match_jax(slice_setup, tmp_path, strategy):
 
 
 def test_server_writes_the_jax_servers_masks(slice_setup, tmp_path):
-    config, pth, inbox, _ = slice_setup
-    config = config.replace(window_size=(16, 16, 16))
+    _, pth, inbox, _ = slice_setup
+    jax_config, config = _configs(window_size=(16, 16, 16))
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
-    assert JaxPredictionServer(config, pth, inbox, jax_out, min_age=0.0).run_once()["done"] == 2
+    assert JaxPredictionServer(jax_config, pth, inbox, jax_out, min_age=0.0).run_once()["done"] == 2
     server = PredictionServer(config, pth, inbox, port_out, min_age=0.0, device="cpu")
     assert server.pending_cases() == sorted(CASE_SHAPES)
     assert server.run_once() == {"done": 2, "failed": 0, "skipped": 0, "waiting": 0}
@@ -206,7 +211,7 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys):
     _, pth, inbox, _ = slice_setup
     out = str(tmp_path / "out")
     argv = ["predict", "--model_path", pth, "--input_dir", os.path.join(inbox, "case_b"),
-            "--output_dir", out, "--base_features", "4"]
+            "--output_dir", out, "--base_features", "4", "--device", "cpu"]
     assert torch_main(argv) == 0
     assert read_volume(os.path.join(out, "segmentation.nii.gz")).shape == CASE_SHAPES["case_b"]
     for verb in (["export", "--model_path", pth, "--output", str(tmp_path / "x.pth")],
@@ -246,3 +251,20 @@ def test_predictor_reads_the_checkpoint_once(slice_setup, monkeypatch):
     monkeypatch.setattr(torch, "load", lambda *a, **k: reads.append(a[0]) or real_load(*a, **k))
     Predictor(config, pth, device="cpu")
     assert reads == [pth]  # one read serves the config snapshot and the weights
+
+
+def test_serving_without_a_device_needs_cuda(slice_setup, tmp_path, monkeypatch, capsys):
+    """No entry point falls back to the CPU on its own: without a card the
+    Predictor, the PredictionServer and the ``predict`` verb raise unless
+    asked for the CPU."""
+    config, pth, inbox, _ = slice_setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Predictor(config, pth)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        PredictionServer(config, pth, inbox, str(tmp_path / "out"), min_age=0.0)
+    argv = ["predict", "--model_path", pth, "--input_dir", os.path.join(inbox, "case_a"),
+            "--output_dir", str(tmp_path / "cli")]
+    assert torch_main(argv) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert torch_main(argv + ["--device", "cpu"]) == 0

@@ -47,6 +47,7 @@ import torch
 from pcmseg_tpu.core.config import get_config
 from pcmseg_tpu.models import UNet3D as JaxUNet3D
 from pcmseg_tpu.train import steps as jax_steps
+from pcmseg_tpu_torch.core.config import get_config as port_get_config
 from pcmseg_tpu_torch.models.unet3d import UNet3D
 from pcmseg_tpu_torch.train import steps
 from pcmseg_tpu_torch.train.checkpoints import state_dict_from_jax_params
@@ -90,12 +91,15 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
-def _config(**kw):
+def _config(for_port=False, **kw):
+    """The JAX package's config (the port's with ``for_port=True``), from
+    the same arguments."""
     for key in ("weight", "steps", "witness"):
         kw.pop(key, None)
     kw = dict(dict(eps=ADAM_EPS, weight_decay=WEIGHT_DECAY, batch_size=2), **kw)
-    return get_config(base_features=4, remat=False, compute_dtype="float32", conv_lowering="lax",
-                      target_size=(SIZE,) * 3, learning_rate=LR, **kw)
+    return (port_get_config if for_port else get_config)(
+        base_features=4, remat=False, compute_dtype="float32", conv_lowering="lax",
+        target_size=(SIZE,) * 3, learning_rate=LR, **kw)
 
 
 def _init():
@@ -200,8 +204,9 @@ def trained(request, init):
 
     jstate, jmetrics = run_jax(batch)
     witness = run_jax({k: v[::-1].copy() for k, v in batch.items()})[0] if kw.get("witness") else None
-    model, state = _port_state(config, variables)
-    step = steps.make_train_step(model, config)
+    port_config = _config(for_port=True, **kw)
+    model, state = _port_state(port_config, variables)
+    step = steps.make_train_step(model, port_config)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     metrics = [{k: float(v) for k, v in step(state, tbatch).items()} for _ in range(n_steps)]
     return request.param, config, n_steps, (jmodel, jstate, jmetrics), (model, state, metrics), witness
@@ -245,8 +250,9 @@ def test_optimizer_matches_optax_on_given_gradients(init, max_norm):
     2.5e-7 (two fp32 ulps of a parameter near 1), and every leaf moved by at
     least 10x that on average."""
     variables, _ = init
-    config = _config(eps=DEFAULTS.eps, weight_decay=DEFAULTS.weight_decay, grad_clip_norm=max_norm)
-    _, jstate = _jax_state(config, variables)
+    kw = dict(eps=DEFAULTS.eps, weight_decay=DEFAULTS.weight_decay, grad_clip_norm=max_norm)
+    config = _config(for_port=True, **kw)
+    _, jstate = _jax_state(_config(**kw), variables)
     model, state = _port_state(config, variables)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     leaves, treedef = jax.tree_util.tree_flatten(variables["params"])
@@ -277,7 +283,8 @@ def test_eval_step_matches_jax(trained, init):
     variant, config, _, (jmodel, jstate, _), (model, state, _), witness = trained
     batch = dict(init[1][1], weight=np.asarray([1.0, 0.0], np.float32))
     want = jax.jit(jax_steps.make_eval_step(jmodel, config))(jstate, batch)
-    got = steps.make_eval_step(model, config)(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    port_config = _config(for_port=True, **VARIANTS[variant])
+    got = steps.make_eval_step(model, port_config)(state, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(got["loss"].numpy(), np.asarray(want["loss"]), rtol=1e-5)
     atol = 3e-4 if witness is not None else 1e-4
     for k in ("dice", "iou", "dice_sum", "iou_sum", "weight_sum"):
@@ -296,7 +303,7 @@ def test_clip_follows_optax_formula():
 
 
 def test_learning_rate_lives_in_the_param_group():
-    config = _config()
+    config = _config(for_port=True)
     state = steps.create_train_state(UNet3D.from_config(config), config)
     assert steps.get_learning_rate(state) == pytest.approx(LR)
     steps.set_learning_rate(state, 5e-5)

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from pcmseg_tpu.core.config import get_config
+from pcmseg_tpu.core.config import get_config as jax_get_config
 from pcmseg_tpu.data.synthetic import make_synthetic_dataset
 from pcmseg_tpu.train.trainer import Trainer as JaxTrainer
 from pcmseg_tpu_torch.cli.main import main
+from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu_torch.infer.predict import Predictor
 from pcmseg_tpu_torch.train.checkpoints import load_pth, state_dict_from_jax_params
 from pcmseg_tpu_torch.train.trainer import Trainer
@@ -34,7 +35,9 @@ def tree(tmp_path_factory):
     return root
 
 
-def _config(tree, tmp_path, **kw):
+def _config(tree, tmp_path, for_jax=False, **kw):
+    """The port's config (the JAX package's with ``for_jax=True``), from the
+    same arguments."""
     base = dict(
         data_dir=tree, save_dir=str(tmp_path / "ckpt"), cache_dir=str(tmp_path / "cache"),
         base_features=4, compute_dtype="float32", remat=False, conv_lowering="lax",
@@ -42,7 +45,7 @@ def _config(tree, tmp_path, **kw):
         data_parallel=1, device_data_cache_gb=0.0, seed=3, learning_rate=1e-3,
     )
     base.update(kw)
-    return get_config(**base)
+    return (jax_get_config if for_jax else get_config)(**base)
 
 
 def test_history_matches_jax_trainer(tree, tmp_path):
@@ -55,8 +58,8 @@ def test_history_matches_jax_trainer(tree, tmp_path):
     case, where a voxel whose probability sits within rounding of 0.5
     flips: atol 2e-3 (a few voxels)."""
     config = _config(tree, tmp_path, learning_rate=1e-4)
-    jax_trainer = JaxTrainer(config.replace(save_dir=str(tmp_path / "jax")))
-    trainer = Trainer(config)
+    jax_trainer = JaxTrainer(_config(tree, tmp_path, for_jax=True, learning_rate=1e-4, save_dir=str(tmp_path / "jax")))
+    trainer = Trainer(config, device="cpu")
     assert trainer.train_indices == jax_trainer.train_indices
     assert trainer.val_indices == jax_trainer.val_indices and len(trainer.val_indices) == 1
     trainer.state.model.load_state_dict(
@@ -72,11 +75,11 @@ def test_history_matches_jax_trainer(tree, tmp_path):
 
 
 def test_kill_after_epoch_one_and_resume_is_bitwise(tree, tmp_path):
-    whole = Trainer(_config(tree, tmp_path / "a"))
+    whole = Trainer(_config(tree, tmp_path / "a"), device="cpu")
     history = whole.train()
     killed = _config(tree, tmp_path / "b", num_epochs=1)
-    Trainer(killed).train()
-    resumed = Trainer(killed.replace(num_epochs=2, resume=True))
+    Trainer(killed, device="cpu").train()
+    resumed = Trainer(killed.replace(num_epochs=2, resume=True), device="cpu")
     assert resumed.start_epoch == 1 and resumed.train_loader._epoch == 1
     assert resumed.train() == history
     for (k, a), b in zip(whole.state.model.state_dict().items(), resumed.state.model.state_dict().values()):
@@ -89,7 +92,7 @@ def test_cli_train_writes_checkpoints_that_predict_serves(tree, tmp_path):
     save = str(tmp_path / "ckpt")
     rc = main(["train", "--data_dir", tree, "--save_dir", save, "--epochs", "2",
                "--target_size", "16", "16", "16", "--base_features", "4", "--batch_size", "2",
-               "--cache_dir", str(tmp_path / "cache"), "--learning_rate", "1e-3"])
+               "--cache_dir", str(tmp_path / "cache"), "--learning_rate", "1e-3", "--device", "cpu"])
     assert rc == 0
     for name in ("latest.pt", "best.pt", "best.pth"):
         assert os.path.isfile(os.path.join(save, name)), name
@@ -105,7 +108,7 @@ def test_cli_train_writes_checkpoints_that_predict_serves(tree, tmp_path):
 def test_periodic_checkpoints_are_pruned(tree, tmp_path):
     config = _config(tree, tmp_path, target_size=(16, 16, 16), num_epochs=3, save_frequency=1,
                      keep_checkpoints=2, validation=False)
-    Trainer(config).train()
+    Trainer(config, device="cpu").train()
     assert sorted(f for f in os.listdir(config.save_dir) if f.startswith("epoch_")) == ["epoch_2.pt", "epoch_3.pt"]
 
 
@@ -117,7 +120,7 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
-        Trainer(_config(tree, tmp_path, **option))
+        Trainer(_config(tree, tmp_path, **option), device="cpu")
 
 
 def test_cli_refuses_cross_validation(tree, capsys):
@@ -129,19 +132,19 @@ def test_ema_weights_are_served_and_restored_on_resume(tree, tmp_path):
     """With EMA on, validation and best.pth use the averaged weights, and a
     resume restores the EMA bit for bit."""
     config = _config(tree, tmp_path, target_size=(16, 16, 16), ema_decay=0.9, num_epochs=1)
-    trainer = Trainer(config)
+    trainer = Trainer(config, device="cpu")
     trainer.train()
     sd, _ = load_pth(os.path.join(config.save_dir, "best.pth"))
     w = "inc.conv.0.weight"
     assert torch.equal(sd[w], trainer.state.ema[w]) and not torch.equal(sd[w], trainer.state.model.state_dict()[w])
-    resumed = Trainer(config.replace(resume=True))
+    resumed = Trainer(config.replace(resume=True), device="cpu")
     for k, v in trainer.state.ema.items():
         assert torch.equal(v, resumed.state.ema[k]), k
     assert resumed.state.step == trainer.state.step == 2
 
 
 def test_loader_errors_reach_the_training_loop(tree, tmp_path):
-    trainer = Trainer(_config(tree, tmp_path, target_size=(16, 16, 16), validation=False))
+    trainer = Trainer(_config(tree, tmp_path, target_size=(16, 16, 16), validation=False), device="cpu")
 
     def broken(i):
         raise OSError(f"cannot read case {i}")
@@ -149,3 +152,16 @@ def test_loader_errors_reach_the_training_loop(tree, tmp_path):
     trainer.dataset.load_case = broken
     with pytest.raises(OSError, match="cannot read case"):
         trainer.train_epoch()
+
+
+def test_trainer_without_a_device_needs_cuda(tree, tmp_path, monkeypatch, capsys):
+    """No entry point falls back to the CPU on its own: without a card the
+    Trainer and the ``train`` verb raise unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = _config(tree, tmp_path, target_size=(16, 16, 16), validation=False, num_epochs=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer(config)
+    assert main(["train", "--data_dir", tree, "--save_dir", str(tmp_path / "cli"), "--epochs", "1",
+                 "--target_size", "16", "16", "16", "--base_features", "4"]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert Trainer(config, device="cpu").device == torch.device("cpu")
