@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, training and serving, at the flagship
-model's full width and checks every hand-written kernel on them:
+Drives the port's main paths (training, cross-validation, validation and
+serving) at the flagship model's full width and checks every hand-written
+kernel on them:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: compiles csrc/*.cu for sm_90a, one nvcc per source in parallel
@@ -47,7 +48,27 @@ model's full width and checks every hand-written kernel on them:
   8. time: median warm step time of the kernel step and the plain-conv step
      on one device batch, vol/s, peak device memory; launch counts of a
      remat step (18 more B1 per microbatch); device time by kernel;
-  9. serve: three synthetic 5-modality NIfTI cases (two 128³, one
+  9. cv: ``CrossValidationTrainer(config).train()`` on the train phase's 5
+     cases, 2 folds x 1 epoch in the flagship configuration: finite
+     histories, ``cv_results.json``, ``best_fold_{0,1}.pth``, exact launch
+     counts (the train phase's per step and per validation forward), the
+     time in train epochs, validation and checkpoint writes; a resumed
+     CrossValidationTrainer skips both folds and launches nothing;
+ 10. validate: the ``Validator`` over the 5 cases: (a) ``best_fold_0.pth``
+     through the eval step (BatchNorm unfolded), 18 B1 launches per batch
+     of 4; (b) the two folds as an ensemble with TTA, surface metrics and
+     largest-component postprocessing, 18 x 2 members x 8 flips per batch,
+     per-case Dice and hd95, the device path, postprocess and the surface
+     EDT (host, scipy) timed apart; between them, one case's ensemble + TTA
+     probabilities held as in the serve phase: no further from the same
+     ensemble and TTA in fp32 (plain conv) than 1.5x the plain conv's bf16
+     probabilities, and within PLAIN_MAX_DP / PLAIN_MEAN_DP of those;
+     (c) ``validate_native`` of the ensemble with TTA on a 160x160x144 case
+     at 0.75x0.75x1.5 mm (8 tiles in 2 batches), surface metrics in mm.
+     Each of (a), (b), (c) launches no B2;
+ 11. cli: ``python -m pcmseg_tpu_torch check`` and ``validate --model_path
+     'best_fold_*.pth' --tta``, each in its own process, each exiting 0;
+ 12. serve: three synthetic 5-modality NIfTI cases (two 128³, one
      160×160×144 that is tiled as 8 windows in two batches of 4) through
      ``PredictionServer.run_once`` with a seeded base-64 BatchNorm model
      (90,311,361 parameters, folded on load). Asserts 3 done, uint8 masks
@@ -57,7 +78,7 @@ model's full width and checks every hand-written kernel on them:
      conv, TF32 off) than 1.5× the distance of the plain conv's bf16
      probabilities (max and mean |dp|), and the two bf16 forwards must
      agree within PLAIN_MAX_DP / PLAIN_MEAN_DP;
- 10. profile: where a warm 128³ case's time goes: host decode, device
+ 13. profile: where a warm 128³ case's time goes: host decode, device
      path and mask write each timed alone, the device path's time per
      kernel (torch.profiler), and the card's idle share over a warm
      ``run_once`` of four 128³ cases.
@@ -66,8 +87,9 @@ Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
 before doing anything. The last lines are the kernels' JSON record (per
 kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
-call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use), the
-nvidia-smi line, and the device JSON.
+call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
+``launches_by_path`` counts each path's run), the nvidia-smi line, and the
+device JSON.
 """
 
 from __future__ import annotations
@@ -338,7 +360,7 @@ def serve(work: str, config, device, card: str):
         return min(best)
 
     kernel_s = device_path_seconds()
-    with plain_conv(predictor.model, torch.bfloat16):
+    with plain_conv(predictor.models, torch.bfloat16):
         plain_s = device_path_seconds()
     log(f"{first} device path (H2D, forward, threshold, D2H): kernel {kernel_s * 1e3:.1f} ms "
         f"= {1 / kernel_s:.2f} vol/s, plain conv {plain_s * 1e3:.1f} ms [{card}]")
@@ -353,30 +375,35 @@ def serve(work: str, config, device, card: str):
 
 
 @contextlib.contextmanager
-def plain_conv(model, dtype):
-    """Run ``model`` with the plain conv in place of the kernel, in ``dtype``."""
+def plain_conv(models, dtype):
+    """Run ``models`` with the plain conv in place of the kernel, in ``dtype``."""
     from pcmseg_tpu_torch.models import unet3d
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
-    saved = model.dtype
-    unet3d.conv3x3x3, model.dtype = conv3d.conv3x3x3_reference, dtype
+    saved = [m.dtype for m in models]
+    unet3d.conv3x3x3 = conv3d.conv3x3x3_reference
+    for m in models:
+        m.dtype = dtype
     try:
         yield
     finally:
-        unet3d.conv3x3x3, model.dtype = conv3d.conv3x3x3, saved
+        unet3d.conv3x3x3 = conv3d.conv3x3x3
+        for m, d in zip(models, saved):
+            m.dtype = d
 
 
-def check_probs(predictor, image, label: str) -> None:
+def check_probs(predictor, image, label: str):
     """Hold the kernel's bf16 probabilities on ``image`` (through
-    ``predict_probs``, whole-volume or tiled as served) against the plain
-    conv's bf16 forward and the same model in fp32 (plain conv, TF32 off)."""
+    ``predict_probs``, whole-volume or tiled as served, ensemble and TTA
+    as configured) against the plain conv's bf16 forward and the same
+    model in fp32 (plain conv, TF32 off). Returns the kernel's."""
     import numpy as np
     import torch
 
     probs = predictor.predict_probs(image)[..., 0]
-    with plain_conv(predictor.model, torch.bfloat16):
+    with plain_conv(predictor.models, torch.bfloat16):
         plain = predictor.predict_probs(image)[..., 0]
-    with plain_conv(predictor.model, torch.float32):
+    with plain_conv(predictor.models, torch.float32):
         exact = predictor.predict_probs(image)[..., 0]
     if not all(np.isfinite(a).all() for a in (probs, plain, exact)):
         raise AssertionError(f"{label}: non-finite probabilities")
@@ -395,6 +422,7 @@ def check_probs(predictor, image, label: str) -> None:
         f"mean|dp| {dp.mean():.3g} (bound {PLAIN_MEAN_DP})")
     if dp.max() > PLAIN_MAX_DP or dp.mean() > PLAIN_MEAN_DP:
         raise AssertionError(f"{label}: the kernel's probabilities disagree with the plain conv's")
+    return probs
 
 
 def profile(work: str, server, card: str) -> None:
@@ -993,6 +1021,265 @@ def time_steps(device, card: str) -> None:
         f"{results[('kernel', True)][0] * 1e3:.1f} ms [{card}]")
 
 
+# ---- cross-validation and the Validator (slice 4) ----------------------------------
+
+# 2 folds x 1 epoch over the 5 training cases, the flagship step otherwise
+CV = dict(n_splits=2, num_epochs=1)
+NATIVE_CASE = (160, 160, 144)  # tiled by 128^3 windows: 8 tiles in 2 batches of 4
+NATIVE_SPACING = (0.75, 0.75, 1.5)  # (sx, sy, sz) mm: data axes (z, y, x) read (1.5, 0.75, 0.75)
+
+
+@contextlib.contextmanager
+def timed(owner, names, totals: dict):
+    """Add the wall seconds of every call of ``owner.<name>`` to
+    ``totals[name]`` (synchronising the card at the end of each call) while
+    the context is open."""
+    import torch
+
+    saved = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                totals[name] = totals.get(name, 0.0) + time.perf_counter() - t
+        return call
+
+    for n in names:
+        setattr(owner, n, wrap(n, saved[n]))
+    try:
+        yield totals
+    finally:
+        for n in names:
+            setattr(owner, n, saved[n])
+
+
+def cross_validate(work: str, device, card: str):
+    """The port's K-fold path: ``CrossValidationTrainer(config).train()``
+    over the train phase's 5 synthetic 128^3 cases, 2 folds x 1 epoch in
+    the flagship configuration, with exact launch counts; then a resumed
+    CrossValidationTrainer skips both completed folds and launches nothing.
+    Returns (the launches of the first run, the run's save_dir)."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.train.cv import CrossValidationTrainer
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    config = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "train_data"),
+                        save_dir=os.path.join(work, "cv"), cache_dir=os.path.join(work, "preproc"), seed=0,
+                        **{**TRAIN, **CV})
+    cv = CrossValidationTrainer(config, device=device)
+    epochs, bs = config.num_epochs, config.batch_size
+    want = expected_train_launches(
+        config,
+        steps=epochs * sum(math.ceil(len(tr) / bs) for tr, _ in cv.splits),
+        eval_forwards=epochs * sum(math.ceil(len(va) / bs) for _, va in cv.splits),
+    )
+    totals = {}
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    with timed(Trainer, ("train_epoch", "validate_epoch", "_save_epoch"), totals):
+        results = cv.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (conv3d.launches, conv3d_grad.launches)
+    log(f"cross-validation, {len(cv.splits)} folds x {epochs} epoch over {len(cv.dataset)} 128^3 cases "
+        f"(train/val {[(len(tr), len(va)) for tr, va in cv.splits]}): {wall:.1f} s, of which train epochs "
+        f"{totals['train_epoch']:.1f} s, validation {totals['validate_epoch']:.1f} s, checkpoint writes "
+        f"{totals['_save_epoch']:.1f} s (host), the rest (fold set-up, model init, results) "
+        f"{wall - sum(totals.values()):.1f} s; launches B1 {launches[0]}, B2 {launches[1]} (expected {want}) [{card}]")
+    if launches != want:
+        raise AssertionError(f"cross-validation launched {launches}, expected {want}")
+    summary = results["summary"]
+    log(f"  cv_results: mean val loss {summary['mean_val_loss']:.6g} +- {summary['std_val_loss']:.6g} over "
+        f"{summary['total_folds']} folds; fold results {json.dumps(results['fold_results'])}")
+    if summary["total_folds"] != 2 or not all(math.isfinite(r["best_val_loss"]) for r in results["fold_results"]):
+        raise AssertionError(f"cross-validation results {results}")
+    for k in range(2):
+        with open(os.path.join(config.save_dir, f"fold_{k}_history.json")) as f:
+            history = json.load(f)
+        if not all(math.isfinite(v) for vals in history.values() for v in vals):
+            raise AssertionError(f"fold {k}: non-finite history {history}")
+        for name in (f"best_fold_{k}.pth", f"latest_fold_{k}.pt", f"best_fold_{k}.pt"):
+            if not os.path.isfile(os.path.join(config.save_dir, name)):
+                raise AssertionError(f"no {name}")
+    if not os.path.isfile(os.path.join(config.save_dir, "cv_results.json")):
+        raise AssertionError("no cv_results.json")
+
+    conv3d.launches = conv3d_grad.launches = 0
+    again = CrossValidationTrainer(config.replace(resume=True), device=device).train()
+    log(f"  resumed CrossValidationTrainer: fold results equal {again['fold_results'] == results['fold_results']}, "
+        f"launches B1 {conv3d.launches}, B2 {conv3d_grad.launches} (expected 0, 0)")
+    if (conv3d.launches, conv3d_grad.launches) != (0, 0) or again["fold_results"] != results["fold_results"]:
+        raise AssertionError("the resumed cross-validation did not skip both completed folds")
+    del cv
+    torch.cuda.empty_cache()
+    return launches, config.save_dir
+
+
+def write_native_tree(root: str, modalities) -> None:
+    """One synthetic NATIVE_CASE case in the training layout, at
+    NATIVE_SPACING: a bright ellipsoid plus noise, labelled."""
+    import numpy as np
+
+    from pcmseg_tpu_torch.data.nifti import write_nifti
+    from pcmseg_tpu_torch.data.volume import Volume
+
+    rng = np.random.default_rng(4)
+    z, y, x = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32) for n in NATIVE_CASE], indexing="ij")
+    r2 = z**2 + 2 * y**2 + x**2
+    for j, m in enumerate(modalities):
+        vol = 300 * np.exp(-3 * r2) * (1 + 0.25 * j) + rng.normal(0, 25, size=NATIVE_CASE).astype(np.float32)
+        os.makedirs(os.path.join(root, "BPH-PCA", "BPH", m))
+        write_nifti(Volume(vol.astype(np.int16), spacing=NATIVE_SPACING),
+                    os.path.join(root, "BPH-PCA", "BPH", m, "big000.nii.gz"))
+    os.makedirs(os.path.join(root, "BPH-PCA", "ROI(BPH+PCA)", "BPH"))
+    write_nifti(Volume((r2 < 0.15).astype(np.uint8), spacing=NATIVE_SPACING),
+                os.path.join(root, "BPH-PCA", "ROI(BPH+PCA)", "BPH", "big000.nii.gz"))
+
+
+def validate(work: str, cv_dir: str, device, card: str) -> int:
+    """The Validator over the cross-validation folds: (a) ``validate()`` of
+    ``best_fold_0.pth`` through the eval step (unfolded BatchNorm); the two
+    folds as an ensemble with TTA on one case, held against the plain
+    conv's probabilities through the same ensemble and TTA; (b) the
+    ensemble with TTA, surface metrics and largest-component postprocessing;
+    (c) ``validate_native()`` of the ensemble with TTA on a NATIVE_CASE
+    case, tiled, surface metrics in mm. Exact launch counts in (a), (b) and
+    (c): B1 as stated, B2 none. Returns the (B1, B2) launches of (a) + (b)
+    + (c)."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer import validate as validate_module
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.infer.sliding_window import tile_starts
+    from pcmseg_tpu_torch.infer.validate import Validator
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+
+    folds = [os.path.join(cv_dir, f"best_fold_{k}.pth") for k in range(2)]
+    base = get_config(data_dir=os.path.join(work, "train_data"), save_dir=os.path.join(work, "validate"),
+                      cache_dir=os.path.join(work, "preproc"), batch_size=TRAIN["batch_size"])
+    b1_total = b2_total = 0
+
+    def counted(label: str, want: int, fault: str) -> None:
+        """Check and add up the launches of one part, counted since the
+        counts were last set to 0."""
+        nonlocal b1_total, b2_total
+        b1, b2 = conv3d.launches, conv3d_grad.launches
+        log(f"  {label}: launches B1 {b1} (expected {want}), B2 {b2} (expected 0) [{card}]")
+        if (b1, b2) != (want, 0):
+            raise AssertionError(f"{label}: launched B1 {b1}x, B2 {b2}x; {fault}")
+        b1_total += b1
+        b2_total += b2
+
+    # (a) one fold through the eval step
+    v = Validator(base, folds[0], device=device)
+    n = len(v.dataset)
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    res = v.validate()
+    wall = time.perf_counter() - t0
+    log(f"validate best_fold_0.pth ({n} 128^3 cases, eval step, BatchNorm unfolded): {wall:.2f} s, avg Dice "
+        f"{res['avg_dice']:.4f}, per case {[round(r['dice'], 4) for r in res['case_results']]} [{card}]")
+    counted("validate (a)", 18 * math.ceil(n / base.batch_size), f"results {res}")
+    if res["case_count"] != n or not all(math.isfinite(r["dice"]) for r in res["case_results"]):
+        raise AssertionError(f"validate: results {res}")
+    image, case_id = v.dataset[0]["image"], v.dataset.case_ids[0]
+    del v
+
+    # the fold ensemble with TTA on one case, the kernel's bf16 probabilities
+    # against the plain conv's and fp32's through the same ensemble and TTA.
+    # After one step per fold every voxel's flip average lies above 0.5
+    # (0.66-1.0 on an H100), so (a)'s mask at 0.5 is the whole volume; (b)
+    # and (c) threshold at the 90th percentile, for masks that hold 10% of
+    # the voxels and surface metrics that have surfaces
+    cfg = base.replace(tta=True, surface_metrics=True, postprocess="largest_cc")
+    ensemble = Predictor(cfg, folds, device=device)
+    probs = check_probs(ensemble, image, f"{case_id} 2-fold ensemble + TTA")
+    threshold = float(np.quantile(probs, 0.9))
+    log(f"{case_id} ensemble + TTA probabilities {probs.min():.4f}-{probs.max():.4f}, threshold for (b) and (c) "
+        f"at their 90th percentile {threshold:.4f} [{card}]")
+    del ensemble
+    cfg = cfg.replace(threshold=threshold)
+
+    # (b) the fold ensemble with TTA, surface metrics and postprocessing
+    v = Validator(cfg, folds, device=device)
+    totals = {}
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    with timed(Predictor, ("predict_probs_batch",), totals), timed(Validator, ("_case_surface",), totals), \
+            timed(validate_module, ("postprocess_from_config",), totals):
+        res = v.validate()
+    wall = time.perf_counter() - t0
+    log(f"validate the 2-fold ensemble with TTA, largest_cc and surface metrics ({n} cases): {wall:.2f} s, of which "
+        f"the ensemble's device path (H2D, 16 forwards a batch, D2H of the probabilities) "
+        f"{totals['predict_probs_batch']:.2f} s, postprocess {totals['postprocess_from_config']:.2f} s (host); "
+        f"avg Dice {res['avg_dice']:.4f}, avg hd95 {res['avg_hd95']} voxels [{card}]")
+    log(f"  surface metrics (scipy EDT on the host, {n} 128^3 masks): {totals['_case_surface']:.2f} s [{card}]")
+    for r in res["case_results"]:
+        log(f"  {r['case_id']}: Dice {r['dice']:.4f}, IoU {r['iou']:.4f}, hd95 {r['hd95']}, ASSD {r['assd']}, "
+            f"surface Dice {r['surface_dice']}")
+    counted("validate (b)", 18 * 2 * 8 * math.ceil(n / cfg.batch_size), f"results {res}")
+    if res["case_count"] != n or res["surface_units"] != "voxel":
+        raise AssertionError(f"ensemble validate: results {res}")
+    del v
+
+    # (c) validate_native: the same ensemble, tiled
+    native = os.path.join(work, "native_data")
+    write_native_tree(native, cfg.modalities)
+    v = Validator(cfg.replace(data_dir=native), folds, device=device)
+    spacings = []
+    real_surface = Validator._case_surface
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    Validator._case_surface = lambda self, m, lab, spacing: spacings.append(tuple(spacing)) or real_surface(self, m, lab, spacing)
+    try:
+        res = v.validate_native()
+    finally:
+        Validator._case_surface = real_surface
+    wall = time.perf_counter() - t0
+    tiles = len(tile_starts(NATIVE_CASE, cfg.window_size, cfg.window_overlap))
+    batches = math.ceil(tiles / cfg.window_tile_batch)
+    r = res["case_results"][0]
+    log(f"validate_native, 2-fold ensemble + TTA, one {NATIVE_CASE} case ({tiles} tiles in {batches} batches): "
+        f"{wall:.2f} s (host decode and resampling included), Dice {r['dice']:.4f}, hd95 {r['hd95']} mm, surface "
+        f"spacing {spacings} [{card}]")
+    counted("validate (c)", 18 * 2 * 8 * batches, f"results {res}")
+    if res["surface_units"] != "mm" or r["shape"] != list(NATIVE_CASE) or spacings != [NATIVE_SPACING[::-1]]:
+        raise AssertionError(f"validate_native: results {res}, spacings {spacings}")
+    del v
+    torch.cuda.empty_cache()
+    return b1_total, b2_total
+
+
+def cli(work: str, cv_dir: str, card: str) -> None:
+    """``python -m pcmseg_tpu_torch check`` and ``validate`` of the fold
+    glob with TTA, each in its own process, each exiting 0."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    data = os.path.join(work, "train_data")
+    commands = {
+        "check": ["check", "--data_dir", data, "--save_dir", cv_dir, "--output", os.path.join(work, "report.json")],
+        "validate": ["validate", "--data_dir", data, "--model_path", os.path.join(cv_dir, "best_fold_*.pth"), "--tta",
+                     "--save_dir", os.path.join(work, "cli"), "--cache_dir", os.path.join(work, "preproc"),
+                     "--batch_size", str(TRAIN["batch_size"])],
+    }
+    for name, argv in commands.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pcmseg_tpu_torch", *argv], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        last = proc.stdout.strip().splitlines()[-1:] or [""]
+        log(f"cli {name}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: {last[0]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m pcmseg_tpu_torch {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -1031,6 +1318,9 @@ def main() -> int:
     os.makedirs(work)
     train_launches = train(work, device, card)
     time_steps(device, card)
+    cv_launches, cv_dir = cross_validate(work, device, card)
+    validate_launches = validate(work, cv_dir, device, card)
+    cli(work, cv_dir, card)
 
     native = get_native_lib() is not None
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
@@ -1045,7 +1335,8 @@ def main() -> int:
             "source": "pcmseg_tpu_torch/csrc/conv3x3x3.cu",
             "replaces": "pcmseg_tpu/ops/pallas/conv3d.py:121",
             "launches": train_launches[0],
-            "launches_by_path": {"train": train_launches[0], "serve": serve_launches},
+            "launches_by_path": {"train": train_launches[0], "serve": serve_launches, "cv": cv_launches[0],
+                                 "validate": validate_launches[0]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1057,7 +1348,7 @@ def main() -> int:
             "source": "pcmseg_tpu_torch/csrc/conv3x3_dw.cu",
             "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
             "launches": train_launches[1],
-            "launches_by_path": {"train": train_launches[1]},
+            "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1]},
             **dw,
         },
     ]}))

@@ -2,10 +2,10 @@
 ``pcmseg_tpu/cli/main.py`` (``build_parser`` and ``_config_from_args``), so
 a command line moves between the two packages unchanged.
 
-The one addition is ``--device {cuda,cpu}`` on the verbs this package runs
-(``train``, ``predict``, ``serve``): the counterpart of ``JAX_PLATFORMS=cpu``.
-``_config_from_args`` does not read it; the CLI hands it to the Trainer,
-Predictor and PredictionServer.
+The one addition is ``--device {cuda,cpu}`` on every verb: the counterpart
+of ``JAX_PLATFORMS=cpu``. ``_config_from_args`` does not read it; the CLI
+hands it to the Trainer, CrossValidationTrainer, Validator, Predictor,
+PredictionServer and the environment check.
 """
 
 from __future__ import annotations
@@ -317,10 +317,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="this host's shard index (multi-host warming)")
     pw.add_argument("--process_count", type=int, default=1)
 
-    for verb in (pt, pp, ps):
+    for verb in (pc, pt, pv, pp, ps, pe, pw):
         verb.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                          help="where the model runs (default cuda; cpu "
-                               "runs the kernels' plain versions)")
+                          help="the device (default cuda, which fails without "
+                               "a card; cpu runs the kernels' plain versions)")
     return parser
 
 

@@ -1,6 +1,6 @@
 """Predictor: one case directory → uint8 NIfTI segmentation, on the GPU.
 
-The port of ``pcmseg_tpu/infer/predict.py`` for one ``.pth`` checkpoint:
+The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
 
   * host ingest: one subdirectory per modality, each holding one volume;
     missing modalities are zero-filled, duplicated from the reference
@@ -11,9 +11,17 @@ The port of ``pcmseg_tpu/infer/predict.py`` for one ``.pth`` checkpoint:
     changes nothing);
   * BN folded into the convs (``config.fold_bn``), so all 18 3³ convs run
     the CUDA kernel with bias and ReLU fused;
+  * a fold ensemble when several checkpoints are given: every member
+    folded and resident on the device, its probabilities summed in fp32
+    and divided by K (a loop over the members, where the JAX package
+    scans over stacked weights);
+  * the 2³ flip ensemble around that apply with ``config.tta``
+    (``infer/tta.py``);
   * whole-volume inference when the image fits one window, on-device
-    overlap tiling otherwise;
-  * sigmoid, threshold on the device, one uint8 D2H copy, atomic write.
+    overlap tiling otherwise (each tile batch through the same apply);
+  * sigmoid, threshold on the device, one uint8 D2H copy, connected-
+    component postprocessing on the host (``infer/postprocess.py``),
+    atomic write.
 
 Options of the JAX Predictor that this package has not ported raise
 ``NotImplementedError`` at construction. ``pallas_inference`` is a TPU
@@ -37,7 +45,9 @@ from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
 from pcmseg_tpu_torch.data.volume import Volume
 from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.infer.fold_bn import fold_batchnorm, has_batchnorm
+from pcmseg_tpu_torch.infer.postprocess import postprocess_from_config
 from pcmseg_tpu_torch.infer.sliding_window import make_sliding_window
+from pcmseg_tpu_torch.infer.tta import make_tta_apply
 from pcmseg_tpu_torch.infer.validate import (
     adopt_checkpoint_config,
     load_model_state,
@@ -143,16 +153,10 @@ def expand_model_paths(checkpoint_path) -> List[str]:
 def unported_options(config: Config) -> List[str]:
     """The config's Predictor options that this package has not ported."""
     refused = []
-    if config.tta:
-        refused.append("tta (flip-ensemble test-time augmentation)")
     if config.spatial_parallel > 1:
         refused.append(f"spatial_parallel={config.spatial_parallel}")
     if config.device_ingest:
         refused.append("device_ingest")
-    if config.postprocess != "none":
-        refused.append(f"postprocess={config.postprocess!r}")
-    if config.min_component_voxels > 0:
-        refused.append(f"min_component_voxels={config.min_component_voxels}")
     if config.n_classes >= 2:
         refused.append(f"n_classes={config.n_classes} (K-class serving)")
     if config.profile_dir:
@@ -174,32 +178,38 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Predictor:
-    """Loads one ``.pth`` checkpoint once and segments cases on ``device``
-    (default: the current CUDA device; without one, pass ``device="cpu"``)."""
+    """Loads one ``.pth`` checkpoint, or a fold ensemble of several, once
+    and segments cases on ``device`` (default: the current CUDA device;
+    without one, pass ``device="cpu"``)."""
 
     def __init__(
         self,
         config: Config,
-        checkpoint_path,
+        checkpoint_path=None,
         explicit: Sequence[str] = (),
         device=None,
+        preloaded: Optional[Tuple[UNet3D, Dict[str, torch.Tensor]]] = None,
     ):
-        paths = expand_model_paths(checkpoint_path)
-        if len(paths) > 1:
-            raise NotImplementedError(
-                f"fold-ensemble serving ({len(paths)} checkpoints) is not ported "
-                "to the PyTorch package yet"
-            )
-        require_pth(paths[0])
-        loaded = load_pth(paths[0])  # read once: config snapshot and weights
-        config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
+        """``checkpoint_path`` is one path, or several (a comma-separated
+        list, a glob such as ``run/best_fold_*.pth``, or a list) for a fold
+        ensemble, whose config is adopted from the first member.
+        ``preloaded=(model, state_dict)`` serves an already loaded model
+        (the Validator's) with ``config`` as it is, reading no checkpoint."""
+        self.log = get_logger("pcmseg.predict")
+        if preloaded is None:
+            if checkpoint_path is None:
+                raise ValueError("checkpoint_path or preloaded required")
+            paths = expand_model_paths(checkpoint_path)
+            for path in paths:
+                require_pth(path)
+            loaded = load_pth(paths[0])  # read once: config snapshot and weights
+            config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
         refused = unported_options(config)
         if refused:
             raise NotImplementedError(
                 "not ported to the PyTorch package yet: " + ", ".join(refused)
             )
         self.config = config
-        self.log = get_logger("pcmseg.predict")
         self.device = resolve_device(device)
         self.dtype = DTYPES[config.compute_dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -207,21 +217,38 @@ class Predictor:
                 f"compute_dtype={config.compute_dtype!r} on CUDA: the conv kernel "
                 "computes in bfloat16"
             )
-
-        model, state_dict = load_model_state(config, paths[0], loaded)
-        if config.fold_bn and config.norm_layer == "batch" and has_batchnorm(state_dict):
-            # conv + BN -> conv: no norm op left, bias and ReLU fused in the kernel
-            model = UNet3D.from_config(config, norm_layer="none", device="meta")
-            model.load_state_dict(fold_batchnorm(state_dict), strict=True, assign=True)
-        self.model = model.to(self.device).eval()
+        if preloaded is not None:
+            self.models = [self._serving_model(*preloaded)]
+        else:
+            # one member at a time onto the device; the others must match the
+            # first's architecture (strict loads)
+            self.models = [self._serving_model(*load_model_state(config, paths[0], loaded))]
+            self.models += [self._serving_model(*load_model_state(config, p)) for p in paths[1:]]
+            if len(paths) > 1:
+                self.log.info("fold-ensemble serving: %d checkpoints (%s)", len(paths), ", ".join(paths))
+        apply = self.models[0].predict if len(self.models) == 1 else self._ensemble_apply
+        self._apply = make_tta_apply(apply) if config.tta else apply
         self._sw_fns = {}  # per-volume-shape tiled predictors
 
+    def _serving_model(self, model: UNet3D, state_dict: Dict[str, torch.Tensor]) -> UNet3D:
+        cfg = self.config
+        if cfg.fold_bn and cfg.norm_layer == "batch" and has_batchnorm(state_dict):
+            # conv + BN -> conv: no norm op left, bias and ReLU fused in the kernel
+            model = UNet3D.from_config(cfg, norm_layer="none", device="meta")
+            model.load_state_dict(fold_batchnorm(state_dict), strict=True, assign=True)
+        return model.to(self.device).eval()
+
+    def _ensemble_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The members' mean probability, summed in fp32 in member order."""
+        total = None
+        for model in self.models:
+            p = model.predict(x)
+            total = p if total is None else total + p
+        return total / len(self.models)
+
     def _upload(self, image: np.ndarray) -> torch.Tensor:
-        """(D, H, W, C) host array → device tensor in the compute dtype; on
-        CUDA through pinned memory, one H2D copy."""
-        image = np.asarray(image)
-        if image.ndim != 4:
-            raise ValueError(f"expected (D,H,W,C), got {image.shape}")
+        """Host array → device tensor in the compute dtype; on CUDA through
+        pinned memory, one H2D copy."""
         host = torch.from_numpy(np.ascontiguousarray(image))
         if self.device.type != "cuda":
             return host.to(self.dtype)
@@ -232,17 +259,20 @@ class Predictor:
     @torch.inference_mode()
     def _predict_probs_device(self, image: np.ndarray) -> torch.Tensor:
         """(D, H, W, K) fp32 probabilities on the device."""
+        image = np.asarray(image)
+        if image.ndim != 4:
+            raise ValueError(f"expected (D,H,W,C), got {image.shape}")
         x = self._upload(image)
         ws = self.config.window_size
         needs_tiling = self.config.sliding_window or any(
             s > w for s, w in zip(x.shape[:3], ws)
         )
         if not needs_tiling:
-            return self.model.predict(x[None])[0]
+            return self._apply(x[None])[0]
         key = tuple(x.shape)
         if key not in self._sw_fns:
             self._sw_fns[key] = make_sliding_window(
-                self.model.predict,
+                self._apply,
                 key[:3],
                 n_channels=key[3],
                 n_out=self.config.n_classes,
@@ -258,11 +288,23 @@ class Predictor:
         """(D, H, W, C) image → (D, H, W, K) sigmoid probabilities."""
         return self._predict_probs_device(image).cpu().numpy()
 
+    @torch.inference_mode()
+    def predict_probs_batch(self, images: np.ndarray) -> np.ndarray:
+        """(N, D, H, W, C) window-sized batch → (N, D, H, W, K)
+        probabilities, whole-volume (no tiling): for callers whose inputs
+        already fit one window, as ensemble validation's target_size cases."""
+        images = np.asarray(images)
+        if images.ndim != 5:
+            raise ValueError(f"expected (N,D,H,W,C), got {images.shape}")
+        return self._apply(self._upload(images)).cpu().numpy()
+
     def predict_mask(self, image: np.ndarray, threshold: Optional[float] = None) -> np.ndarray:
-        """(D, H, W, C) image → (D, H, W) uint8 mask, thresholded on the device."""
+        """(D, H, W, C) image → (D, H, W) uint8 mask, thresholded on the
+        device, then postprocessed as the config says."""
         threshold = self.config.threshold if threshold is None else threshold
         probs = self._predict_probs_device(image)
-        return (probs[..., 0] > threshold).to(torch.uint8).cpu().numpy()
+        mask = (probs[..., 0] > threshold).to(torch.uint8).cpu().numpy()
+        return postprocess_from_config(mask, self.config)
 
     def load_case(
         self, case_dir: str, handle_missing: Optional[str] = None
@@ -284,6 +326,19 @@ class Predictor:
         """Case dir → (probabilities (D, H, W, K), reference Volume)."""
         image, reference = self.load_case(case_dir, handle_missing)
         return self.predict_probs(image), reference
+
+    def save_prediction(
+        self,
+        probs: np.ndarray,
+        reference: Volume,
+        output_path: str,
+        threshold: Optional[float] = None,
+    ) -> str:
+        """(D, H, W, 1) probabilities → thresholded, postprocessed uint8
+        mask → NIfTI/MHA with the reference's spatial metadata."""
+        threshold = self.config.threshold if threshold is None else threshold
+        mask = postprocess_from_config((probs[..., 0] > threshold).astype(np.uint8), self.config)
+        return self.save_mask(mask, reference, output_path)
 
     def save_mask(self, mask: np.ndarray, reference: Volume, output_path: str) -> str:
         """(D, H, W) uint8 mask → NIfTI/MHA with the reference's spatial

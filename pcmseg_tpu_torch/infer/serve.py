@@ -13,7 +13,8 @@ and the Predictor stays resident:
   * the next case's host decode runs on a one-ahead thread while the
     current case runs on the device.
 
-Profiling (``profile_dir``) is not ported yet and is refused.
+Fold ensembles, TTA and postprocessing come with the Predictor. Profiling
+(``profile_dir``) is not ported yet and is refused.
 """
 
 from __future__ import annotations

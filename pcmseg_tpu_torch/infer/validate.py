@@ -1,21 +1,49 @@
-"""Checkpoint config adoption and model loading for ``.pth`` checkpoints.
+"""Validator: per-case Dice/IoU over a dataset split → validation_results.json.
 
-The ``.pth`` branches of ``pcmseg_tpu/infer/validate.py``
-(``adopt_checkpoint_config``, ``load_model_state``). The Validator itself
-is not ported yet. Orbax checkpoint directories are the JAX package's
-format: export one with ``python run.py export`` to serve it here.
+The port of ``pcmseg_tpu/infer/validate.py`` for ``.pth`` checkpoints (one,
+or several as a fold ensemble), on the GPU unless given ``device="cpu"``:
+
+  * ``validate()`` scores each case at ``target_size``: a single model
+    through the eval step with its BatchNorm running statistics (unfolded,
+    as the JAX Validator scores it); an ensemble through the folded
+    Predictor's averaged probabilities, thresholded and scored on the host;
+    with ``postprocess`` the masks are component-filtered on the host and
+    rescored, so the filter's Dice effect is what is reported. Surface
+    metrics (``surface_metrics``) are in voxels there;
+  * ``validate_native()`` scores each case at its label's native grid
+    through the folded Predictor (tiled where the volume exceeds one
+    window), with surface metrics in millimetres;
+  * the JSON artifacts and their fields are the JAX package's:
+    ``validation_results.json`` and ``validation_results_native.json``.
+
+Binary heads only: ``n_classes >= 2`` is refused. Also here, used by the
+Predictor: the checkpoint config adoption and model loading of ``.pth``
+files. Orbax checkpoint directories are the JAX package's format: export
+one with ``python run.py export`` to validate it here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import datetime
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pcmseg_tpu_torch.core.config import Config
-from pcmseg_tpu_torch.utils.logging import get_logger
-from pcmseg_tpu_torch.models.unet3d import UNet3D
+from pcmseg_tpu_torch.data.dataset import ProstateDataset
+from pcmseg_tpu_torch.data.io import read_volume
+from pcmseg_tpu_torch.data.loader import DataLoader, to_device
+from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
+from pcmseg_tpu_torch.infer.postprocess import postprocess_from_config
+from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.ops.metrics import per_sample_dice_iou
+from pcmseg_tpu_torch.ops.surface import case_surface_metrics
 from pcmseg_tpu_torch.train.checkpoints import load_pth
+from pcmseg_tpu_torch.train.steps import TrainState, make_eval_step
+from pcmseg_tpu_torch.utils.artifacts import write_json
+from pcmseg_tpu_torch.utils.logging import get_logger
 
 # fields of the checkpoint's config snapshot that must match the weights
 # (architecture) or the input distribution they were trained on
@@ -97,3 +125,200 @@ def load_model_state(
     model = UNet3D.from_config(config, device="meta")
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model, state_dict
+
+
+class Validator:
+    """Evaluates ``.pth`` checkpoints over a dataset (or an index subset)
+    on ``device`` (default: the current CUDA device; without one, pass
+    ``device="cpu"``).
+
+    ``checkpoint_path`` may name several checkpoints (a comma-separated
+    list, a glob, or a list, as for the Predictor): the fold ensemble's
+    averaged probabilities are then scored instead of a single model's.
+    """
+
+    def __init__(
+        self,
+        config: Config,
+        checkpoint_path,
+        dataset: Optional[ProstateDataset] = None,
+        indices: Optional[Sequence[int]] = None,
+        explicit: Sequence[str] = (),
+        device=None,
+    ):
+        from pcmseg_tpu_torch.infer.predict import Predictor, expand_model_paths, resolve_device
+
+        paths = expand_model_paths(checkpoint_path)
+        require_pth(paths[0])
+        loaded = load_pth(paths[0])
+        config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
+        if config.n_classes >= 2:
+            raise NotImplementedError(
+                f"not ported to the PyTorch package yet: n_classes={config.n_classes} (K-class validation)"
+            )
+        self.config = config
+        self.log = get_logger("pcmseg.validate")
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[config.compute_dtype]
+        self.dataset = dataset if dataset is not None else ProstateDataset(
+            data_dir=config.data_dir,
+            data_type=config.data_type,
+            modalities=config.modalities,
+            missing_strategy=config.missing_strategy,
+            target_size=config.target_size,
+            normalize=config.normalize,
+            norm_percentiles=config.norm_percentiles,
+            cache_dir=config.cache_dir,
+            is_training=False,
+            n_classes=config.n_classes,
+            coregister=config.coregister,
+        )
+        self.loader = DataLoader(self.dataset, batch_size=config.batch_size, shuffle=False, indices=indices)
+        # postprocessing rescores on the host, so it needs the masks there
+        self._postprocess = config.postprocess != "none" or config.min_component_voxels > 0
+        self._ensemble = None
+        if len(paths) > 1:
+            self._ensemble = Predictor(config, paths, explicit=explicit, device=self.device)
+            return
+        model, self._state_dict = load_model_state(config, paths[0], loaded)
+        self.model = model.to(self.device).eval()
+        # the eval step reads the state for its EMA only: a .pth holds the
+        # weights it serves
+        self._state = TrainState(model=self.model, optimizer=None)
+        self._eval_step = make_eval_step(
+            self.model, config, return_pred=config.surface_metrics or self._postprocess
+        )
+
+    def _batch_scores(self, batch) -> tuple:
+        """Per-sample (dice, iou, masks) at ``config.threshold``; ``masks``
+        is the uint8 prediction when ``surface_metrics`` asks for it, else
+        None."""
+        if self._ensemble is None:
+            m = self._eval_step(self._state, to_device(batch, self.device, self.dtype))
+            masks = m["pred"].cpu().numpy() if "pred" in m else None
+            if not self._postprocess:
+                return m["dice"].tolist(), m["iou"].tolist(), masks
+        else:
+            probs = self._ensemble.predict_probs_batch(batch["image"])
+            masks = (probs > self.config.threshold).astype(np.uint8)
+        if self._postprocess:
+            masks = np.stack([postprocess_from_config(mk[..., 0], self.config)[..., None] for mk in masks])
+        dice, iou = per_sample_dice_iou(torch.from_numpy(masks), torch.as_tensor(np.asarray(batch["label"])))
+        return dice.tolist(), iou.tolist(), masks if self.config.surface_metrics else None
+
+    def _case_surface(self, mask, label, spacing) -> Dict:
+        """Boundary metrics for one case; JSON-safe (inf -> None)."""
+        cfg = self.config
+        m = case_surface_metrics(
+            np.asarray(mask),
+            np.asarray(label),
+            spacing=spacing,
+            percentile=cfg.hausdorff_percentile,
+            tolerance=cfg.surface_dice_tolerance,
+        )
+        return {k: (float(v) if np.isfinite(v) else None) for k, v in m.items()}
+
+    @staticmethod
+    def _surface_averages(case_results: List[Dict]) -> Dict:
+        """Means over the cases where the metric is defined (one-empty-mask
+        cases carry null distances; surface_dice is always defined)."""
+        out = {}
+        for k in ("hd95", "assd", "surface_dice"):
+            vals = [r[k] for r in case_results if r.get(k) is not None]
+            out[f"avg_{k}"] = float(np.mean(vals)) if vals else None
+        return out
+
+    def _results(self, case_results: List[Dict], native: bool) -> Dict:
+        if not case_results:
+            raise RuntimeError(f"{'native ' if native else ''}validation ran over zero cases")
+        avg_dice = float(np.mean([r["dice"] for r in case_results]))
+        avg_iou = float(np.mean([r["iou"] for r in case_results]))
+        results = {"timestamp": datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")}
+        if native:
+            results["resolution"] = "native"
+        results.update(avg_dice=avg_dice, avg_iou=avg_iou, case_count=len(case_results),
+                       case_results=case_results)
+        if self.config.surface_metrics:
+            results.update(self._surface_averages(case_results))
+            results["surface_units"] = "mm" if native else "voxel"
+        self.log.info(
+            "%svalidation: avg dice %.4f avg iou %.4f over %d cases",
+            "native " if native else "", avg_dice, avg_iou, len(case_results),
+        )
+        return results
+
+    def validate(self, save: bool = True) -> Dict:
+        case_results: List[Dict] = []
+        for batch in self.loader:
+            dices, ious, masks = self._batch_scores(batch)
+            for i, (cid, dice, iou) in enumerate(zip(batch["case_id"], dices, ious)):
+                rec = {"case_id": cid, "dice": float(dice), "iou": float(iou)}
+                if masks is not None:
+                    # unit spacing: this validator scores on the resampled
+                    # target_size grid, so distances read in voxels
+                    rec.update(self._case_surface(masks[i], batch["label"][i], (1.0, 1.0, 1.0)))
+                case_results.append(rec)
+        results = self._results(case_results, native=False)
+        if save:
+            write_json(os.path.join(self.config.save_dir, "validation_results.json"), results)
+        return results
+
+    def validate_native(self, save: bool = True) -> Dict:
+        """Per-case Dice/IoU at each label's native grid.
+
+        :meth:`validate` scores volumes resampled to ``target_size``, which
+        blurs thin structures in prediction and ground truth alike. Here
+        every modality is resampled onto the case's raw label grid, the
+        Predictor runs at that resolution (tiled and blended when the
+        volume exceeds one window), and the mask is scored against the
+        unresampled binarized label.
+        """
+        predictor = self._native_predictor()
+        cfg = self.config
+        case_results: List[Dict] = []
+        for rec in self.dataset.case_list:
+            label_vol = read_volume(rec.label_path)
+            label = (label_vol.data > 0).astype(np.float32)[..., None]
+            channels = []
+            for m in cfg.modalities:
+                p = rec.modality_files.get(m)
+                if p is None:
+                    channels.append(np.zeros(label_vol.shape, np.float32))
+                    continue
+                data = read_volume(p).data
+                if data.shape != label_vol.shape:
+                    data = resample_array(data, label_vol.shape, mode="linear")
+                channels.append(normalize_intensity(data, cfg.normalize, cfg.norm_percentiles))
+            image = np.stack(channels, axis=-1).astype(np.float32)
+            mask = predictor.predict_mask(image)[..., None].astype(np.float32)
+            dice, iou = per_sample_dice_iou(torch.from_numpy(mask[None]), torch.from_numpy(label[None]))
+            case_rec = {
+                "case_id": rec.case_id,
+                "dice": float(dice[0]),
+                "iou": float(iou[0]),
+                "shape": list(label_vol.shape),
+            }
+            if cfg.surface_metrics:
+                # Volume spacing is (sx, sy, sz); data axes are (z, y, x):
+                # reversed, distances come out in millimetres
+                case_rec.update(self._case_surface(mask, label, label_vol.spacing[::-1]))
+            case_results.append(case_rec)
+        results = self._results(case_results, native=True)
+        if save:
+            write_json(os.path.join(cfg.save_dir, "validation_results_native.json"), results)
+        return results
+
+    def _native_predictor(self):
+        """The fold-ensemble Predictor, or a Predictor over this Validator's
+        loaded model and weights (no second checkpoint read), built
+        through the Predictor's own constructor so that BN folding, TTA,
+        tiling and postprocessing are the serving path's."""
+        from pcmseg_tpu_torch.infer.predict import Predictor
+
+        if self._ensemble is not None:
+            return self._ensemble
+        return Predictor(
+            self.config.replace(sliding_window=False),
+            preloaded=(self.model, self._state_dict),
+            device=self.device,
+        )

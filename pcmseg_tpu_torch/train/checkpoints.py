@@ -103,10 +103,16 @@ def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
 
 
 def save_pth(
-    path: str, state_dict: Mapping[str, torch.Tensor], config: Optional[dict] = None
+    path: str,
+    state_dict: Mapping[str, torch.Tensor],
+    config: Optional[dict] = None,
+    meta: Optional[dict] = None,
 ) -> str:
-    """Write ``{'model_state_dict': ..., 'config': ...}`` atomically."""
+    """Write ``{'model_state_dict': ..., 'config': ...}`` atomically; the
+    ``meta`` entries go beside them, as ``export_torch_checkpoint`` writes
+    its meta."""
     payload = {"model_state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
+    payload.update(meta or {})
     if config:
         payload["config"] = config
     return _atomic_write(path, lambda tmp: torch.save(payload, tmp))
@@ -178,15 +184,48 @@ def load_train_checkpoint(path: str, state) -> dict:
     return dict(payload.get("meta") or {})
 
 
-def prune_periodic(directory: str, keep: int) -> None:
-    """Delete all but the newest ``keep`` ``epoch_{e}`` checkpoints (0 keeps all)."""
+def serving_state_dict(
+    model_state: Mapping[str, torch.Tensor],
+    ema: Optional[Mapping[str, torch.Tensor]],
+    use_ema: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """The weights that validation scores and serving serves: the model's
+    state dict, with the EMA of the parameters in place of the live ones
+    when there is one and ``use_ema``."""
+    sd = dict(model_state)
+    if use_ema and ema:
+        sd.update(ema)
+    return sd
+
+
+def export_train_checkpoint(path: str, output: str, use_ema: bool = True) -> str:
+    """Training checkpoint ``path`` (a ``.pt`` file) → reference-layout
+    ``.pth`` at ``output``, with the meta keys the JAX package's export
+    carries (``exported_from``, ``epoch``, ``monitor``, ``best_monitor``,
+    ``config``)."""
+    if not path.endswith(TRAIN_SUFFIX) or not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{path!r}: expected a training checkpoint file ({{save_dir}}/{{name}}{TRAIN_SUFFIX})"
+        )
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    meta = payload.get("meta") or {}
+    extra = {"exported_from": os.path.abspath(path)}
+    extra.update({k: meta[k] for k in ("epoch", "monitor", "best_monitor") if k in meta})
+    weights = serving_state_dict(payload["model"], payload.get("ema"), use_ema)
+    return save_pth(output, weights, meta.get("config"), extra)
+
+
+def prune_periodic(directory: str, keep: int, tag: str = "") -> None:
+    """Delete all but the newest ``keep`` ``epoch_{e}`` checkpoints, or
+    ``epoch_{e}_{tag}`` ones under a tag (0 keeps all)."""
     if keep <= 0:
         return
     directory = os.path.abspath(os.path.expanduser(directory))
+    suffix = f"_{tag}{TRAIN_SUFFIX}" if tag else TRAIN_SUFFIX
     found = []
     for entry in os.listdir(directory):
-        stem = entry[: -len(TRAIN_SUFFIX)] if entry.endswith(TRAIN_SUFFIX) else ""
-        if stem.startswith("epoch_") and stem[len("epoch_"):].isdigit():
-            found.append((int(stem[len("epoch_"):]), entry))
+        epoch = entry[len("epoch_"): -len(suffix)] if entry.endswith(suffix) else ""
+        if entry.startswith("epoch_") and epoch.isdigit():
+            found.append((int(epoch), entry))
     for _, entry in sorted(found)[:-keep]:
         os.remove(os.path.join(directory, entry))

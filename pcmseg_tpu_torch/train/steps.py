@@ -201,11 +201,14 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
     return train_step
 
 
-def make_eval_step(model: nn.Module, config, loss_fn: Optional[Callable] = None) -> Callable:
+def make_eval_step(
+    model: nn.Module, config, loss_fn: Optional[Callable] = None, return_pred: bool = False
+) -> Callable:
     """(state, batch) -> {'loss', 'dice', 'iou', 'dice_sum', 'iou_sum',
     'weight_sum'}: the batch loss with the running statistics, and Dice/IoU
-    per sample at ``config.threshold`` (``steps.py:389-414``). With EMA on
-    (and ``ema_eval``) the averaged parameters are scored."""
+    per sample at ``config.threshold`` (``steps.py:389-414``), plus 'pred',
+    the uint8 mask, with ``return_pred``. With EMA on (and ``ema_eval``) the
+    averaged parameters are scored; ``state`` is read for its ``ema`` only."""
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     threshold = config.threshold
@@ -224,7 +227,7 @@ def make_eval_step(model: nn.Module, config, loss_fn: Optional[Callable] = None)
         pred = (torch.sigmoid(logits.float()) > threshold).float()
         dice, iou = per_sample_dice_iou(pred, labels)
         w = weight.float() if weight is not None else torch.ones_like(dice)
-        return {
+        out = {
             "loss": loss,
             "dice": dice,
             "iou": iou,
@@ -232,5 +235,8 @@ def make_eval_step(model: nn.Module, config, loss_fn: Optional[Callable] = None)
             "iou_sum": (iou * w).sum(),
             "weight_sum": w.sum(),
         }
+        if return_pred:
+            out["pred"] = pred.to(torch.uint8)
+        return out
 
     return eval_step

@@ -3,7 +3,9 @@
 The streamed path of the JAX trainer:
 
   * the split: ``val_fraction`` of the cases, drawn with
-    ``default_rng(seed).permutation`` (``trainer.py:88-106``);
+    ``default_rng(seed).permutation``, or the caller's ``train_indices`` /
+    ``val_indices`` over a shared ``dataset`` (a cross-validation fold;
+    ``val_indices`` alone trains on the rest) (``trainer.py:58-106``);
   * every batch, the ragged tail included, padded to ``batch_size``
     rounded up to ``accum_steps`` (``trainer.py:127-136`` at one device);
   * ``train_epoch``: batches decoded by the loader's threads, prefetched to
@@ -14,9 +16,11 @@ The streamed path of the JAX trainer:
   * the epoch loop (``trainer.py:792-852``): the schedule sets the LR, early
     stopping on the monitored loss, ``latest`` every epoch, ``best`` on
     improvement (also written as a reference-layout ``best.pth`` that
-    ``predict`` and ``serve`` take as it is), ``epoch_{e}`` every
-    ``save_frequency`` epochs, pruned to ``keep_checkpoints``;
-  * real resume from ``latest`` (``trainer.py:480-508``), loaders included.
+    ``predict``, ``serve`` and ``validate`` take as it is), ``epoch_{e}``
+    every ``save_frequency`` epochs, pruned to ``keep_checkpoints``; under a
+    ``tag`` every name becomes ``{name}_{tag}`` (``best_fold_0.pth``);
+  * real resume from ``latest`` (``latest_{tag}``; ``trainer.py:480-508``),
+    loaders included.
 
 Options of the JAX trainer that are not ported raise ``NotImplementedError``
 naming the option. The device data cache (on by default) is not ported:
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +47,7 @@ from pcmseg_tpu_torch.train.checkpoints import (
     prune_periodic,
     save_pth,
     save_train_checkpoint,
+    serving_state_dict,
     train_checkpoint_path,
 )
 from pcmseg_tpu_torch.train.schedule import EarlyStopping, make_scheduler
@@ -60,10 +65,19 @@ class Trainer:
     """Config-driven trainer over one train(/val) split on ``device``
     (default: the current CUDA device; without one, pass ``device="cpu"``)."""
 
-    def __init__(self, config: Config, device=None):
+    def __init__(
+        self,
+        config: Config,
+        dataset: Optional[ProstateDataset] = None,
+        train_indices: Optional[Sequence[int]] = None,
+        val_indices: Optional[Sequence[int]] = None,
+        tag: str = "",
+        device=None,
+    ):
         refuse_unported_training(config)
         self.config = config
-        self.log = get_logger("pcmseg.trainer")
+        self.tag = tag
+        self.log = get_logger(f"pcmseg.trainer{('.' + tag) if tag else ''}")
         self.device = resolve_device(device)
         self.dtype = DTYPES[config.compute_dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -76,7 +90,7 @@ class Trainer:
                 "streams from the host", config.device_data_cache_gb,
             )
 
-        self.dataset = ProstateDataset(
+        self.dataset = dataset if dataset is not None else ProstateDataset(
             data_dir=config.data_dir,
             data_type=config.data_type,
             modalities=config.modalities,
@@ -95,13 +109,21 @@ class Trainer:
             )
 
         # -- split ----------------------------------------------------------
-        self.train_indices: List[int] = list(range(n))
-        self.val_indices: Optional[List[int]] = None
-        if config.validation and n >= 2:
-            perm = np.random.default_rng(config.seed).permutation(n)
-            n_val = max(1, int(round(n * config.val_fraction)))
-            self.val_indices = np.sort(perm[:n_val]).tolist()
-            self.train_indices = np.sort(perm[n_val:]).tolist()
+        if train_indices is None and val_indices is not None:
+            # val alone: train on the complement
+            val_set = {int(i) for i in val_indices}
+            train_indices = [i for i in range(n) if i not in val_set]
+        elif train_indices is None:
+            if config.validation and n >= 2:
+                perm = np.random.default_rng(config.seed).permutation(n)
+                n_val = max(1, int(round(n * config.val_fraction)))
+                val_indices = np.sort(perm[:n_val]).tolist()
+                train_indices = np.sort(perm[n_val:]).tolist()
+            else:
+                train_indices = list(range(n))
+                val_indices = None
+        self.train_indices: List[int] = list(train_indices)
+        self.val_indices: Optional[List[int]] = list(val_indices) if val_indices is not None else None
 
         # every batch pads to one size, divisible by the accumulation steps
         accum = max(1, int(config.accum_steps))
@@ -157,6 +179,9 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------------
 
+    def _ckpt_name(self, base: str) -> str:
+        return f"{base}_{self.tag}" if self.tag else base
+
     def _meta(self, epoch: int, monitor: float) -> dict:
         return {
             "epoch": epoch,
@@ -166,29 +191,26 @@ class Trainer:
             "scheduler": self.scheduler.state_dict(),
             "early_stopping": self.early_stopping.state_dict(),
             "config": self.config.to_dict(),
+            "tag": self.tag,
         }
-
-    def _serving_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights that validation scores: the EMA when it is on."""
-        sd = self.state.model.state_dict()
-        if self.state.ema is not None and self.config.ema_eval:
-            sd.update(self.state.ema)
-        return sd
 
     def _save_epoch(self, epoch: int, monitor: float, is_best: bool) -> None:
         cfg = self.config
         meta = self._meta(epoch, monitor)
         # one serialization per epoch; 'best' and 'epoch_{e}' are file copies
-        save_train_checkpoint(cfg.save_dir, "latest", self.state, meta)
+        latest = self._ckpt_name("latest")
+        save_train_checkpoint(cfg.save_dir, latest, self.state, meta)
         if is_best:
-            copy_train_checkpoint(cfg.save_dir, "latest", "best")
-            save_pth(os.path.join(cfg.save_dir, "best.pth"), self._serving_state_dict(), cfg.to_dict())
+            best = self._ckpt_name("best")
+            copy_train_checkpoint(cfg.save_dir, latest, best)
+            weights = serving_state_dict(self.state.model.state_dict(), self.state.ema, cfg.ema_eval)
+            save_pth(os.path.join(cfg.save_dir, best + ".pth"), weights, cfg.to_dict())
         if cfg.save_frequency and (epoch + 1) % cfg.save_frequency == 0:
-            copy_train_checkpoint(cfg.save_dir, "latest", f"epoch_{epoch + 1}")
-            prune_periodic(cfg.save_dir, cfg.keep_checkpoints)
+            copy_train_checkpoint(cfg.save_dir, latest, self._ckpt_name(f"epoch_{epoch + 1}"))
+            prune_periodic(cfg.save_dir, cfg.keep_checkpoints, self.tag)
 
     def _try_resume(self) -> None:
-        path = train_checkpoint_path(self.config.save_dir, "latest")
+        path = train_checkpoint_path(self.config.save_dir, self._ckpt_name("latest"))
         if not os.path.exists(path):
             self.log.info("resume requested but no latest checkpoint; fresh start")
             return

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel and GPU serving path, on the card.
+"""The port's CUDA kernels, its serving and training paths and its command
+line, on the card.
 
-Every test here needs an NVIDIA GPU and skips without one. The file imports
+Every test here but the last needs an NVIDIA GPU and skips without one. The file imports
 no JAX, so it runs on a machine that has only PyTorch; there, skip the
 repo's conftest (it sets JAX up):
 
@@ -8,6 +9,8 @@ repo's conftest (it sets JAX up):
 """
 
 import math
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -208,3 +211,71 @@ def test_train_step_on_the_card_launches_every_kernel(cuda_device):
     # per microbatch: 18 forward, 18 recomputed (remat), 17 dx; 18 dW
     assert conv3d.launches - b1 == 2 * (18 + 18 + 17)
     assert conv3d_grad.launches - b2 == 2 * 18
+
+
+# ---- every verb of the command line on the card -------------------------------------
+
+
+def _write_tree(root, modalities, n_cases=4, shape=(34, 32, 33)):
+    """A training tree of random volumes ({root}/BPH-PCA/BPH/{modality}/{case}.nii.gz,
+    labels under ROI(BPH+PCA)/BPH)."""
+    from pcmseg_tpu_torch.data.nifti import write_nifti
+
+    rng = np.random.default_rng(0)
+    label_dir = f"{root}/BPH-PCA/ROI(BPH+PCA)/BPH"
+    for i in range(n_cases):
+        for m in modalities:
+            os.makedirs(f"{root}/BPH-PCA/BPH/{m}", exist_ok=True)
+            write_nifti(rng.normal(100, 30, size=shape).astype(np.int16), f"{root}/BPH-PCA/BPH/{m}/c{i}.nii.gz")
+        os.makedirs(label_dir, exist_ok=True)
+        write_nifti((rng.random(shape) > 0.8).astype(np.uint8), f"{label_dir}/c{i}.nii.gz")
+
+
+def test_every_verb_on_the_card(cuda_device, tmp_path, capsys):
+    """check, train --cross_validation, validate (ensemble + TTA, and
+    --native), predict, serve, export and warm-cache run on the card."""
+    from pcmseg_tpu_torch.cli.main import main
+    from pcmseg_tpu_torch.core.config import DEFAULT_MODALITIES
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    data, ckpt = str(tmp_path / "data"), str(tmp_path / "ckpt")
+    _write_tree(data, DEFAULT_MODALITIES)
+    common = ["--data_dir", data, "--save_dir", ckpt, "--cache_dir", str(tmp_path / "cache")]
+    assert main(["warm-cache", *common, "--target_size", "32", "32", "32"]) == 0
+    b1, b2 = conv3d.launches, conv3d_grad.launches
+    assert main(["train", "--cross_validation", "--n_splits", "2", "--epochs", "1", "--target_size", "32", "32",
+                 "32", "--base_features", "8", "--batch_size", "2", *common]) == 0
+    assert conv3d.launches > b1 and conv3d_grad.launches > b2
+    folds = os.path.join(ckpt, "best_fold_*.pth")
+    b1 = conv3d.launches
+    assert main(["validate", "--model_path", folds, "--tta", "--batch_size", "4", *common]) == 0
+    assert conv3d.launches - b1 == 18 * 2 * 8 * 1  # one batch of 4: 2 members x 8 flips
+    assert main(["validate", "--model_path", folds, "--native", "--surface_metrics", *common]) == 0
+    case = str(tmp_path / "case")
+    for m in DEFAULT_MODALITIES:
+        os.makedirs(os.path.join(case, m))
+        shutil.copy(f"{data}/BPH-PCA/BPH/{m}/c0.nii.gz", os.path.join(case, m, "t.nii.gz"))
+    assert main(["predict", "--model_path", folds, "--input_dir", case, "--output_dir", str(tmp_path / "out"),
+                 "--postprocess", "largest_cc"]) == 0
+    os.makedirs(tmp_path / "inbox")
+    os.rename(case, tmp_path / "inbox" / "c0")
+    assert main(["serve", "--model_path", folds, "--input_root", str(tmp_path / "inbox"), "--output_dir",
+                 str(tmp_path / "served"), "--once", "--tta"]) == 0
+    assert main(["export", "--model_path", os.path.join(ckpt, "latest_fold_1.pt"), "--output",
+                 str(tmp_path / "m.pth")]) == 0
+    assert main(["check", *common[:4], "--output", str(tmp_path / "report.json")]) == 0
+    assert "devices: " in capsys.readouterr().out
+
+
+def test_validate_without_a_card_needs_cpu(tmp_path, monkeypatch, capsys):
+    """On a machine without a card (or told there is none) ``validate``
+    fails unless given ``--device cpu``."""
+    from pcmseg_tpu_torch.cli.main import main
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.train.checkpoints import save_pth
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = get_config(base_features=4)
+    pth = save_pth(str(tmp_path / "m.pth"), UNet3D.from_config(config).state_dict(), config.to_dict())
+    assert main(["validate", "--model_path", pth, "--data_dir", str(tmp_path)]) != 0
+    assert "--device cpu" in capsys.readouterr().err

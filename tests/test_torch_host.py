@@ -1,9 +1,11 @@
 """The port's own copy of the host layer (pcmseg_tpu_torch/core/config.py,
-cli/parser.py, data/{volume,nifti,mha,io,resample,native,augment}.py,
-utils/logging.py) against the JAX package's originals on the same inputs:
-the copies must behave identically, faults included."""
+cli/parser.py, data/{volume,nifti,mha,io,resample,native,augment,kfold,
+warm_cache}.py, utils/{logging,artifacts}.py) against the JAX package's
+originals on the same inputs: the copies must behave identically, faults
+included."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -16,11 +18,16 @@ from pcmseg_tpu.data import io as jax_io
 from pcmseg_tpu.data import native as jax_native
 from pcmseg_tpu.data import resample as jax_resample
 from pcmseg_tpu.data.volume import Volume as JaxVolume
+from pcmseg_tpu.data import kfold as jax_kfold
+from pcmseg_tpu.data import warm_cache as jax_warm_cache
+from pcmseg_tpu.data.synthetic import make_synthetic_dataset
+from pcmseg_tpu.utils import artifacts as jax_artifacts
 from pcmseg_tpu.utils.logging import StepTimer as JaxStepTimer
 from pcmseg_tpu_torch.cli.parser import _config_from_args, build_parser
 from pcmseg_tpu_torch.core import config
-from pcmseg_tpu_torch.data import augment, io, native, resample
+from pcmseg_tpu_torch.data import augment, io, kfold, native, resample, warm_cache
 from pcmseg_tpu_torch.data.volume import Volume
+from pcmseg_tpu_torch.utils import artifacts
 from pcmseg_tpu_torch.utils.logging import StepTimer
 
 
@@ -161,3 +168,80 @@ def test_step_timer_matches():
             t.stop(items)
     assert (ours._steps, ours._items) == (theirs._steps, theirs._items) == (3, 6)
     assert ours.items_per_sec > 0 and theirs.items_per_sec > 0
+
+
+@pytest.mark.parametrize("n_cases,n_splits,seed", [(5, 2, 0), (7, 3, 42), (10, 5, 3), (4, 4, 1)])
+@pytest.mark.parametrize("sklearn", [True, False], ids=["sklearn", "no_sklearn"])
+def test_kfold_indices_match(monkeypatch, n_cases, n_splits, seed, sklearn):
+    if not sklearn:  # both copies take their sklearn-equivalent branch
+        monkeypatch.setitem(sys.modules, "sklearn.model_selection", None)
+    got = kfold.kfold_indices(n_cases, n_splits, seed)
+    want = jax_kfold.kfold_indices(n_cases, n_splits, seed)
+    assert len(got) == len(want) == n_splits
+    for (tr, va), (jtr, jva) in zip(got, want):
+        np.testing.assert_array_equal(tr, jtr)
+        np.testing.assert_array_equal(va, jva)
+        assert sorted(tr.tolist() + va.tolist()) == list(range(n_cases))
+    for bad in ((3, 1), (2, 3)):
+        with pytest.raises(ValueError):
+            kfold.kfold_indices(*bad)
+        with pytest.raises(ValueError):
+            jax_kfold.kfold_indices(*bad)
+
+
+@pytest.fixture(scope="module")
+def small_tree(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("host_tree"))
+    make_synthetic_dataset(root, n_cases=5, shape=(12, 10, 11), seed=9)
+    return root
+
+
+def test_get_kfold_splits_match(small_tree):
+    got = kfold.get_kfold_splits(small_tree, n_splits=2, seed=4)
+    want = jax_kfold.get_kfold_splits(small_tree, n_splits=2, seed=4)
+    for (tr, va), (jtr, jva) in zip(got, want):
+        np.testing.assert_array_equal(tr, jtr)
+        np.testing.assert_array_equal(va, jva)
+
+
+def test_write_json_matches(tmp_path):
+    import torch
+
+    payload = {
+        "a": np.float32(0.25), "b": np.int64(7), "c": np.arange(3, dtype=np.int16),
+        "d": (1, 2.5, "x"), 3: {"nested": [np.float64(1.5), None, True]},
+        "e": torch.tensor(2.0), "f": float("inf"),
+    }
+    ours = artifacts.write_json(str(tmp_path / "ours" / "r.json"), payload)
+    theirs = jax_artifacts.write_json(str(tmp_path / "theirs" / "r.json"), payload)
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    assert artifacts.read_json(ours) == jax_artifacts.read_json(theirs)
+
+
+def test_warm_cache_matches(small_tree, tmp_path):
+    """Both warmers fill the same entries (the port's dataset keys its
+    ``.npz`` cache as the JAX package's does), report the same counts, and
+    a second run finds everything cached."""
+    summaries, entries = [], []
+    for name, (get_config, warm) in {
+        "ours": (config.get_config, warm_cache.warm_cache),
+        "theirs": (jax_config.get_config, jax_warm_cache.warm_cache),
+    }.items():
+        cfg = get_config(data_dir=small_tree, cache_dir=str(tmp_path / name), target_size=(16, 16, 16))
+        first = warm(cfg, num_threads=2, verbose=False)
+        again = warm(cfg, num_threads=2, verbose=False)
+        assert (first["warmed"], again["already_cached"], again["warmed"]) == (5, 5, 0)
+        summaries.append({k: v for k, v in first.items() if k not in ("seconds", "cache_dir")})
+        entries.append(sorted(os.listdir(tmp_path / name)))
+    assert summaries[0] == summaries[1]
+    assert entries[0] == entries[1] and len(entries[0]) == 5
+    for entry in entries[0]:
+        ours, theirs = np.load(tmp_path / "ours" / entry), np.load(tmp_path / "theirs" / entry)
+        for k in ("image_bf16", "label_u8"):
+            np.testing.assert_array_equal(ours[k], theirs[k])
+    cfg = config.get_config(data_dir=small_tree, cache_dir=None)
+    with pytest.raises(ValueError, match="cache_dir"):
+        warm_cache.warm_cache(cfg)
+    with pytest.raises(ValueError, match="process_index"):
+        warm_cache.warm_cache(cfg.replace(cache_dir=str(tmp_path / "x")), process_index=2, process_count=2)

@@ -1,8 +1,9 @@
 """pcmseg_tpu_torch runs with JAX and the JAX package absent: every module
-imports, a tiny Predictor segments a volume and a train step runs on the
-CPU, with pcmseg_tpu, jax, flax, optax, orbax and ml_dtypes blocked in
-sys.modules of a fresh interpreter; and no module of the port or
-``chip_smoke.py`` imports pcmseg_tpu."""
+imports, a tiny Predictor segments a volume, a train step runs, one
+cross-validation fold trains and a Validator scores a two-checkpoint
+ensemble with TTA on the CPU, with pcmseg_tpu, jax, flax, optax, orbax and
+ml_dtypes blocked in sys.modules of a fresh interpreter; and no module of
+the port or ``chip_smoke.py`` imports pcmseg_tpu."""
 
 import ast
 import os
@@ -64,6 +65,30 @@ SCRIPT = textwrap.dedent(
     assert np.isfinite(float(metrics["loss"])) and state.step == 1
     assert not torch.equal(before, model.inc.conv[0].weight)
     assert int(model.inc.conv[1].num_batches_tracked) == 2
+
+    # one cross-validation fold, then the Validator over a fold ensemble with TTA
+    from pcmseg_tpu_torch.infer.validate import Validator
+    from pcmseg_tpu_torch.train.cv import CrossValidationTrainer
+
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(2)
+        for i in range(4):
+            for m in config.modalities:
+                os.makedirs(os.path.join(d, "BPH-PCA", "BPH", m), exist_ok=True)
+                write_nifti(rng.normal(size=(18, 16, 17)).astype(np.float32),
+                            os.path.join(d, "BPH-PCA", "BPH", m, f"c{i}.nii.gz"))
+            os.makedirs(os.path.join(d, "BPH-PCA", "ROI(BPH+PCA)", "BPH"), exist_ok=True)
+            write_nifti((rng.random((18, 16, 17)) > 0.8).astype(np.uint8),
+                        os.path.join(d, "BPH-PCA", "ROI(BPH+PCA)", "BPH", f"c{i}.nii.gz"))
+        cv_cfg = get_config(data_dir=d, save_dir=os.path.join(d, "ckpt"), cache_dir=os.path.join(d, "cache"),
+                            base_features=4, compute_dtype="float32", target_size=(16, 16, 16), batch_size=2,
+                            num_epochs=1, n_splits=2)
+        fold = CrossValidationTrainer(cv_cfg, device="cpu").train_fold(0)
+        assert fold["epochs_trained"] == 1 and np.isfinite(fold["best_val_loss"])
+        other = save_pth(os.path.join(d, "other.pth"), UNet3D.from_config(cv_cfg).state_dict(), cv_cfg.to_dict())
+        results = Validator(cv_cfg.replace(tta=True, surface_metrics=True),
+                            [os.path.join(d, "ckpt", "best_fold_0.pth"), other], device="cpu").validate()
+        assert results["case_count"] == 4 and results["surface_units"] == "voxel"
     print("modules", len(modules))
     """
 )
@@ -77,7 +102,7 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("modules")[-1])
-    assert n_modules >= 25
+    assert n_modules >= 35
 
 
 def _imported_modules(path):

@@ -207,29 +207,33 @@ def test_server_counts_a_bad_case_and_carries_on(slice_setup, tmp_path):
     assert server.stats["skipped"] == 1
 
 
-def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys):
+def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys, monkeypatch):
+    """``predict`` serves a case; every other verb is ported now and reaches
+    its own handler, which without a card asks for ``--device cpu``."""
     _, pth, inbox, _ = slice_setup
     out = str(tmp_path / "out")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["predict", "--model_path", pth, "--input_dir", os.path.join(inbox, "case_b"),
             "--output_dir", out, "--base_features", "4", "--device", "cpu"]
     assert torch_main(argv) == 0
     assert read_volume(os.path.join(out, "segmentation.nii.gz")).shape == CASE_SHAPES["case_b"]
     for verb in (["export", "--model_path", pth, "--output", str(tmp_path / "x.pth")],
-                 ["validate", "--model_path", pth], ["check"]):
+                 ["validate", "--model_path", pth, "--data_dir", str(tmp_path / "none")],
+                 ["warm-cache", "--data_dir", str(tmp_path / "none"), "--cache_dir", str(tmp_path / "c")]):
         assert torch_main(verb) != 0
-        assert "not yet ported" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "not yet ported" not in err and "--device cpu" in err
+    assert torch_main(["check", "--output", str(tmp_path / "report.json")]) == 1  # no card
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize(
     "overrides,names",
     [
-        ({"tta": True}, "tta"),
-        ({"spatial_parallel": 2}, "spatial_parallel"),
-        ({"device_ingest": True}, "device_ingest"),
-        ({"postprocess": "largest_cc"}, "postprocess"),
-        ({"min_component_voxels": 10}, "min_component_voxels"),
-        ({"n_classes": 3}, "n_classes"),
-        ({"profile_dir": "trace"}, "profile_dir"),
+        pytest.param({"spatial_parallel": 2}, "spatial_parallel", id="overrides1-spatial_parallel"),
+        pytest.param({"device_ingest": True}, "device_ingest", id="overrides2-device_ingest"),
+        pytest.param({"n_classes": 3}, "n_classes", id="overrides5-n_classes"),
+        pytest.param({"profile_dir": "trace"}, "profile_dir", id="overrides6-profile_dir"),
     ],
 )
 def test_unported_options_are_refused(slice_setup, overrides, names):
@@ -238,10 +242,16 @@ def test_unported_options_are_refused(slice_setup, overrides, names):
         Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
 
 
-def test_fold_ensemble_is_refused(slice_setup):
+def test_fold_ensemble_is_refused(slice_setup, tmp_path):
+    """Fold ensembles are served now; one whose members differ in
+    architecture is refused by the strict load of the second member."""
     config, pth, _, _ = slice_setup
-    with pytest.raises(NotImplementedError, match="fold-ensemble"):
-        Predictor(config, f"{pth},{pth}", device="cpu")
+    assert len(Predictor(config, f"{pth},{pth}", device="cpu").models) == 2
+    sd, snapshot = load_pth(pth)
+    other = save_pth(str(tmp_path / "wide.pth"), {k: torch.cat([v, v]) if k == "outc.bias" else v
+                                                  for k, v in sd.items()}, snapshot)
+    with pytest.raises(RuntimeError, match="outc.bias"):
+        Predictor(config, [pth, other], device="cpu")
 
 
 def test_predictor_reads_the_checkpoint_once(slice_setup, monkeypatch):

@@ -123,9 +123,13 @@ def test_unported_options_are_refused_by_name(tree, tmp_path, option):
         Trainer(_config(tree, tmp_path, **option), device="cpu")
 
 
-def test_cli_refuses_cross_validation(tree, capsys):
+def test_cli_refuses_cross_validation(tree, capsys, monkeypatch):
+    """``train --cross_validation`` is ported (tests/test_torch_cv.py); like
+    every verb it refuses to run without a card unless given ``--device cpu``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["train", "--data_dir", tree, "--cross_validation"]) != 0
-    assert "cross_validation" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--device cpu" in err and "not ported" not in err
 
 
 def test_ema_weights_are_served_and_restored_on_resume(tree, tmp_path):
