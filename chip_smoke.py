@@ -29,8 +29,8 @@ kernel on them:
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
-     the same bf16 tensors (each dW element within 3e-4·Σ|x·dy|, dx
-     within B1's bound); the loss and every 3³ conv weight's gradient of the kernel
+     the same bf16 tensors (forward and dx within B1's bound, each dW
+     element within 3e-4·Σ|x·dy|); the loss and every 3³ conv weight's gradient of the kernel
      path (bf16) no further from the fp32 plain-conv model's than 1.5× the
      plain conv's bf16 error (+1e-3 on relative errors), the BN-preceded
      conv biases left out (their true gradient is 0); beside it, as
@@ -40,7 +40,8 @@ kernel on them:
      share of the cotangent each BatchNorm's backward keeps;
   7. train: ``Trainer(config).train()`` on 5 synthetic 128³ NIfTI cases
      in the flagship configuration (batch 4 as 4 microbatches, no remat,
-     bf16, Dice, Adam 1e-4) for 2 epochs: finite history, ``latest`` and
+     bf16, Dice, Adam 1e-4) for 2 epochs, from the device data cache (on
+     by default; the stacks on the card): finite history, ``latest`` and
      ``best`` checkpoints, exact kernel launch counts (per step 4 × (18 B1
      forward + 17 B1 dx + 18 B2), 18 B1 per validation forward); a run
      killed after epoch 1 and resumed from ``latest`` equals the
@@ -51,9 +52,32 @@ kernel on them:
   9. cv: ``CrossValidationTrainer(config).train()`` on the train phase's 5
      cases, 2 folds x 1 epoch in the flagship configuration: finite
      histories, ``cv_results.json``, ``best_fold_{0,1}.pth``, exact launch
-     counts (the train phase's per step and per validation forward), the
-     time in train epochs, validation and checkpoint writes; a resumed
-     CrossValidationTrainer skips both folds and launches nothing;
+     counts (the train phase's per step and per validation forward), one
+     device-cache upload for both folds, the time in train epochs,
+     validation and checkpoint writes; a resumed CrossValidationTrainer
+     skips both folds and launches nothing;
+ 9b. cache: 12 synthetic 128³ cases (10 train, 2 val), the flagship step:
+     (a) 2 epochs from the full cache bitwise equal to 2 streamed epochs
+     from the same init (history and parameters); (b) a budget of exactly
+     8 cases: 8 train cases resident, 2 train and 2 val cases streamed,
+     their batch spread among the cached ones, every train case consumed
+     once per epoch, and a run killed after epoch 1 and resumed bitwise
+     equal to the uninterrupted one; (c) every augmentation on and 96³
+     crops with 'center' foreground oversampling, one cold and two warm
+     ``train_epoch()`` calls cached (on the card) and streamed (scipy on
+     the host): seconds per epoch, vol/s of the unprofiled warm epoch, the
+     card's idle share of a second warm epoch's own wall time under
+     torch.profiler, one cached 96³ microbatch's 18 forward, 17 dx and 18
+     dW convs (96³ to the 6³ bottleneck) held against the plain versions
+     as in the gradients phase, the device ms of one batch's gather,
+     crop and augmentation; then the warp, the blur and the gamma branch
+     on one 128³×5 volume on the card and on the CPU, max |Δ|, no NaN.
+     Exact launch counts in each part (96³ crops run the same 18 + 17 + 18
+     convs per microbatch);
+ 9c. ds: one flagship step of a deep-supervision model (finite loss, 140
+     B1 and 72 B2 launches, non-zero gradients at the three heads), then a
+     1-epoch deep-supervision ``Trainer`` whose ``best.pth`` has no ``ds*``
+     key and serves one case;
  10. validate: the ``Validator`` over the 5 cases: (a) ``best_fold_0.pth``
      through the eval step (BatchNorm unfolded), 18 B1 launches per batch
      of 4; (b) the two folds as an ensemble with TTA, surface metrics and
@@ -88,8 +112,9 @@ Without a CUDA device, or outside a checkout of the repository, it exits 1
 before doing anything. The last lines are the kernels' JSON record (per
 kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
-``launches_by_path`` counts each path's run), the nvidia-smi line, and the
-device JSON.
+``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
+``cache_c`` and ``ds`` those of the cache and ds phases), the nvidia-smi
+line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -673,8 +698,8 @@ def bn_surviving_share(model):
 @contextlib.contextmanager
 def conv_io(model):
     """Record, for each 3^3 conv of ``model``, what its autograd Function
-    saw and gave in the next forward and backward: {name: {'x', 'dy', 'dx'}}
-    ('dx' only where x needs a gradient; each conv's x has no other
+    saw and gave in the next forward and backward: {name: {'x', 'y', 'dy',
+    'dx'}} ('dx' only where x needs a gradient; each conv's x has no other
     consumer, so its gradient is the Function's dx)."""
     from pcmseg_tpu_torch.models.unet3d import Conv3x3
 
@@ -682,7 +707,7 @@ def conv_io(model):
 
     def hook(name):
         def on_forward(module, inputs, out):
-            rec = records.setdefault(name, {"x": inputs[0]})
+            rec = records.setdefault(name, {"x": inputs[0], "y": out.detach()})
             out.register_hook(lambda dy: rec.__setitem__("dy", dy))
             if inputs[0].requires_grad:
                 inputs[0].register_hook(lambda dx: rec.__setitem__("dx", dx))
@@ -698,21 +723,32 @@ def conv_io(model):
             h.remove()
 
 
-def check_conv_function(model, records, grads, card: str) -> None:
-    """Each conv's Function, as the kernel path ran it in the model: its dW
-    (the parameter's gradient) against the plain fp32 weight gradient of
-    the same bf16 x and dy, each element within DW_SUM_BOUND·Σ|x·dy|; its dx against the
-    plain fp32 conv of dy with the flipped, transposed bf16 weight, within
-    B1's bound. (db is Σ dy, which BatchNorm after every conv makes 0 up
-    to rounding: the CPU tests hold it.)"""
+def check_conv_function(model, records, grads, card: str, what: str = "one 128^3 microbatch") -> None:
+    """Each conv's Function, as the kernel path ran it in the model: its
+    forward against the plain fp32 conv of the same bf16 x with the packed
+    bf16 weight, within B1's bound; its dW (the parameter's gradient)
+    against the plain fp32 weight gradient of the same bf16 x and dy, each
+    element within DW_SUM_BOUND·Σ|x·dy|; its dx against the plain fp32 conv
+    of dy with the flipped, transposed bf16 weight, within B1's bound. (db
+    is Σ dy, which BatchNorm after every conv makes 0 up to rounding: the
+    CPU tests hold it.)"""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
 
-    worst = {"dW": (0.0, ""), "dx": (0.0, "")}
+    worst = {"forward": (0.0, ""), "dW": (0.0, ""), "dx": (0.0, "")}
     for name, rec in records.items():
-        w = model.get_submodule(name).weight.detach()
+        conv = model.get_submodule(name)
+        w = conv.weight.detach()
         x, dy = rec["x"].float(), rec["dy"].float()
+        ref = conv3d.conv3x3x3_reference(x, conv.packed_weight(rec["x"].dtype).float(), conv.bias.detach(), conv.relu)
+        err = (rec["y"].float() - ref).abs()
+        bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+        worst["forward"] = max(worst["forward"], ((err / bound).max().item(), name))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name} ({what}): the Function's forward disagrees with the plain version "
+                                 f"(worst err/bound {(err / bound).max().item():.3g})")
+        del ref, err, bound
         ref = conv3d_grad.conv3x3_dw_reference(x, dy).permute(4, 3, 0, 1, 2)
         # Σ|x·dy| per element: the scale of an fp32 sum's rounding, which
         # |ref| is not where the products cancel (x after ReLU, dy of zero mean)
@@ -721,7 +757,7 @@ def check_conv_function(model, records, grads, card: str) -> None:
         err = (diff / scale.clamp_min(1e-30)).max().item()
         worst["dW"] = max(worst["dW"], (err, name))
         if not err <= DW_SUM_BOUND:
-            raise AssertionError(f"{name}: the Function's dW is {err:.3g}·Σ|x·dy| from the plain "
+            raise AssertionError(f"{name} ({what}): the Function's dW is {err:.3g}·Σ|x·dy| from the plain "
                                  f"version's (bound {DW_SUM_BOUND})")
         if "dx" in rec:
             w_t = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16).float()
@@ -730,12 +766,15 @@ def check_conv_function(model, records, grads, card: str) -> None:
             bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
             worst["dx"] = max(worst["dx"], ((err / bound).max().item(), name))
             if not bool((err <= bound).all()):
-                raise AssertionError(f"{name}: the Function's dx disagrees with the plain version "
+                raise AssertionError(f"{name} ({what}): the Function's dx disagrees with the plain version "
                                      f"(worst err/bound {(err / bound).max().item():.3g})")
         del x, dy, ref
-    log(f"conv Function in the model, {len(records)} convs ({sum('dx' in r for r in records.values())} with dx): "
-        f"dW worst {worst['dW'][0]:.3g}·Σ|x·dy| at {worst['dW'][1]} (bound {DW_SUM_BOUND}), dx worst "
-        f"err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
+    shapes = sorted({(r["x"].shape[-1], r["y"].shape[-1], r["x"].shape[1]) for r in records.values()},
+                    key=lambda t: (-t[2], t[0], t[1]))
+    log(f"conv Function in the model, {what}, {len(records)} convs ({sum('dx' in r for r in records.values())} with "
+        f"dx) at (Ci, Co, size) {shapes}: forward worst err/bound {worst['forward'][0]:.3g} at "
+        f"{worst['forward'][1]}, dW worst {worst['dW'][0]:.3g}·Σ|x·dy| at {worst['dW'][1]} (bound "
+        f"{DW_SUM_BOUND}), dx worst err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
 
 
 def check_gradients(device, card: str) -> None:
@@ -836,9 +875,9 @@ def check_gradients(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def write_train_tree(root: str, modalities, n_cases: int) -> None:
+def write_train_tree(root: str, modalities, n_cases: int, ext: str = ".nii.gz") -> None:
     """Synthetic 128^3 cases in the training layout
-    ({root}/BPH-PCA/BPH/{modality}/{case}.nii.gz, labels under ROI(BPH+PCA))."""
+    ({root}/BPH-PCA/BPH/{modality}/{case}{ext}, labels under ROI(BPH+PCA))."""
     import numpy as np
 
     from pcmseg_tpu_torch.data.nifti import write_nifti
@@ -855,10 +894,10 @@ def write_train_tree(root: str, modalities, n_cases: int) -> None:
             vol = 300 * np.exp(-3 * r2) * (1 + 0.25 * j) + rng.normal(0, 25, size=shape).astype(np.float32)
             out = os.path.join(root, "BPH-PCA", "BPH", m)
             os.makedirs(out, exist_ok=True)
-            write_nifti(vol.astype(np.int16), os.path.join(out, f"{case}.nii.gz"))
+            write_nifti(vol.astype(np.int16), os.path.join(out, case + ext))
         out = os.path.join(root, "BPH-PCA", "ROI(BPH+PCA)", "BPH")
         os.makedirs(out, exist_ok=True)
-        write_nifti(label, os.path.join(out, f"{case}.nii.gz"))
+        write_nifti(label, os.path.join(out, case + ext))
 
 
 def expected_train_launches(config, steps: int, eval_forwards: int):
@@ -894,6 +933,7 @@ def train(work: str, device, card: str):
     trainer = Trainer(config, device=device)
     if len(trainer.train_indices) != 4 or len(trainer.val_indices) != 1:
         raise AssertionError(f"split {trainer.train_indices} / {trainer.val_indices}")
+    log(f"train path: {data_path(trainer, TRAIN_CASES)}")
     conv3d.launches = conv3d_grad.launches = 0
     t0 = time.perf_counter()
     history = trainer.train()
@@ -918,13 +958,12 @@ def train(work: str, device, card: str):
     if resumed.start_epoch != 1:
         raise AssertionError(f"resumed at epoch {resumed.start_epoch}")
     again = resumed.train()
-    same_params = all(torch.equal(a, b) for a, b in zip(trainer.state.model.state_dict().values(),
-                                                      resumed.state.model.state_dict().values()))
+    same = same_params(trainer, resumed)
     log(f"resume from latest after epoch 1: history {json.dumps(again)}; bitwise equal to the "
-        f"uninterrupted run: history {again == history}, params {same_params} [{card}]")
+        f"uninterrupted run: history {again == history}, params {same} [{card}]")
     # every op of the step is deterministic on the card (the kernels' split-K
     # partials and every reduction are summed in a fixed order; no atomics)
-    if again != history or not same_params:
+    if again != history or not same:
         raise AssertionError("the resumed run differs from the uninterrupted one")
     del trainer, resumed
     torch.cuda.empty_cache()
@@ -1066,6 +1105,7 @@ def cross_validate(work: str, device, card: str):
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.data import device_cache
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
     from pcmseg_tpu_torch.train.cv import CrossValidationTrainer
     from pcmseg_tpu_torch.train.trainer import Trainer
@@ -1082,12 +1122,20 @@ def cross_validate(work: str, device, card: str):
     )
     totals = {}
     conv3d.launches = conv3d_grad.launches = 0
+    device_cache.uploads = 0
     t0 = time.perf_counter()
     with timed(Trainer, ("train_epoch", "validate_epoch", "_save_epoch"), totals):
         results = cv.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (conv3d.launches, conv3d_grad.launches)
+    log(f"  cv path: {device_cache.uploads} device-cache upload(s) of {len(cv.dataset)} cases for "
+        f"{len(cv.splits)} folds, the stacks on {next(iter(cv.dataset._device_cache_memo))}")
+    indexed = torch.device("cuda", torch.cuda.current_device())
+    memo = cv.dataset._device_cache_memo
+    same = device_cache.build_device_cache(cv.dataset, indexed) is memo[str(indexed)]  # 'cuda' is 'cuda:0'
+    if device_cache.uploads != 1 or list(memo) != [str(indexed)] or not same:
+        raise AssertionError(f"{device_cache.uploads} cache uploads for the folds and {indexed}, expected 1")
     log(f"cross-validation, {len(cv.splits)} folds x {epochs} epoch over {len(cv.dataset)} 128^3 cases "
         f"(train/val {[(len(tr), len(va)) for tr, va in cv.splits]}): {wall:.1f} s, of which train epochs "
         f"{totals['train_epoch']:.1f} s, validation {totals['validate_epoch']:.1f} s, checkpoint writes "
@@ -1280,6 +1328,380 @@ def cli(work: str, cv_dir: str, card: str) -> None:
             raise AssertionError(f"python -m pcmseg_tpu_torch {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
 
 
+# ---- the device data cache and deep supervision (slice 5) ---------------------------
+
+# 12 synthetic 128^3 cases (val_fraction 0.2: 10 train, 2 val) at the flagship step
+CACHE_CASES = 12
+CASE_BYTES = 128**3 * (2 * 5 + 1)  # one 128^3 5-modality case in the stacks: bf16 image, uint8 label
+# (c): every augmentation on, 96^3 crops, a third of them centred on foreground
+AUG = dict(data_augmentation=True, aug_scale=0.15, aug_rotate_deg=15.0, aug_gamma=0.3, aug_noise=0.1,
+           aug_blur_prob=0.2, train_crop=(96, 96, 96), oversample_fg=0.33, oversample_mode="center")
+# the warp, blur and gamma on the card against the CPU, same fp32 tensors
+WARP = (0.2, 0.9)  # (radians, zoom)
+BLUR_SIGMA = 0.8
+GAMMA = 0.75
+TRANSFORM_BOUND = 1e-4
+
+
+def data_path(trainer, n_cases: int) -> str:
+    """Which way ``trainer`` takes its batches; the stacks must be on its device."""
+    if trainer._dcache is None:
+        return f"streamed (all {n_cases} cases from the host every epoch)"
+    images, labels = trainer._dcache["images"], trainer._dcache["labels"]
+    if images.device.type != trainer.device.type or labels.device.type != trainer.device.type:
+        raise AssertionError(f"cache stacks on {images.device} / {labels.device}, the step on {trainer.device}")
+    kind = "partial cache" if trainer._dcache_partial else "full cache"
+    return (f"{kind}, {images.shape[0]}/{n_cases} cases resident on {images.device} "
+            f"({images.dtype} {tuple(images.shape)}, {labels.dtype} labels)")
+
+
+def run_epochs(trainer, epochs: int) -> dict:
+    """``epochs`` train and validation epochs of ``trainer`` without
+    checkpoints: the history its ``train()`` would return."""
+    history = {"train_loss": [], "val_loss": [], "val_dice": [], "val_iou": []}
+    for _ in range(epochs):
+        history["train_loss"].append(trainer.train_epoch())
+        val = trainer.validate_epoch()
+        for k in ("loss", "dice", "iou"):
+            history["val_" + k].append(val[k])
+    return history
+
+
+def same_params(a, b) -> bool:
+    """Whether two trainers' models are bitwise equal."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a.state.model.state_dict().values(),
+                                                  b.state.model.state_dict().values()))
+
+
+def idle_share(fn):
+    """(fn's result, its wall seconds, the share of them in which no kernel or
+    copy ran on the card, the busy ms): the union of the device intervals
+    that torch.profiler records (device activity only, to keep its cost on
+    the host small) against the host clock around ``fn`` and a sync."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    if busy <= 0:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return out, wall, 1 - busy / 1e6 / wall, busy / 1e3
+
+
+def cache_phase(work: str, device, card: str):
+    """(a) cached against streamed, (b) the partial cache, (c) augmented
+    throughput, then the transforms on the card against the CPU. Returns the
+    (B1, B2) launches of (a), (b) and (c)."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(work, "cache_data")
+    t0 = time.perf_counter()
+    config = get_config(base_features=BASE_FEATURES, data_dir=data, save_dir=os.path.join(work, "cache_ckpt"),
+                        cache_dir=os.path.join(work, "preproc"), seed=0, **TRAIN)
+    write_train_tree(data, config.modalities, CACHE_CASES, ext=".nii")
+    log(f"cache setup ({CACHE_CASES} synthetic 128^3 cases written) {time.perf_counter() - t0:.1f} s")
+    steps = math.ceil(10 / config.batch_size)  # per epoch: 10 train cases in padded batches of 4
+    launches = {}
+
+    def counted(part: str, want) -> None:
+        got = (conv3d.launches, conv3d_grad.launches)
+        log(f"  cache ({part}): launches B1 {got[0]}, B2 {got[1]} (expected {want}) [{card}]")
+        if got != want:
+            raise AssertionError(f"cache ({part}) launched {got}, expected {want}")
+        launches[part] = got
+
+    # (a) 2 epochs from the full cache against 2 streamed epochs, the same init
+    runs = {}
+    for name, gb in (("streamed", 0.0), ("cached", config.device_data_cache_gb)):
+        trainer = Trainer(config.replace(device_data_cache_gb=gb), device=device)
+        log(f"cache (a) {name} path: {data_path(trainer, CACHE_CASES)}")
+        conv3d.launches = conv3d_grad.launches = 0
+        t0 = time.perf_counter()
+        history = run_epochs(trainer, 2)
+        torch.cuda.synchronize()
+        log(f"cache (a) {name}: 2 epochs in {time.perf_counter() - t0:.2f} s (first cold), history "
+            f"{json.dumps(history)} [{card}]")
+        counted("a" if name == "cached" else "a, streamed", expected_train_launches(config, steps=2 * steps,
+                                                                                    eval_forwards=2))
+        runs[name] = (history, trainer)
+    equal = runs["cached"][0] == runs["streamed"][0], same_params(runs["cached"][1], runs["streamed"][1])
+    log(f"cache (a): cached epochs bitwise equal to streamed: history {equal[0]}, params {equal[1]} [{card}]")
+    if not all(equal):
+        raise AssertionError("the cached epochs differ from the streamed ones")
+    for name, (_, trainer) in runs.items():  # a third, warm epoch of each under torch.profiler
+        _, wall, idle, busy = idle_share(trainer.train_epoch)
+        log(f"cache (a) {name}: a warm epoch (10 volumes, no augmentation) {wall:.3f} s = {10 / wall:.3f} vol/s "
+            f"under torch.profiler, card busy {busy:.1f} ms, idle {idle:.3f} [{card}]")
+    del runs, trainer
+    torch.cuda.empty_cache()
+
+    # (b) the partial cache: a budget of exactly 8 cases
+    partial = config.replace(device_data_cache_gb=8 * CASE_BYTES / 1e9, save_dir=os.path.join(work, "cache_b"))
+    trainer = Trainer(partial, device=device)
+    log(f"cache (b) path: {data_path(trainer, CACHE_CASES)}")
+    if (len(trainer._res_train), len(trainer._str_train), len(trainer._res_val), len(trainer._str_val)) != (8, 2, 0, 2):
+        raise AssertionError(f"partial cache: train {trainer._res_train} / {trainer._str_train}, val "
+                             f"{trainer._res_val} / {trainer._str_val}")
+    seen, order = [], []
+    cached_step, stream_step = trainer._cached_train_step, trainer._train_step
+    row_case = {r: c for c, r in trainer._dcache_row.items()}
+    ids = trainer.dataset.case_ids
+
+    def spy_cached(state, images, labels, idx, weights, gen):
+        seen.extend(ids[row_case[int(r)]] for r, w in zip(idx, weights) if w > 0)
+        order.append("c")
+        return cached_step(state, images, labels, idx, weights, gen)
+
+    def spy_stream(state, batch):
+        seen.extend(c for c, w in zip(batch["case_id"], batch["weight"].tolist()) if w > 0)
+        order.append("s")
+        return stream_step(state, batch)
+
+    trainer._cached_train_step, trainer._train_step = spy_cached, spy_stream
+    epoch_cases, epoch_s = [], []
+    real_epoch = trainer.train_epoch
+
+    def counted_epoch():
+        before, t = len(seen), time.perf_counter()
+        loss = real_epoch()
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t)
+        epoch_cases.append(sorted(seen[before:]))
+        return loss
+
+    trainer.train_epoch = counted_epoch
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want_cases = sorted(ids[i] for i in trainer.train_indices)
+    log(f"cache (b): 2 epochs in {wall:.1f} s (checkpoints included; train epochs {epoch_s[0]:.3f} s cold, "
+        f"{epoch_s[1]:.3f} s warm), step order {''.join(order)} (c cached, s streamed), history "
+        f"{json.dumps(history)} [{card}]")
+    log(f"  each train case once per epoch: {[cases == want_cases for cases in epoch_cases]}")
+    if epoch_cases != [want_cases, want_cases] or order != ["c", "c", "s"] * 2:
+        raise AssertionError(f"partial-cache epochs consumed {epoch_cases} in the order {order}")
+    counted("b", expected_train_launches(partial, steps=2 * steps, eval_forwards=2))
+    killed = partial.replace(save_dir=os.path.join(work, "cache_b_killed"), num_epochs=1)
+    Trainer(killed, device=device).train()
+    resumed = Trainer(killed.replace(num_epochs=2, resume=True), device=device)
+    again = resumed.train()
+    equal = again == history, same_params(resumed, trainer)
+    log(f"cache (b): killed after epoch 1 and resumed, bitwise equal to the uninterrupted run: history "
+        f"{equal[0]}, params {equal[1]} [{card}]")
+    if resumed.start_epoch != 1 or not all(equal):
+        raise AssertionError("the resumed partial-cache run differs from the uninterrupted one")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+
+    # (c) augmented throughput, cached against streamed (host scipy)
+    conv3d.launches = conv3d_grad.launches = 0
+    rates = {}
+    for name, gb in (("cached", config.device_data_cache_gb), ("streamed", 0.0)):
+        trainer = Trainer(config.replace(device_data_cache_gb=gb, **AUG), device=device)
+        log(f"cache (c) {name} path: {data_path(trainer, CACHE_CASES)}")
+        times, losses = [], []
+        for _ in range(2):  # cold, then warm: vol/s
+            t0 = time.perf_counter()
+            losses.append(trainer.train_epoch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        # a second warm epoch under torch.profiler: the idle share of its own wall time
+        loss, wall, idle, busy = idle_share(trainer.train_epoch)
+        losses.append(loss)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cache (c) {name}: non-finite losses {losses}")
+        rates[name] = 10 / times[1]
+        log(f"cache (c) {name}, 96^3 crops, every augmentation: epochs (10 volumes) cold {times[0]:.3f} s, warm "
+            f"{times[1]:.3f} s = {rates[name]:.3f} vol/s; a second warm epoch under torch.profiler {wall:.3f} s: "
+            f"card busy {busy:.1f} ms, idle {idle:.3f} of that epoch; losses {losses} [{card}]")
+        if name == "cached":
+            check_path_convs(trainer, config.replace(**AUG), card)
+            batch_device_ms(trainer, config.replace(**AUG), card)
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"cache (c): warm cached {rates['cached']:.3f} vol/s, streamed {rates['streamed']:.3f} vol/s "
+        f"({rates['cached'] / rates['streamed']:.2f}x) [{card}]")
+    counted("c", expected_train_launches(config, steps=2 * 3 * steps, eval_forwards=0))
+    check_transforms(device, card)
+    return launches
+
+
+def check_path_convs(trainer, config, card: str) -> None:
+    """One microbatch of ``trainer``'s cached path (rows of its stacks,
+    cropped and augmented as its step does it: the 96^3 pyramid, 96^3 to the
+    6^3 bottleneck) through its model in BN training mode under the Dice
+    loss, each conv's forward, dx and dW held against the plain versions
+    (``check_conv_function``). These launches compare and are not the
+    path's: the counts are put back."""
+    import torch
+
+    from pcmseg_tpu_torch.data import device_cache
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.losses import dice_loss
+
+    saved = conv3d.launches, conv3d_grad.launches
+    idx = next(iter(trainer._index_batches(trainer.train_indices, True, 0)))[0]
+    img, lab = device_cache.cached_batch(trainer._dcache["images"], trainer._dcache["labels"], idx,
+                                         torch.Generator().manual_seed(2), config)
+    model = trainer.state.model.train()
+    model.zero_grad(set_to_none=True)
+    conv3d.launches = conv3d_grad.launches = 0
+    with conv_io(model) as records:
+        dice_loss(model(img[:1]), lab[:1]).backward()
+        torch.cuda.synchronize()
+    got = conv3d.launches, conv3d_grad.launches
+    if got != (18 + 17, 18):
+        raise AssertionError(f"one {tuple(img.shape[1:4])} microbatch launched B1 {got[0]}x, B2 {got[1]}x")
+    grads = {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None}
+    check_conv_function(model, records, grads, card, f"one {'x'.join(map(str, img.shape[1:4]))} microbatch of cache (c)")
+    for rec in records.values():
+        rec.clear()
+    del records, grads, img, lab
+    model.zero_grad(set_to_none=True)
+    conv3d.launches, conv3d_grad.launches = saved
+
+
+def batch_device_ms(trainer, config, card: str) -> None:
+    """The device time of one batch's gather, crop and augmentation
+    (``device_cache.cached_batch``), over 4 batches of the cached stacks."""
+    import torch
+
+    from pcmseg_tpu_torch.data import device_cache
+
+    cache, n = trainer._dcache, 4
+    gen = torch.Generator().manual_seed(1)
+    batches = list(trainer._index_batches(trainer.train_indices, True, 0))
+    device_cache.cached_batch(cache["images"], cache["labels"], batches[0][0], gen, config)  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run():
+        for i in range(n):
+            device_cache.cached_batch(cache["images"], cache["labels"], batches[i % len(batches)][0], gen, config)
+
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    run()
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    _, _, idle, busy = idle_share(run)
+    log(f"cache (c) gather + 96^3 crop + augmentation of a batch of {config.batch_size}: device busy "
+        f"{busy / n:.2f} ms, CUDA-event span {start.elapsed_time(end) / n:.2f} ms, host {host:.2f} ms "
+        f"(card idle {idle:.3f} of the profiled span) [{card}]")
+
+
+def check_transforms(device, card: str) -> None:
+    """The warp, the blur and the gamma branch at given parameters on one
+    128^3 x 5 volume (fp32 values of bf16, the stacks' values) on the card
+    and on the CPU: max |delta|, no NaN (the gamma's base is clamped where
+    pow meets the minimum voxel)."""
+    import torch
+
+    from pcmseg_tpu_torch.data import device_cache
+
+    g = torch.Generator().manual_seed(8)
+    img = torch.randn((SIZE, SIZE, SIZE, 5), generator=g).to(torch.bfloat16).float()
+    lab = blob_label((SIZE,) * 3, "cpu")
+    rows = []
+    cpu = device_cache._affine_warp(img, lab, *WARP)
+    gpu = device_cache._affine_warp(img.to(device), lab.to(device), *WARP)
+    rows.append(("warp", gpu[0].cpu(), cpu[0]))
+    labels_equal = torch.equal(gpu[1].cpu(), cpu[1])
+    rows.append(("blur", device_cache._separable_blur(img.to(device), BLUR_SIGMA).cpu(),
+                 device_cache._separable_blur(img, BLUR_SIGMA)))
+    rows.append(("gamma", device_cache._gamma(img.to(device), GAMMA).cpu(), device_cache._gamma(img, GAMMA)))
+    report = []
+    for name, got, want in rows:
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        report.append(f"{name} max|d| {err:.3g}{'' if finite else ' NON-FINITE'}")
+        if not finite or not err <= TRANSFORM_BOUND:
+            raise AssertionError(f"{name} on the card: max |delta| {err:.3g} against the CPU, finite {finite}")
+    log(f"transforms on the card against the CPU, one 128^3 x 5 volume (warp {WARP}, blur sigma {BLUR_SIGMA}, "
+        f"gamma {GAMMA} with the minimum voxel present): {', '.join(report)}, warped labels equal {labels_equal} "
+        f"(bound {TRANSFORM_BOUND}) [{card}]")
+    if not labels_equal:
+        raise AssertionError("the warped labels differ between the card and the CPU")
+
+
+def deep_supervision(work: str, device, card: str):
+    """One flagship step of a deep-supervision model, then a 1-epoch
+    deep-supervision Trainer on the train phase's cases whose best.pth has
+    no ds* key and serves one case. Returns the (B1, B2) launches of both."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.data.io import read_volume
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.train.checkpoints import load_pth
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    config = get_config(base_features=BASE_FEATURES, deep_supervision=True, data_dir=os.path.join(work, "train_data"),
+                        save_dir=os.path.join(work, "ds_ckpt"), cache_dir=os.path.join(work, "preproc"), seed=0,
+                        **{**TRAIN, "num_epochs": 1})
+    model = UNet3D.from_config(config, deep_supervision=True, generator=torch.Generator().manual_seed(0)).to(device)
+    state = create_train_state(model, config)
+    g = torch.Generator(device=device).manual_seed(9)
+    n = config.batch_size
+    batch = {"image": torch.randn((n, SIZE, SIZE, SIZE, 5), generator=g, device=device).to(torch.bfloat16),
+             "label": blob_label((SIZE,) * 3, device)[None].expand(n, -1, -1, -1, -1).contiguous()}
+    conv3d.launches = conv3d_grad.launches = 0
+    loss = float(make_train_step(model, config)(state, batch)["loss"])
+    step_launches = (conv3d.launches, conv3d_grad.launches)
+    heads = {f"ds{i}": getattr(model, f"ds{i}").weight.grad.abs().max().item() for i in (1, 2, 3)}
+    want = expected_train_launches(config, steps=1, eval_forwards=0)
+    log(f"ds: one flagship step with deep supervision: loss {loss:.6g}, launches B1 {step_launches[0]}, B2 "
+        f"{step_launches[1]} (expected {want}), max |grad| of the heads {heads} [{card}]")
+    if not math.isfinite(loss) or step_launches != want or not all(0 < v < math.inf for v in heads.values()):
+        raise AssertionError("the deep-supervision step failed its checks")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(config, device=device)
+    conv3d.launches = conv3d_grad.launches = 0
+    history = trainer.train()
+    run_launches = (conv3d.launches, conv3d_grad.launches)
+    want = expected_train_launches(config, steps=1, eval_forwards=1)
+    sd, snapshot = load_pth(os.path.join(config.save_dir, "best.pth"))
+    ds_keys = [k for k in sd if k.startswith("ds")]
+    predictor = Predictor(get_config(base_features=BASE_FEATURES), os.path.join(config.save_dir, "best.pth"),
+                          device=device)
+    out = predictor.predict_and_save(os.path.join(work, "serve_case"), os.path.join(work, "ds_served", "seg.nii.gz"))
+    mask = read_volume(out).data
+    log(f"ds: 1-epoch deep-supervision Trainer: history {json.dumps(history)}, launches {run_launches} (expected "
+        f"{want}); best.pth: {len(sd)} tensors, ds keys {ds_keys}, config deep_supervision "
+        f"{snapshot['deep_supervision']}; served one case: mask {mask.shape}, foreground {mask.mean():.4f} [{card}]")
+    if run_launches != want or ds_keys or mask.dtype != np.uint8 or mask.shape != TRAIN["target_size"]:
+        raise AssertionError("the deep-supervision run failed its checks")
+    del trainer, predictor
+    torch.cuda.empty_cache()
+    return step_launches[0] + run_launches[0], step_launches[1] + run_launches[1]
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1743,8 @@ def main() -> int:
     cv_launches, cv_dir = cross_validate(work, device, card)
     validate_launches = validate(work, cv_dir, device, card)
     cli(work, cv_dir, card)
+    cache_launches = cache_phase(work, device, card)
+    ds_launches = deep_supervision(work, device, card)
 
     native = get_native_lib() is not None
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
@@ -1336,7 +1760,8 @@ def main() -> int:
             "replaces": "pcmseg_tpu/ops/pallas/conv3d.py:121",
             "launches": train_launches[0],
             "launches_by_path": {"train": train_launches[0], "serve": serve_launches, "cv": cv_launches[0],
-                                 "validate": validate_launches[0]},
+                                 "validate": validate_launches[0],
+                                 **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1348,7 +1773,8 @@ def main() -> int:
             "source": "pcmseg_tpu_torch/csrc/conv3x3_dw.cu",
             "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
             "launches": train_launches[1],
-            "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1]},
+            "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1],
+                                 **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1]},
             **dw,
         },
     ]}))

@@ -9,9 +9,10 @@ called per (epoch, index) as there, its float32 output rounded back to
 bf16 values. ``prefetch_to_device`` replaces
 ``background_prefetch`` and ``jax.device_put``: one producer thread,
 pinned host memory and ``non_blocking`` copies on a side stream, ``size``
-batches ahead. There is no ``drop_last``, no multi-process sharding
-(``process_shard``) and no host-RAM case memo: the port runs on one card
-and hands the augmenter freshly loaded arrays only.
+batches ahead. ``RamCaseCache`` is the host-RAM memo of the partial device
+cache's streamed remainder (``loader.py:54-86``). There is no
+``drop_last`` and no multi-process sharding (``process_shard``): the port
+runs on one card.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pcmseg_tpu_torch.data.dataset import bf16_round
+from pcmseg_tpu_torch.data.dataset import bf16_bits, bf16_round, from_bf16_bits
 
 
 def _padded_plan(idxs: List[int], pad_to: Optional[int]) -> Tuple[List[int], List[float]]:
@@ -45,6 +46,42 @@ def _collate(samples: List[dict], weights: List[float]) -> dict:
         "case_id": [s["case_id"] for s in samples],
         "weight": np.asarray(weights, np.float32),
     }
+
+
+class RamCaseCache:
+    """Dataset view that keeps ``load_case`` results of a fixed index set in
+    host RAM: the partial device cache's streamed remainder, re-read every
+    epoch, then costs no per-epoch ``.npz`` decode.
+
+    A case is kept as its bf16 bits (uint16) and uint8 label, the JAX
+    package's wire bytes (~23 MB per 128³ 5-modality case), and every read
+    returns fresh arrays: the float32 wire image and a copy of the label.
+    So a transform that writes into the arrays it was handed (the host
+    blur branch does, for float32 images) never reaches the memo, where the
+    JAX package's memo hands out its own arrays (``loader.py:73``).
+    Everything else delegates to the base dataset."""
+
+    def __init__(self, base, indices: Sequence[int]):
+        self.base = base
+        self._keep = {int(i) for i in indices}
+        self._memo: dict = {}
+
+    def load_case(self, i: int) -> dict:
+        got = self._memo.get(i)
+        if got is None:
+            sample = self.base.load_case(i)
+            if i not in self._keep:
+                return sample
+            got = (bf16_bits(sample["image"]), sample["label"], sample["case_id"])
+            self._memo[i] = got
+        bits, label, case_id = got
+        return {"image": from_bf16_bits(bits), "label": label.copy(), "case_id": case_id}
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
 
 
 class DataLoader:
@@ -152,12 +189,15 @@ def to_device(batch: dict, device, image_dtype: torch.dtype) -> Dict[str, object
 
 
 def prefetch_to_device(iterator, device, image_dtype: torch.dtype, size: int = 2):
-    """Move host batches to ``device`` ahead of consumption, ``size`` deep.
+    """Move host batches to ``device`` ahead of consumption, ``size`` deep;
+    returns the iterator of moved batches.
 
-    A producer thread runs ``iterator`` (the loader's decodes) and casts and
-    copies each batch; on CUDA it pins it and copies on a side stream,
-    recording an event that the consumer's stream waits on before using the
-    batch, so decode and copies overlap compute."""
+    A producer thread, started by this call, runs ``iterator`` (the
+    loader's decodes) and casts and copies each batch; on CUDA it pins it
+    and copies on a side stream, recording an event that the consumer's
+    stream waits on before using the batch, so decode and copies overlap
+    compute, also compute that runs before the first batch is taken (the
+    partial cache's steps ahead of its first streamed one)."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
@@ -179,18 +219,21 @@ def prefetch_to_device(iterator, device, image_dtype: torch.dtype, size: int = 2
         finally:
             q.put(sentinel)
 
+    def consumer():
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            moved, done = item
+            if done is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(done)
+                for v in moved.values():
+                    if isinstance(v, torch.Tensor):
+                        v.record_stream(current)  # allocated on the side stream, used here
+            yield moved
+
     threading.Thread(target=producer, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is sentinel:
-            if err:
-                raise err[0]
-            return
-        moved, done = item
-        if done is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(done)
-            for v in moved.values():
-                if isinstance(v, torch.Tensor):
-                    v.record_stream(current)  # allocated on the side stream, used here
-        yield moved
+    return consumer()

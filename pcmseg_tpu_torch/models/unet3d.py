@@ -17,6 +17,10 @@ Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm and
 the 1×1×1 head are stock PyTorch, as the JAX package leaves them to XLA.
 With ``remat`` the blocks (``inc``, ``down1-4``, ``up1-4``) are recomputed
 in the backward (``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
+With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
+``ds2``, ``ds3``, read the outputs of ``up1``, ``up2`` and ``up3``
+(``unet3d.py:458-495``); they are not in the reference layout, and the
+``.pth`` export drops them.
 
 Parameters are fp32; activations run in ``dtype`` (bf16 by default); the
 logits come back fp32.
@@ -274,6 +278,11 @@ class UNet3D(nn.Module):
     ``device``); on the ``meta`` device nothing is initialised, which counts
     parameters without allocating them. ``remat`` recomputes each block in
     the backward instead of keeping its activations (training only).
+    ``deep_supervision`` adds the aux heads: in training mode the forward
+    then returns ``(logits, [aux_1/2, aux_1/4, aux_1/8])``, fine to coarse,
+    each fp32; in eval mode the logits alone. ``from_config`` leaves them
+    out unless asked, so the serving and validation models take a ``.pth``
+    strictly whatever its config says.
     """
 
     def __init__(
@@ -286,6 +295,7 @@ class UNet3D(nn.Module):
         device=None,
         generator: Optional[torch.Generator] = None,
         remat: bool = False,
+        deep_supervision: bool = False,
     ):
         super().__init__()
         if norm_layer not in NORM_LAYERS:
@@ -297,6 +307,7 @@ class UNet3D(nn.Module):
         self.norm_layer = norm_layer
         self.dtype = dtype
         self.remat = remat
+        self.deep_supervision = deep_supervision
         f = base_features
         self.inc = DoubleConv(n_modalities, f, norm_layer, device)
         self.down1 = Down(f, 2 * f, norm_layer, device)
@@ -308,6 +319,10 @@ class UNet3D(nn.Module):
         self.up3 = Up(4 * f, 2 * f, norm_layer, device)
         self.up4 = Up(2 * f, f, norm_layer, device)
         self.outc = Conv1x1(f, n_classes, device)
+        if deep_supervision:  # after outc: the other parameters draw the init of a model without them
+            self.ds1 = Conv1x1(8 * f, n_classes, device)
+            self.ds2 = Conv1x1(4 * f, n_classes, device)
+            self.ds3 = Conv1x1(2 * f, n_classes, device)
         if torch.device(device or "cpu").type != "meta":
             self.reset_parameters(generator)
 
@@ -356,11 +371,21 @@ class UNet3D(nn.Module):
         x3 = self._block(self.down2, x2)
         x4 = self._block(self.down3, x3)
         x5 = self._block(self.down4, x4)
+        ds, aux = self.deep_supervision and self.training, []
         x = self._block(self.up1, x5, x4)
+        if ds:
+            aux.append(self.ds1(x).float())  # 1/8 resolution
         x = self._block(self.up2, x, x3)
+        if ds:
+            aux.append(self.ds2(x).float())  # 1/4
         x = self._block(self.up3, x, x2)
+        if ds:
+            aux.append(self.ds3(x).float())  # 1/2
         x = self._block(self.up4, x, x1)
-        return self.outc(x).float()
+        logits = self.outc(x).float()
+        if ds:
+            return logits, aux[::-1]  # fine to coarse, the order of train/steps.py's DS_WEIGHTS
+        return logits
 
     def _block(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
         """Run one block; with ``remat`` in training, keep only its inputs and

@@ -19,11 +19,15 @@ run time (``ops/kernels/conv3d.py::pack_weight``).
 from __future__ import annotations
 
 import os
+import re
 import shutil
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+_DS_HEAD = re.compile(r"ds\d+\.")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -48,7 +52,9 @@ def state_dict_from_jax_params(
 
     Mirrors ``pcmseg_tpu.train.checkpoints.params_to_torch_state_dict``
     without importing JAX. BN-folded trees (no ``norm{i}`` entries) give a
-    state dict for ``UNet3D(norm_layer='none')``.
+    state dict for ``UNet3D(norm_layer='none')``. A deep-supervision tree's
+    aux heads ``ds{i}``, which that exporter leaves out, become ``ds{i}.weight``
+    and ``ds{i}.bias`` of ``UNet3D(deep_supervision=True)``.
     """
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
@@ -84,8 +90,9 @@ def state_dict_from_jax_params(
             up["double_conv"],
             (batch_stats.get(f"up{i}") or {}).get("double_conv"),
         )
-    sd["outc.weight"] = _conv_weight(params["outc"]["kernel"])
-    sd["outc.bias"] = _tensor(params["outc"]["bias"])
+    for name in ["outc"] + [f"ds{i}" for i in range(1, 4) if f"ds{i}" in params]:
+        sd[f"{name}.weight"] = _conv_weight(params[name]["kernel"])
+        sd[f"{name}.bias"] = _tensor(params[name]["bias"])
     return sd
 
 
@@ -189,13 +196,14 @@ def serving_state_dict(
     ema: Optional[Mapping[str, torch.Tensor]],
     use_ema: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """The weights that validation scores and serving serves: the model's
-    state dict, with the EMA of the parameters in place of the live ones
-    when there is one and ``use_ema``."""
+    """The weights that validation scores and serving serves, in the
+    reference layout: the model's state dict, with the EMA of the
+    parameters in place of the live ones when there is one and ``use_ema``,
+    without the training-only deep-supervision heads (``ds{i}.*``)."""
     sd = dict(model_state)
     if use_ema and ema:
         sd.update(ema)
-    return sd
+    return {k: v for k, v in sd.items() if not _DS_HEAD.match(k)}
 
 
 def export_train_checkpoint(path: str, output: str, use_ema: bool = True) -> str:

@@ -1,5 +1,10 @@
 """Train and eval steps, the port of ``pcmseg_tpu/train/steps.py`` (binary head).
 
+With a deep-supervision model (``UNet3D(deep_supervision=True)``) the
+training loss is the loss at every decoder scale, weighted ``DS_WEIGHTS``
+fine to coarse, each against the labels nearest-resized to its scale
+(``steps.py:42-46, 199-224``).
+
 One train step: forward with batch-statistics BatchNorm → loss → backward
 → clip by global norm → Adam with coupled L2 weight decay → EMA, with the
 BN running statistics updated by each forward. Every 3³ conv of the forward
@@ -28,6 +33,10 @@ from torch import nn
 
 from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
 from pcmseg_tpu_torch.ops.metrics import per_sample_dice_iou
+
+# deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
+# 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
+DS_WEIGHTS = (8 / 15, 4 / 15, 2 / 15, 1 / 15)
 
 
 @dataclass
@@ -126,8 +135,6 @@ def unported_training_options(config) -> List[str]:
         refused.append("profile_dir (profiling)")
     if config.n_classes >= 2:
         refused.append(f"n_classes={config.n_classes} (K-class training)")
-    if config.deep_supervision:
-        refused.append("deep_supervision")
     if config.norm_layer != "batch":
         refused.append(f"norm_layer={config.norm_layer!r}")
     return refused
@@ -157,6 +164,15 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
     ema_decay = float(config.ema_decay)
     clip = float(config.grad_clip_norm or 0.0)
 
+    def objective(out, labels, weight):
+        if not model.deep_supervision:
+            return loss_fn(out, align_labels(out, labels), weight)
+        logits, aux = out
+        total = 0.0
+        for w, o in zip(DS_WEIGHTS, (logits, *aux)):
+            total = total + w * loss_fn(o, align_labels(o, labels), weight)
+        return total
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         images = batch["image"]
         labels = align_labels(images[..., :1], batch["label"])
@@ -166,8 +182,7 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
         for p in params:
             p.grad = None
         if accum == 1:
-            out = model(images)
-            loss = loss_fn(out, align_labels(out, labels), weight)
+            loss = objective(model(images), labels, weight)
             loss.backward()
             loss = loss.detach()
         else:
@@ -181,8 +196,7 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
             loss = torch.zeros((), device=images.device)
             for i in range(accum):
                 sl = slice(i * micro, (i + 1) * micro)
-                out = model(images[sl])
-                part = loss_fn(out, align_labels(out, labels[sl]), weight[sl])
+                part = objective(model(images[sl]), labels[sl], weight[sl])
                 part.backward()
                 loss = loss + part.detach()
             loss = loss / accum

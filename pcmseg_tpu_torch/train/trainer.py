@@ -20,11 +20,20 @@ The streamed path of the JAX trainer:
     every ``save_frequency`` epochs, pruned to ``keep_checkpoints``; under a
     ``tag`` every name becomes ``{name}_{tag}`` (``best_fold_0.pth``);
   * real resume from ``latest`` (``latest_{tag}``; ``trainer.py:480-508``),
-    loaders included.
+    loaders included;
+  * the device data cache (``trainer.py:217-340``, ``data/device_cache.py``):
+    when the cohort fits ``device_data_cache_gb``, its stacks live on the
+    trainer's device and each step gathers, crops and augments its batch
+    there (``_train_epoch_cached``, ``trainer.py:600-668``); when only
+    ``pad_to`` or more cases fit (and ``device_cache_partial``), the train
+    cases and then the val cases that fit are resident and the rest stream,
+    their batches spread over the epoch's steps (Bresenham) from a host-RAM
+    memo (``RamCaseCache``); otherwise every epoch streams. The trainer logs
+    which way it went. With augmentation off a cached epoch equals a
+    streamed one: the same plan, the same batch bytes.
 
 Options of the JAX trainer that are not ported raise ``NotImplementedError``
-naming the option. The device data cache (on by default) is not ported:
-every epoch streams, and the trainer says so once.
+naming the option.
 """
 
 from __future__ import annotations
@@ -37,8 +46,9 @@ import numpy as np
 import torch
 
 from pcmseg_tpu_torch.core.config import Config
+from pcmseg_tpu_torch.data import device_cache
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
-from pcmseg_tpu_torch.data.loader import DataLoader, prefetch_to_device
+from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan, prefetch_to_device
 from pcmseg_tpu_torch.infer.predict import resolve_device
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
 from pcmseg_tpu_torch.train.checkpoints import (
@@ -83,11 +93,6 @@ class Trainer:
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"compute_dtype={config.compute_dtype!r} on CUDA: the conv kernels compute in bfloat16"
-            )
-        if config.device_data_cache_gb > 0:
-            self.log.info(
-                "device_data_cache_gb=%s: the device data cache is not ported; every epoch "
-                "streams from the host", config.device_data_cache_gb,
             )
 
         self.dataset = dataset if dataset is not None else ProstateDataset(
@@ -163,10 +168,15 @@ class Trainer:
         )
 
         # -- model / state ----------------------------------------------------
-        model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(config.seed))
+        model = UNet3D.from_config(
+            config, deep_supervision=config.deep_supervision,
+            generator=torch.Generator().manual_seed(config.seed),
+        )
         self.state = create_train_state(model.to(self.device), config)
         self._train_step = make_train_step(model, config)
         self._eval_step = make_eval_step(model, config)
+        self._setup_device_cache(augmenter)
+        self._epochs_run = 0  # cached epochs: their plan and draws are (seed, epoch) derived
 
         self.scheduler = make_scheduler(config)
         self.early_stopping = EarlyStopping(patience=config.patience)
@@ -176,6 +186,71 @@ class Trainer:
         self.timer = StepTimer(warmup_steps=1)
         if config.resume:
             self._try_resume()
+
+    def _setup_device_cache(self, augmenter) -> None:
+        """Full cache, partial cache or streaming, by the budget at one device
+        (``trainer.py:225-337``)."""
+        config = self.config
+        self._dcache = None
+        self._dcache_partial = False
+        self._stream_train_loader = self._stream_val_loader = None
+        n_cases = len(self.dataset)
+        per_case = device_cache.dataset_device_bytes(1, config.target_size, config.n_modalities)
+        if config.device_data_cache_gb <= 0:
+            self.log.info("device data cache off (device_data_cache_gb=0): every epoch streams from the host")
+            return
+        n_fit = int(config.device_data_cache_gb * 1e9 // per_case)
+        resident = None
+        if n_fit >= n_cases:
+            resident = list(range(n_cases))
+        elif n_fit >= self._pad_to and config.device_cache_partial:
+            # train cases first (gathered every epoch), then val
+            resident = self.train_indices[:n_fit]
+            if len(resident) < n_fit and self.val_indices:
+                resident += self.val_indices[: n_fit - len(resident)]
+            self._dcache_partial = True
+        if resident is None:
+            self.log.info(
+                "device data cache: %d cases need %.3g GB, above the budget of %.3g GB%s; every epoch "
+                "streams from the host", n_cases, n_cases * per_case / 1e9, config.device_data_cache_gb,
+                " (partial cache off)" if n_fit >= self._pad_to else f" and {n_fit} fit, fewer than a batch",
+            )
+            return
+        self.log.info(
+            "device data cache: %d/%d cases resident on %s (%.3g GB)%s",
+            len(resident), n_cases, self.device, len(resident) * per_case / 1e9,
+            " - remainder streams (partial cache)" if self._dcache_partial else "",
+        )
+        self._dcache = device_cache.build_device_cache(
+            self.dataset, self.device, indices=resident if self._dcache_partial else None
+        )
+        self._cached_train_step = device_cache.make_cached_train_step(config, self._train_step)
+        self._cached_eval_step = device_cache.make_cached_eval_step(self._eval_step)
+        if not self._dcache_partial:
+            return
+        # case index -> stack row, and the train/val sets split into their
+        # resident and streamed parts
+        self._dcache_row = {c: r for r, c in enumerate(resident)}
+        res = set(resident)
+        self._res_train = [i for i in self.train_indices if i in res]
+        self._str_train = [i for i in self.train_indices if i not in res]
+        self._res_val = [i for i in (self.val_indices or []) if i in res]
+        self._str_val = [i for i in (self.val_indices or []) if i not in res]
+        # the remainder's cases in host RAM, up to stream_host_cache_gb
+        ram_gb = config.stream_host_cache_gb
+        n_ram = int(ram_gb * 1e9 // per_case) if ram_gb > 0 else 0
+        streamed = self._str_train + self._str_val
+        stream_ds = RamCaseCache(self.dataset, streamed[:n_ram]) if n_ram > 0 else self.dataset
+        if self._str_train:
+            self._stream_train_loader = DataLoader(
+                stream_ds, batch_size=config.batch_size, shuffle=True, indices=self._str_train,
+                seed=config.seed, augmenter=augmenter, pad_to=self._pad_to,
+            )
+        if self._str_val:
+            self._stream_val_loader = DataLoader(
+                stream_ds, batch_size=config.batch_size, shuffle=False, indices=self._str_val,
+                pad_to=self._pad_to,
+            )
 
     # -- checkpoints -------------------------------------------------------------
 
@@ -220,9 +295,10 @@ class Trainer:
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         # the loaders' shuffle and augmentation streams are (seed, epoch)
         # derived: replay the order an uninterrupted run would use
-        self.train_loader.set_epoch(self.start_epoch)
-        if self.val_loader is not None:
-            self.val_loader.set_epoch(self.start_epoch)
+        self._epochs_run = self.start_epoch
+        for loader in (self.train_loader, self.val_loader, self._stream_train_loader, self._stream_val_loader):
+            if loader is not None:
+                loader.set_epoch(self.start_epoch)
         if "scheduler" in meta:
             self.scheduler.load_state_dict(meta["scheduler"])
         if "early_stopping" in meta:
@@ -232,12 +308,14 @@ class Trainer:
     # -- epochs ------------------------------------------------------------------
 
     def _device_batches(self, loader: DataLoader):
+        """The loader's batches on the device; decoding and copies start now."""
+
         def host_batches():
             for batch in loader:
                 batch["n_real"] = float(np.sum(batch["weight"]))  # unpadded samples
                 yield batch
 
-        yield from prefetch_to_device(host_batches(), self.device, self.dtype, size=self.config.prefetch)
+        return prefetch_to_device(host_batches(), self.device, self.dtype, size=self.config.prefetch)
 
     def _consume_loss(self, step_idx: int, loss: torch.Tensor, losses: list, n_total: int) -> None:
         """Fetch a step's loss (one step late), abort on non-finite, log."""
@@ -257,7 +335,69 @@ class Trainer:
                 step_idx + 1, n_total or "?", value, self.timer.items_per_sec,
             )
 
+    def _index_batches(self, indices, shuffle: bool, epoch: int):
+        """Padded (case indices, weights) batches of the cached path: the plan
+        the streamed loader draws (``default_rng(seed + epoch)``, ``_padded_plan``)."""
+        order = list(indices)
+        if shuffle:
+            np.random.default_rng(self.config.seed + epoch).shuffle(order)
+        bs = self.config.batch_size
+        for i in range(0, len(order), bs):
+            picked, weights = _padded_plan(order[i : i + bs], self._pad_to)
+            yield np.asarray(picked, np.int64), np.asarray(weights, np.float32)
+
+    def _rows(self, idx: np.ndarray) -> np.ndarray:
+        """Case indices -> rows of the (partial) cache's stacks."""
+        if not self._dcache_partial:
+            return idx
+        return np.asarray([self._dcache_row[int(i)] for i in idx], np.int64)
+
+    def _train_epoch_cached(self) -> float:
+        """One epoch from the stacks; under the partial cache the n_s streamed
+        batches are spread over the n_c + n_s steps (Bresenham), so their
+        decode and copies overlap the cached steps (``trainer.py:600-668``)."""
+        cache = self._dcache
+        epoch = self._epochs_run
+        gen = torch.Generator().manual_seed(self.config.seed * 9973 + epoch)
+        losses: List[float] = []
+        cached = self._res_train if self._dcache_partial else self.train_indices
+        n_c = -(-len(cached) // self.config.batch_size)
+        n_s = len(self._stream_train_loader) if self._stream_train_loader is not None else 0
+        # the remainder's decode and copies start now, under the cached steps
+        stream_iter = self._device_batches(self._stream_train_loader) if n_s else None
+        n_total = n_c + n_s
+        cached_iter = self._index_batches(cached, True, epoch)
+        pending = None  # (step_idx, loss) of the step in flight
+        err = 0
+        for step_idx in range(n_total):
+            err += n_s
+            if err >= n_total:
+                err -= n_total
+                batch = next(stream_iter)
+                n = int(batch["n_real"])
+                self.timer.start()
+                metrics = self._train_step(self.state, batch)
+            else:
+                idx, weights = next(cached_iter)
+                n = int(weights.sum())
+                self.timer.start()
+                metrics = self._cached_train_step(
+                    self.state, cache["images"], cache["labels"], self._rows(idx), weights, gen
+                )
+            if pending is not None:
+                self._consume_loss(*pending, losses, n_total)
+            pending = (step_idx, metrics["loss"])
+            self.timer.stop(items=n)
+        if pending is not None:
+            self._consume_loss(*pending, losses, n_total)
+        return float(np.mean(losses)) if losses else float("nan")
+
     def train_epoch(self) -> float:
+        if self._dcache is not None:
+            try:
+                return self._train_epoch_cached()
+            finally:
+                self._epochs_run += 1
         losses: List[float] = []
         n_total = len(self.train_loader)
         pending = None  # (step_idx, loss) of the step in flight
@@ -273,10 +413,23 @@ class Trainer:
         return float(np.mean(losses)) if losses else float("nan")
 
     def validate_epoch(self) -> Dict[str, float]:
+        """Loss and weighted Dice/IoU over the val cases: under the cache the
+        resident rows first, then the streamed remainder (``trainer.py:710-780``)."""
+        def fetch(m):
+            return {k: float(m[k]) for k in ("loss", "dice_sum", "iou_sum", "weight_sum")}
+
         fetched = []
-        for batch in self._device_batches(self.val_loader):
-            m = self._eval_step(self.state, batch)
-            fetched.append({k: float(m[k]) for k in ("loss", "dice_sum", "iou_sum", "weight_sum")})
+        streamed = self.val_loader
+        if self._dcache is not None:
+            cache = self._dcache
+            resident = self._res_val if self._dcache_partial else self.val_indices
+            for idx, weights in self._index_batches(resident, False, 0):
+                fetched.append(fetch(
+                    self._cached_eval_step(self.state, cache["images"], cache["labels"], self._rows(idx), weights)
+                ))
+            streamed = self._stream_val_loader
+        if streamed is not None:
+            fetched += (fetch(self._eval_step(self.state, batch)) for batch in self._device_batches(streamed))
         w_sum = sum(m["weight_sum"] for m in fetched)
         return {
             "loss": float(np.mean([m["loss"] for m in fetched])) if fetched else float("nan"),

@@ -213,6 +213,70 @@ def test_train_step_on_the_card_launches_every_kernel(cuda_device):
     assert conv3d_grad.launches - b2 == 2 * 18
 
 
+# ---- the device data cache ------------------------------------------------------------
+
+
+def test_cached_training_on_the_card(cuda_device, tmp_path):
+    """The stacks live on the card, and a cached epoch cropped and augmented
+    there (every transform on) runs every kernel with a finite loss."""
+    from pcmseg_tpu_torch.core.config import DEFAULT_MODALITIES, get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    _write_tree(str(tmp_path / "data"), DEFAULT_MODALITIES)
+    config = get_config(data_dir=str(tmp_path / "data"), save_dir=str(tmp_path / "ckpt"),
+                        cache_dir=str(tmp_path / "cache"), base_features=8, target_size=(32, 32, 32), batch_size=2,
+                        num_epochs=1, train_crop=(16, 16, 16), oversample_fg=0.33, data_augmentation=True,
+                        aug_scale=0.15, aug_rotate_deg=15.0, aug_gamma=0.3, aug_noise=0.1, aug_blur_prob=0.5)
+    trainer = Trainer(config)
+    cache = trainer._dcache
+    assert cache["images"].device.type == "cuda" and cache["labels"].device.type == "cuda"
+    assert cache["images"].dtype == torch.bfloat16 and cache["labels"].dtype == torch.uint8
+    b1, b2 = conv3d.launches, conv3d_grad.launches
+    assert math.isfinite(trainer.train_epoch())
+    steps = math.ceil(len(trainer.train_indices) / 2)
+    # per step (remat on): 18 forward, 18 recomputed, 17 dx; 18 dW
+    assert (conv3d.launches - b1, conv3d_grad.launches - b2) == (steps * 53, steps * 18)
+
+
+def test_folds_on_cuda_and_cuda0_share_one_upload(cuda_device, tmp_path):
+    from pcmseg_tpu_torch.core.config import DEFAULT_MODALITIES, get_config
+    from pcmseg_tpu_torch.data import device_cache
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    _write_tree(str(tmp_path / "data"), DEFAULT_MODALITIES)
+    config = get_config(data_dir=str(tmp_path / "data"), save_dir=str(tmp_path / "ckpt"),
+                        cache_dir=str(tmp_path / "cache"), base_features=8, target_size=(32, 32, 32))
+    before = device_cache.uploads
+    first = Trainer(config, device="cuda", train_indices=[0, 1], val_indices=[2, 3])
+    second = Trainer(config, device="cuda:0", train_indices=[2, 3], val_indices=[0, 1], dataset=first.dataset)
+    assert device_cache.uploads - before == 1 and second._dcache is first._dcache
+    assert list(first.dataset._device_cache_memo) == [f"cuda:{torch.cuda.current_device()}"]
+
+
+def test_transforms_on_the_card_match_the_cpu(cuda_device):
+    """The warp, the blur and the gamma branch at given parameters, on the
+    card and on the CPU, from the same tensors; no NaN from the gamma's pow
+    at the minimum voxel."""
+    from pcmseg_tpu_torch.data import device_cache
+
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.normal(size=(24, 20, 28, 5)).astype(np.float32))
+    lab = torch.from_numpy((rng.random((24, 20, 28, 1)) > 0.7).astype(np.uint8))
+    for angle, zoom in ((0.3, 0.9), (-0.2, 1.15)):
+        cpu = device_cache._affine_warp(img, lab, angle, zoom)
+        gpu = device_cache._affine_warp(img.to(cuda_device), lab.to(cuda_device), angle, zoom)
+        assert (gpu[0].cpu() - cpu[0]).abs().max().item() <= 1e-5
+        assert torch.equal(gpu[1].cpu(), cpu[1])
+    blurred = device_cache._separable_blur(img.to(cuda_device), 0.8).cpu()
+    assert (blurred - device_cache._separable_blur(img, 0.8)).abs().max().item() <= 1e-6
+    x = img.to(torch.bfloat16)
+    for g in (0.75, 1.3):
+        out = device_cache._gamma(x.to(cuda_device), g).cpu()
+        assert torch.isfinite(out.float()).all()
+        assert (out.float() - device_cache._gamma(x, g).float()).abs().max().item() <= 0.05  # one bf16 ulp at |x| < 8
+
+
 # ---- every verb of the command line on the card -------------------------------------
 
 

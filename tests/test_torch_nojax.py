@@ -1,9 +1,10 @@
 """pcmseg_tpu_torch runs with JAX and the JAX package absent: every module
 imports, a tiny Predictor segments a volume, a train step runs, one
-cross-validation fold trains and a Validator scores a two-checkpoint
-ensemble with TTA on the CPU, with pcmseg_tpu, jax, flax, optax, orbax and
-ml_dtypes blocked in sys.modules of a fresh interpreter; and no module of
-the port or ``chip_smoke.py`` imports pcmseg_tpu."""
+cross-validation fold trains, a Validator scores a two-checkpoint ensemble
+with TTA, and a deep-supervision model trains a cached epoch cropped and
+augmented on the device, on the CPU, with pcmseg_tpu, jax, flax, optax,
+orbax and ml_dtypes blocked in sys.modules of a fresh interpreter; and no
+module of the port or ``chip_smoke.py`` imports pcmseg_tpu."""
 
 import ast
 import os
@@ -89,6 +90,20 @@ SCRIPT = textwrap.dedent(
         results = Validator(cv_cfg.replace(tta=True, surface_metrics=True),
                             [os.path.join(d, "ckpt", "best_fold_0.pth"), other], device="cpu").validate()
         assert results["case_count"] == 4 and results["surface_units"] == "voxel"
+
+        # a cached epoch of a deep-supervision model, cropped and augmented on the device
+        from pcmseg_tpu_torch.data import device_cache
+        from pcmseg_tpu_torch.train.trainer import Trainer
+
+        aug_cfg = cv_cfg.replace(target_size=(20, 20, 20), train_crop=(16, 16, 16), oversample_fg=0.5,
+                                 data_augmentation=True, aug_scale=0.15, aug_rotate_deg=15.0, aug_gamma=0.3,
+                                 aug_noise=0.1, aug_blur_prob=1.0, deep_supervision=True,
+                                 save_dir=os.path.join(d, "aug"))
+        before = device_cache.uploads
+        trainer = Trainer(aug_cfg, device="cpu")
+        assert trainer._dcache is not None and device_cache.uploads == before + 1
+        assert trainer.state.model.deep_supervision
+        assert np.isfinite(trainer.train_epoch())
     print("modules", len(modules))
     """
 )
