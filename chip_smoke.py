@@ -78,6 +78,23 @@ kernel on them:
      B1 and 72 B2 launches, non-zero gradients at the three heads), then a
      1-epoch deep-supervision ``Trainer`` whose ``best.pth`` has no ``ds*``
      key and serves one case;
+ 9d. kclass: 5 synthetic 128³ cases labelled 0/1/2 and a base-64 K = 3
+     GroupNorm model: (a) one flagship step under CE + foreground Dice
+     (finite loss, 140 B1 and 72 B2 launches), the median of 5 warm steps
+     and the peak memory beside the BatchNorm step of phase 8, the step's
+     device time by kernel, and one microbatch's 18 forward, 17 dx and 18
+     dW convs held against the plain versions (dW within
+     DW_SUM_BOUND_GROUP·Σ|x·dy|, the worst layer also against fp64); (b) a
+     1-epoch ``Trainer`` from the device cache, whose best.pth holds
+     GroupNorm weight/bias, no running statistics and a 3-class head;
+     (c) the ``Validator`` on best.pth (18 B1 per batch), then on a
+     2-member ensemble with TTA (18 x 2 x 8 per batch): per-class Dice at
+     keys "1" and "2", each case's Dice the mean of its classes; (d)
+     ``PredictionServer.run_once`` of the serve phase's three cases with
+     best.pth served unfolded: uint8 label maps in {0, 1, 2}, 18 B1 per
+     forward, the device path timed and the K-channel probabilities held as
+     in the serve phase on a whole-volume and the tiled case; (e) a folded
+     K = 3 BatchNorm model serving one case the same way (18 B1);
  10. validate: the ``Validator`` over the 5 cases: (a) ``best_fold_0.pth``
      through the eval step (BatchNorm unfolded), 18 B1 launches per batch
      of 4; (b) the two folds as an ensemble with TTA, surface metrics and
@@ -113,8 +130,8 @@ before doing anything. The last lines are the kernels' JSON record (per
 kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
-``cache_c`` and ``ds`` those of the cache and ds phases), the nvidia-smi
-line, and the device JSON.
+``cache_c``, ``ds`` and ``kclass`` those of the cache, ds and kclass
+phases), the nvidia-smi line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -420,24 +437,34 @@ def plain_conv(models, dtype):
 def check_probs(predictor, image, label: str):
     """Hold the kernel's bf16 probabilities on ``image`` (through
     ``predict_probs``, whole-volume or tiled as served, ensemble and TTA
-    as configured) against the plain conv's bf16 forward and the same
-    model in fp32 (plain conv, TF32 off). Returns the kernel's."""
+    as configured; all K channels of a K-class head) against the plain
+    conv's bf16 forward and the same model in fp32 (plain conv, TF32 off).
+    Returns the kernel's (the one channel of a binary head)."""
     import numpy as np
     import torch
 
-    probs = predictor.predict_probs(image)[..., 0]
+    binary = predictor.config.n_classes < 2
+    pick = (lambda p: p[..., 0]) if binary else (lambda p: p)
+    probs = pick(predictor.predict_probs(image))
     with plain_conv(predictor.models, torch.bfloat16):
-        plain = predictor.predict_probs(image)[..., 0]
+        plain = pick(predictor.predict_probs(image))
     with plain_conv(predictor.models, torch.float32):
-        exact = predictor.predict_probs(image)[..., 0]
+        exact = pick(predictor.predict_probs(image))
     if not all(np.isfinite(a).all() for a in (probs, plain, exact)):
         raise AssertionError(f"{label}: non-finite probabilities")
     err_k, err_p = np.abs(probs - exact), np.abs(plain - exact)
     for name, p, err in (("kernel", probs, err_k), ("plain conv", plain, err_p)):
-        flips = (p > 0.5) != (exact > 0.5)
-        log(f"{label} bf16 {name} vs fp32: max|dp| {err.max():.4g}, mean|dp| {err.mean():.3g}, "
-            f"mask voxels differing {int(flips.sum())} of {flips.size}, the farthest at "
-            f"|p_fp32-0.5| {np.abs(exact[flips] - 0.5).max() if flips.any() else 0.0:.3g}")
+        if binary:
+            flips = (p > 0.5) != (exact > 0.5)
+            log(f"{label} bf16 {name} vs fp32: max|dp| {err.max():.4g}, mean|dp| {err.mean():.3g}, "
+                f"mask voxels differing {int(flips.sum())} of {flips.size}, the farthest at "
+                f"|p_fp32-0.5| {np.abs(exact[flips] - 0.5).max() if flips.any() else 0.0:.3g}")
+        else:
+            flips = p.argmax(-1) != exact.argmax(-1)
+            top = np.sort(exact[flips], axis=-1)
+            log(f"{label} bf16 {name} vs fp32: max|dp| {err.max():.4g}, mean|dp| {err.mean():.3g}, "
+                f"label voxels differing {int(flips.sum())} of {flips.size}, the farthest at the fp32 "
+                f"top-two gap {(top[:, -1] - top[:, -2]).max() if flips.any() else 0.0:.3g}")
     if err_k.max() > BF16_MARGIN * err_p.max() + 1e-3 or err_k.mean() > BF16_MARGIN * err_p.mean() + 1e-4:
         raise AssertionError(
             f"{label}: the kernel's bf16 forward is further from fp32 than {BF16_MARGIN}x the plain conv's"
@@ -723,15 +750,16 @@ def conv_io(model):
             h.remove()
 
 
-def check_conv_function(model, records, grads, card: str, what: str = "one 128^3 microbatch") -> None:
+def check_conv_function(model, records, grads, card: str, what: str = "one 128^3 microbatch",
+                        dw_bound: float = DW_SUM_BOUND) -> dict:
     """Each conv's Function, as the kernel path ran it in the model: its
     forward against the plain fp32 conv of the same bf16 x with the packed
     bf16 weight, within B1's bound; its dW (the parameter's gradient)
     against the plain fp32 weight gradient of the same bf16 x and dy, each
-    element within DW_SUM_BOUND·Σ|x·dy|; its dx against the plain fp32 conv
+    element within ``dw_bound``·Σ|x·dy|; its dx against the plain fp32 conv
     of dy with the flipped, transposed bf16 weight, within B1's bound. (db
-    is Σ dy, which BatchNorm after every conv makes 0 up to rounding: the
-    CPU tests hold it.)"""
+    is Σ dy in plain PyTorch, no kernel: the CPU tests hold it.) Returns
+    the worst (err, layer) of each."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
@@ -756,9 +784,9 @@ def check_conv_function(model, records, grads, card: str, what: str = "one 128^3
         diff = (grads[name + ".weight"] - ref).abs()
         err = (diff / scale.clamp_min(1e-30)).max().item()
         worst["dW"] = max(worst["dW"], (err, name))
-        if not err <= DW_SUM_BOUND:
+        if not err <= dw_bound:
             raise AssertionError(f"{name} ({what}): the Function's dW is {err:.3g}·Σ|x·dy| from the plain "
-                                 f"version's (bound {DW_SUM_BOUND})")
+                                 f"version's (bound {dw_bound})")
         if "dx" in rec:
             w_t = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16).float()
             ref = conv3d.conv3x3x3_reference(dy, w_t, None, False)
@@ -774,7 +802,8 @@ def check_conv_function(model, records, grads, card: str, what: str = "one 128^3
     log(f"conv Function in the model, {what}, {len(records)} convs ({sum('dx' in r for r in records.values())} with "
         f"dx) at (Ci, Co, size) {shapes}: forward worst err/bound {worst['forward'][0]:.3g} at "
         f"{worst['forward'][1]}, dW worst {worst['dW'][0]:.3g}·Σ|x·dy| at {worst['dW'][1]} (bound "
-        f"{DW_SUM_BOUND}), dx worst err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
+        f"{dw_bound}), dx worst err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
+    return worst
 
 
 def check_gradients(device, card: str) -> None:
@@ -875,9 +904,10 @@ def check_gradients(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def write_train_tree(root: str, modalities, n_cases: int, ext: str = ".nii.gz") -> None:
+def write_train_tree(root: str, modalities, n_cases: int, ext: str = ".nii.gz", n_classes: int = 1) -> None:
     """Synthetic 128^3 cases in the training layout
-    ({root}/BPH-PCA/BPH/{modality}/{case}{ext}, labels under ROI(BPH+PCA))."""
+    ({root}/BPH-PCA/BPH/{modality}/{case}{ext}, labels under ROI(BPH+PCA)).
+    With ``n_classes`` 3 the lesion's core is class 2, the rest class 1."""
     import numpy as np
 
     from pcmseg_tpu_torch.data.nifti import write_nifti
@@ -890,6 +920,8 @@ def write_train_tree(root: str, modalities, n_cases: int, ext: str = ".nii.gz") 
         c = rng.uniform(-0.3, 0.3, 3).astype(np.float32)
         r2 = (z - c[0]) ** 2 + 2 * (y - c[1]) ** 2 + (x - c[2]) ** 2
         label = (r2 < 0.15).astype(np.uint8)
+        if n_classes == 3:
+            label[r2 < 0.05] = 2
         for j, m in enumerate(modalities):
             vol = 300 * np.exp(-3 * r2) * (1 + 0.25 * j) + rng.normal(0, 25, size=shape).astype(np.float32)
             out = os.path.join(root, "BPH-PCA", "BPH", m)
@@ -987,14 +1019,38 @@ def train(work: str, device, card: str):
     return launches
 
 
-def time_steps(device, card: str) -> None:
+def profile_step(run, what: str, card: str) -> None:
+    """The device time of ``run()`` by kernel (torch.profiler): B1, B2 and
+    the rest, then the 14 costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.end - e.time_range.start
+            row[1] += 1
+    total = sum(us for us, _ in by_name.values())
+    groups = {"B1 (forward + dx)": ("conv3x3x3", "splitk_epilogue"), "B2 (dW)": ("conv3x3_dw", "dw_reduce")}
+    parts = {k: sum(us for name, (us, _) in by_name.items() if any(p in name for p in pats))
+             for k, pats in groups.items()}
+    log(f"profile, {what}: device time {total / 1e3:.1f} ms, of which "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in parts.items())
+        + f", other {(total - sum(parts.values())) / 1e3:.1f} ms [{card}]")
+    for us, count, name in sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)[:14]:
+        log(f"  {us / 1e3:8.3f} ms  {count:4d}x  {name[:100]}")
+
+
+def time_steps(device, card: str) -> list:
     """Median warm train-step time at the flagship configuration on one
     synthetic device batch, kernel path and plain conv, peak device memory;
     the launch counts of one step with remat on; the device time of one
-    kernel step by kernel (torch.profiler)."""
+    kernel step by kernel (torch.profiler). Returns the kernel step's
+    medians (seconds, remat off)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
@@ -1035,29 +1091,14 @@ def time_steps(device, card: str) -> None:
             log(f"train step remat={remat} {arm}: median {med * 1e3:.1f} ms of {TIME_STEPS} = {n / med:.3f} vol/s, "
                 f"peak device memory {peak:.2f} GiB [{card}]")
         if not remat:
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                float(step(state, batch)["loss"])
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    row = by_name.setdefault(e.name, [0.0, 0])
-                    row[0] += e.time_range.end - e.time_range.start
-                    row[1] += 1
-            total = sum(us for us, _ in by_name.values())
-            groups = {"B1 (forward + dx)": ("conv3x3x3", "splitk_epilogue"), "B2 (dW)": ("conv3x3_dw", "dw_reduce")}
-            parts = {k: sum(us for name, (us, _) in by_name.items() if any(p in name for p in pats))
-                     for k, pats in groups.items()}
-            log(f"profile, one kernel step (remat off): device time {total / 1e3:.1f} ms, of which "
-                + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in parts.items())
-                + f", other {(total - sum(parts.values())) / 1e3:.1f} ms [{card}]")
-            for us, count, name in sorted(((us, c, k) for k, (us, c) in by_name.items()), reverse=True)[:14]:
-                log(f"  {us / 1e3:8.3f} ms  {count:4d}x  {name[:100]}")
+            profile_step(lambda: float(step(state, batch)["loss"]), "one kernel step (remat off)", card)
         del model, state, step
         torch.cuda.empty_cache()
     k = results[("kernel", False)]
     log(f"flagship step (batch 4 = 4 x 1, remat off): kernel {min(k) * 1e3:.1f}-{max(k) * 1e3:.1f} ms, "
         f"plain conv {results[('plain', False)][0] * 1e3:.1f} ms; remat on kernel "
         f"{results[('kernel', True)][0] * 1e3:.1f} ms [{card}]")
+    return k
 
 
 # ---- cross-validation and the Validator (slice 4) ----------------------------------
@@ -1702,6 +1743,240 @@ def deep_supervision(work: str, device, card: str):
     return step_launches[0] + run_launches[0], step_launches[1] + run_launches[1]
 
 
+# ---- K-class heads and GroupNorm ------------------------------------------------------
+
+# the flagship step with a 3-class head and GroupNorm (8 groups), CE + foreground Dice
+KCLASS = dict(n_classes=3, norm_layer="group", loss="bce_dice", num_epochs=1)
+N_PARAMS_K3 = N_PARAMS + 2 * (BASE_FEATURES + 1)  # two more output channels
+# dW of the GroupNorm step against the plain version, per element, relative to
+# Σ|x·dy|. GroupNorm, unlike BatchNorm, does not make each channel's dy sum to
+# 0, so some dW elements sum products of nearly one sign, where the rounding
+# errors of B2's long fp32 accumulations in the tensor cores do not cancel as
+# they do under BatchNorm (the plain fp32 version, on CUDA cores with TF32
+# off, stays near fp64): the worst layer is held against fp64 beside this check
+DW_SUM_BOUND_GROUP = 1e-3
+
+
+def class_label(shape, device):
+    """``blob_label``'s ellipsoid as class 1, its core as class 2."""
+    import torch
+
+    z, y, x = torch.meshgrid(*[torch.linspace(-1, 1, n, device=device) for n in shape], indexing="ij")
+    r2 = z**2 + 2 * y**2 + x**2
+    return ((r2 < 0.3).to(torch.uint8) + (r2 < 0.1).to(torch.uint8))[..., None]
+
+
+def kclass(work: str, device, card: str, bn_step_s) -> tuple:
+    """K = 3 heads with GroupNorm at full width, on 5 synthetic 128^3 cases
+    labelled 0/1/2: (a) one flagship step (140 B1, 72 B2), its warm median
+    beside the BatchNorm step's (``bn_step_s``) and its peak memory, its
+    device time by kernel, and one microbatch's convs held against the
+    plain versions; (b) a 1-epoch ``Trainer`` whose best.pth has GroupNorm
+    weights and no running statistics; (c) the ``Validator`` on best.pth,
+    then on a 2-member ensemble with TTA, per-class Dice; (d)
+    ``PredictionServer.run_once`` of ``CASES`` with best.pth (unfolded),
+    uint8 label maps, probabilities held against fp32 on a whole-volume and
+    a tiled case; (e) a folded K = 3 BatchNorm model serving one case.
+    Returns the (B1, B2) launches of (a)-(e)."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.data.io import read_volume
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.infer.serve import PredictionServer
+    from pcmseg_tpu_torch.infer.validate import Validator
+    from pcmseg_tpu_torch.models.unet3d import BatchNorm, UNet3D, param_count
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
+    from pcmseg_tpu_torch.train.checkpoints import load_pth, save_pth
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(work, "kclass_data")
+    t0 = time.perf_counter()
+    config = get_config(base_features=BASE_FEATURES, data_dir=data, save_dir=os.path.join(work, "kclass_ckpt"),
+                        cache_dir=os.path.join(work, "kclass_preproc"), seed=0, **{**TRAIN, **KCLASS})
+    write_train_tree(data, config.modalities, TRAIN_CASES, ext=".nii", n_classes=3)
+    log(f"kclass setup ({TRAIN_CASES} synthetic 128^3 cases, labels 0/1/2, written) {time.perf_counter() - t0:.1f} s")
+    total = [0, 0]
+
+    def counted(part: str, want) -> None:
+        got = (conv3d.launches, conv3d_grad.launches)
+        log(f"  kclass ({part}): launches B1 {got[0]}, B2 {got[1]} (expected {tuple(want)}) [{card}]")
+        if got != tuple(want):
+            raise AssertionError(f"kclass ({part}) launched {got}, expected {tuple(want)}")
+        total[0] += got[0]
+        total[1] += got[1]
+
+    # (a) one flagship step of the K = 3 GroupNorm model
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    if param_count(model) != N_PARAMS_K3 or [k for k in model.state_dict() if "running" in k]:
+        raise AssertionError(f"the K = 3 GroupNorm model has {param_count(model)} parameters, expected {N_PARAMS_K3}, "
+                             "and no running statistics")
+    state = create_train_state(model, config)
+    step = make_train_step(model, config)
+    g = torch.Generator(device=device).manual_seed(10)
+    n = config.batch_size
+    batch = {"image": torch.randn((n, SIZE, SIZE, SIZE, 5), generator=g, device=device).to(torch.bfloat16),
+             "label": class_label((SIZE,) * 3, device)[None].expand(n, -1, -1, -1, -1).contiguous()}
+    conv3d.launches = conv3d_grad.launches = 0
+    loss = float(step(state, batch)["loss"])
+    log(f"kclass (a): one flagship step of the K = 3 GroupNorm model ({param_count(model):,} parameters, "
+        f"{config.loss}): loss {loss:.6g} [{card}]")
+    counted("a", expected_train_launches(config, steps=1, eval_forwards=0))
+    if not math.isfinite(loss):
+        raise AssertionError(f"kclass (a): loss {loss}")
+    float(step(state, batch)["loss"])  # warm
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIME_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(step(state, batch)["loss"])
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med, bn = sorted(times)[len(times) // 2], sorted(bn_step_s)[len(bn_step_s) // 2]
+    log(f"kclass (a) step (batch 4 = 4 x 1, remat off): median {med * 1e3:.1f} ms of {TIME_STEPS} = {n / med:.3f} "
+        f"vol/s, peak device memory {peak:.2f} GiB; the BatchNorm flagship step of the time phase {bn * 1e3:.1f} ms "
+        f"= {n / bn:.3f} vol/s ({med / bn:.2f}x) [{card}]")
+    profile_step(lambda: float(step(state, batch)["loss"]), "one K = 3 GroupNorm step (remat off)", card)
+
+    # one microbatch's convs against the plain versions; these launches compare
+    model.zero_grad(set_to_none=True)
+    with conv_io(model) as records:
+        loss_fn_from_config(config)(model(batch["image"][:1]), batch["label"][:1]).backward()
+        torch.cuda.synchronize()
+    grads = {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None}
+    worst = check_conv_function(model, records, grads, card, "one 128^3 microbatch of the K = 3 GroupNorm step",
+                                dw_bound=DW_SUM_BOUND_GROUP)
+    name = worst["dW"][1]
+    x64, dy64 = records[name]["x"].double(), records[name]["dy"].double()
+    exact = conv3d_grad.conv3x3_dw_reference(x64, dy64).permute(4, 3, 0, 1, 2)
+    scale = conv3d_grad.conv3x3_dw_reference(x64.abs(), dy64.abs()).permute(4, 3, 0, 1, 2).clamp_min(1e-300)
+    plain = conv3d_grad.conv3x3_dw_reference(x64.float(), dy64.float()).permute(4, 3, 0, 1, 2)
+    log(f"kclass (a) dW of {name} against fp64: B2 {((grads[name + '.weight'] - exact).abs() / scale).max().item():.3g}"
+        f"·Σ|x·dy|, the plain fp32 version {((plain - exact).abs() / scale).max().item():.3g}·Σ|x·dy|; largest "
+        f"|dW|/Σ|x·dy| {(exact.abs() / scale).max().item():.3g} (1: every product of one sign) [{card}]")
+    for rec in records.values():
+        rec.clear()
+    del records, grads, x64, dy64, exact, scale, plain
+    member = save_pth(os.path.join(work, "kclass_member.pth"), model.state_dict(), config.to_dict())
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+    # (b) a 1-epoch Trainer from the device data cache
+    trainer = Trainer(config, device=device)
+    log(f"kclass (b) path: {data_path(trainer, TRAIN_CASES)}")
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    log(f"kclass (b): 1-epoch Trainer in {time.perf_counter() - t0:.1f} s (cold, checkpoints included), history "
+        f"{json.dumps(history)} [{card}]")
+    counted("b", expected_train_launches(config, steps=1, eval_forwards=1))
+    if not all(math.isfinite(v) for vals in history.values() for v in vals):
+        raise AssertionError(f"kclass (b): non-finite history {history}")
+    del trainer
+    torch.cuda.empty_cache()
+    best = os.path.join(config.save_dir, "best.pth")
+    sd, snapshot = load_pth(best)
+    running = [k for k in sd if "running" in k or "num_batches" in k]
+    UNet3D.from_config(config, device="meta").load_state_dict(sd, strict=True, assign=True)
+    log(f"kclass (b): best.pth {len(sd)} tensors, running statistics {running}, GroupNorm inc.conv.1 weight/bias "
+        f"{tuple(sd['inc.conv.1.weight'].shape)}/{tuple(sd['inc.conv.1.bias'].shape)}, outc "
+        f"{tuple(sd['outc.weight'].shape)}, config n_classes {snapshot['n_classes']} norm_layer "
+        f"{snapshot['norm_layer']!r}; loads strictly into a GroupNorm UNet3D")
+    if running or tuple(sd["outc.weight"].shape) != (3, BASE_FEATURES, 1, 1, 1) \
+            or (snapshot["n_classes"], snapshot["norm_layer"]) != (3, "group"):
+        raise AssertionError("kclass (b): best.pth is not a K = 3 GroupNorm checkpoint")
+
+    # (c) the Validator: best.pth through the eval step, then a 2-member ensemble with TTA
+    base = get_config(data_dir=data, save_dir=os.path.join(work, "kclass_validate"),
+                      cache_dir=os.path.join(work, "kclass_preproc"), batch_size=TRAIN["batch_size"])
+    for part, spec, cfg, per_batch in (("c, best.pth", best, base, 18),
+                                       ("c, 2-member ensemble + TTA", [best, member], base.replace(tta=True), 18 * 2 * 8)):
+        v = Validator(cfg, spec, device=device)
+        if (v.config.n_classes, v.config.norm_layer) != (3, "group"):
+            raise AssertionError(f"kclass ({part}): the Validator adopted {v.config.n_classes} / {v.config.norm_layer}")
+        cases = len(v.dataset)
+        conv3d.launches = conv3d_grad.launches = 0
+        t0 = time.perf_counter()
+        res = v.validate()
+        wall = time.perf_counter() - t0
+        log(f"kclass ({part}): {cases} 128^3 cases in {wall:.2f} s, avg Dice {res['avg_dice']:.4f}, per class "
+            f"{res.get('avg_dice_per_class')}, per case {[r.get('dice_per_class') for r in res['case_results']]} "
+            f"[{card}]")
+        counted(part, (per_batch * math.ceil(cases / cfg.batch_size), 0))
+        if sorted(res.get("avg_dice_per_class", {})) != ["1", "2"] or res["case_count"] != cases:
+            raise AssertionError(f"kclass ({part}): results {res}")
+        for r in res["case_results"]:
+            per = list(r["dice_per_class"].values())
+            if not all(math.isfinite(d) for d in per) or abs(r["dice"] - float(np.mean(per))) > 1e-6:
+                raise AssertionError(f"kclass ({part}): case {r} (dice is not the mean of its classes)")
+        del v
+
+    # (d) serving: PredictionServer.run_once with best.pth, unfolded GroupNorm
+    inbox, outbox = os.path.join(work, "kclass_inbox"), os.path.join(work, "kclass_outbox")
+    write_cases(inbox, config.modalities)
+    server = PredictionServer(get_config(base_features=BASE_FEATURES), best, inbox, outbox, min_age=0.0, device=device)
+    predictor = server.predictor
+    if predictor.models[0].norm_layer != "group" or predictor.config.n_classes != 3:
+        raise AssertionError("kclass (d): the server does not serve the unfolded K = 3 GroupNorm model")
+    conv3d.launches = conv3d_grad.launches = 0
+    stats = server.run_once()
+    counted("d", (18 * expected_forwards(server.config), 0))
+    if stats != {"done": len(CASES), "failed": 0, "skipped": 0, "waiting": 0}:
+        raise AssertionError(f"kclass (d): serve stats {stats}")
+    for case_id, shape in CASES.items():
+        mask = read_volume(os.path.join(outbox, case_id, "segmentation.nii.gz")).data
+        values = sorted(int(c) for c in np.unique(mask))
+        log(f"  kclass (d) {case_id} {shape}: label map {mask.dtype} {mask.shape}, values {values}, cold latency "
+            f"{server.latencies[case_id]:.3f} s")
+        if mask.dtype != np.uint8 or mask.shape != shape or not set(values) <= {0, 1, 2}:
+            raise AssertionError(f"kclass (d) {case_id}: label map {mask.dtype} {mask.shape} values {values}")
+    first, tiled = sorted(CASES)[0], max(CASES, key=lambda c: math.prod(CASES[c]))
+    images = {}
+    for case_id in (first, tiled):
+        images[case_id] = image = predictor.load_case(os.path.join(inbox, case_id))[0]
+        best_s = []
+        for _ in range(3):
+            t = time.perf_counter()
+            predictor.predict_mask(image)
+            best_s.append(time.perf_counter() - t)
+        log(f"  kclass (d) {case_id} device path (H2D, forward, softmax, argmax, D2H), unfolded GroupNorm: "
+            f"{min(best_s) * 1e3:.1f} ms [{card}]")
+        check_probs(predictor, image, f"kclass (d) {case_id}")
+    del server, predictor
+
+    # (e) a K = 3 BatchNorm model, folded, serving one case
+    gen = torch.Generator().manual_seed(1234)
+    bn_config = get_config(base_features=BASE_FEATURES, n_classes=3)
+    bn_model = UNet3D.from_config(bn_config, generator=gen)
+    with torch.no_grad():
+        for m in bn_model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    pth = save_pth(os.path.join(work, "kclass_bn.pth"), bn_model.state_dict(), bn_config.to_dict())
+    del bn_model
+    predictor = Predictor(get_config(base_features=BASE_FEATURES), pth, device=device)
+    if predictor.models[0].norm_layer != "none":
+        raise AssertionError("kclass (e): the K = 3 BatchNorm model is not folded")
+    conv3d.launches = conv3d_grad.launches = 0
+    mask = predictor.predict_mask(images[first])
+    counted("e", (18, 0))
+    values = sorted(int(c) for c in np.unique(mask))
+    log(f"kclass (e): folded K = 3 BatchNorm model, {first}: label map {mask.dtype} {mask.shape}, values {values} "
+        f"[{card}]")
+    if mask.dtype != np.uint8 or not set(values) <= {0, 1, 2}:
+        raise AssertionError(f"kclass (e): label map {mask.dtype} values {values}")
+    check_probs(predictor, images[first], f"kclass (e) {first} folded BatchNorm")
+    del predictor
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
 def main() -> int:
     import torch
 
@@ -1739,12 +2014,13 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     train_launches = train(work, device, card)
-    time_steps(device, card)
+    bn_step_s = time_steps(device, card)
     cv_launches, cv_dir = cross_validate(work, device, card)
     validate_launches = validate(work, cv_dir, device, card)
     cli(work, cv_dir, card)
     cache_launches = cache_phase(work, device, card)
     ds_launches = deep_supervision(work, device, card)
+    kclass_launches = kclass(work, device, card, bn_step_s)
 
     native = get_native_lib() is not None
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
@@ -1761,7 +2037,8 @@ def main() -> int:
             "launches": train_launches[0],
             "launches_by_path": {"train": train_launches[0], "serve": serve_launches, "cv": cv_launches[0],
                                  "validate": validate_launches[0],
-                                 **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0]},
+                                 **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0],
+                                 "kclass": kclass_launches[0]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -1774,7 +2051,8 @@ def main() -> int:
             "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
             "launches": train_launches[1],
             "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1],
-                                 **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1]},
+                                 **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1],
+                                 "kclass": kclass_launches[1]},
             **dw,
         },
     ]}))

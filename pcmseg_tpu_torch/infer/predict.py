@@ -10,7 +10,9 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
     computes in bf16 (it casts at its first layer, so rounding on the host
     changes nothing);
   * BN folded into the convs (``config.fold_bn``), so all 18 3³ convs run
-    the CUDA kernel with bias and ReLU fused;
+    the CUDA kernel with bias and ReLU fused; a GroupNorm model is served
+    unfolded (per-sample statistics cannot fold): each conv runs the kernel
+    with its bias and no ReLU, then GroupNorm and ReLU;
   * a fold ensemble when several checkpoints are given: every member
     folded and resident on the device, its probabilities summed in fp32
     and divided by K (a loop over the members, where the JAX package
@@ -19,9 +21,11 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
     (``infer/tta.py``);
   * whole-volume inference when the image fits one window, on-device
     overlap tiling otherwise (each tile batch through the same apply);
-  * sigmoid, threshold on the device, one uint8 D2H copy, connected-
-    component postprocessing on the host (``infer/postprocess.py``),
-    atomic write.
+  * sigmoid and threshold on the device, or for a K-class head softmax
+    probabilities (averaged over members, flips and tiles) and their argmax
+    label map on the device; one uint8 D2H copy, connected-component
+    postprocessing on the host (``infer/postprocess.py``, per class for a
+    label map), atomic write.
 
 Options of the JAX Predictor that this package has not ported raise
 ``NotImplementedError`` at construction. ``pallas_inference`` is a TPU
@@ -157,8 +161,6 @@ def unported_options(config: Config) -> List[str]:
         refused.append(f"spatial_parallel={config.spatial_parallel}")
     if config.device_ingest:
         refused.append("device_ingest")
-    if config.n_classes >= 2:
-        refused.append(f"n_classes={config.n_classes} (K-class serving)")
     if config.profile_dir:
         refused.append("profile_dir (profiling)")
     return refused
@@ -285,7 +287,8 @@ class Predictor:
         return self._sw_fns[key](x)
 
     def predict_probs(self, image: np.ndarray) -> np.ndarray:
-        """(D, H, W, C) image → (D, H, W, K) sigmoid probabilities."""
+        """(D, H, W, C) image → (D, H, W, K) probabilities (sigmoid, or
+        softmax over the K classes)."""
         return self._predict_probs_device(image).cpu().numpy()
 
     @torch.inference_mode()
@@ -300,11 +303,16 @@ class Predictor:
 
     def predict_mask(self, image: np.ndarray, threshold: Optional[float] = None) -> np.ndarray:
         """(D, H, W, C) image → (D, H, W) uint8 mask, thresholded on the
-        device, then postprocessed as the config says."""
+        device (for a K-class head the argmax label map of the fp32
+        probabilities, ``threshold`` unused), then postprocessed as the
+        config says."""
         threshold = self.config.threshold if threshold is None else threshold
         probs = self._predict_probs_device(image)
-        mask = (probs[..., 0] > threshold).to(torch.uint8).cpu().numpy()
-        return postprocess_from_config(mask, self.config)
+        if self.config.n_classes >= 2:
+            mask = probs.argmax(-1).to(torch.uint8)
+        else:
+            mask = (probs[..., 0] > threshold).to(torch.uint8)
+        return postprocess_from_config(mask.cpu().numpy(), self.config)
 
     def load_case(
         self, case_dir: str, handle_missing: Optional[str] = None
@@ -334,11 +342,15 @@ class Predictor:
         output_path: str,
         threshold: Optional[float] = None,
     ) -> str:
-        """(D, H, W, 1) probabilities → thresholded, postprocessed uint8
-        mask → NIfTI/MHA with the reference's spatial metadata."""
+        """(D, H, W, K) probabilities → thresholded (binary) or argmax
+        (K-class) uint8 mask or label map, postprocessed → NIfTI/MHA with
+        the reference's spatial metadata."""
         threshold = self.config.threshold if threshold is None else threshold
-        mask = postprocess_from_config((probs[..., 0] > threshold).astype(np.uint8), self.config)
-        return self.save_mask(mask, reference, output_path)
+        if self.config.n_classes >= 2:
+            mask = np.argmax(probs, axis=-1).astype(np.uint8)
+        else:
+            mask = (probs[..., 0] > threshold).astype(np.uint8)
+        return self.save_mask(postprocess_from_config(mask, self.config), reference, output_path)
 
     def save_mask(self, mask: np.ndarray, reference: Volume, output_path: str) -> str:
         """(D, H, W) uint8 mask → NIfTI/MHA with the reference's spatial

@@ -13,7 +13,8 @@ and the Predictor stays resident:
   * the next case's host decode runs on a one-ahead thread while the
     current case runs on the device.
 
-Fold ensembles, TTA and postprocessing come with the Predictor. Profiling
+Fold ensembles, TTA, postprocessing and K-class heads (uint8 label maps of
+class ids) come with the Predictor. Profiling
 (``profile_dir``) is not ported yet and is refused.
 """
 

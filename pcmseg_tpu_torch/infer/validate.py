@@ -6,17 +6,24 @@ or several as a fold ensemble), on the GPU unless given ``device="cpu"``:
   * ``validate()`` scores each case at ``target_size``: a single model
     through the eval step with its BatchNorm running statistics (unfolded,
     as the JAX Validator scores it); an ensemble through the folded
-    Predictor's averaged probabilities, thresholded and scored on the host;
+    Predictor's averaged probabilities, thresholded (or, K-class, their
+    argmax) and scored on the host;
     with ``postprocess`` the masks are component-filtered on the host and
     rescored, so the filter's Dice effect is what is reported. Surface
     metrics (``surface_metrics``) are in voxels there;
   * ``validate_native()`` scores each case at its label's native grid
     through the folded Predictor (tiled where the volume exceeds one
     window), with surface metrics in millimetres;
+  * K-class heads (``n_classes >= 2``): each case's ``dice`` and ``iou`` are
+    the means over the foreground classes 1..K−1, ``dice_per_class`` holds
+    class c's Dice at key ``str(c)``, ``validate()`` adds
+    ``avg_dice_per_class``; native labels are read as class ids
+    (``clip(rint(label), 0, K−1)``) and the surface metrics score the
+    foreground union (``validate.py:225-300, 396-440``);
   * the JSON artifacts and their fields are the JAX package's:
     ``validation_results.json`` and ``validation_results_native.json``.
 
-Binary heads only: ``n_classes >= 2`` is refused. Also here, used by the
+Also here, used by the
 Predictor: the checkpoint config adoption and model loading of ``.pth``
 files. Orbax checkpoint directories are the JAX package's format: export
 one with ``python run.py export`` to validate it here.
@@ -38,7 +45,7 @@ from pcmseg_tpu_torch.data.loader import DataLoader, to_device
 from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
 from pcmseg_tpu_torch.infer.postprocess import postprocess_from_config
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
-from pcmseg_tpu_torch.ops.metrics import per_sample_dice_iou
+from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.ops.surface import case_surface_metrics
 from pcmseg_tpu_torch.train.checkpoints import load_pth
 from pcmseg_tpu_torch.train.steps import TrainState, make_eval_step
@@ -127,6 +134,11 @@ def load_model_state(
     return model, state_dict
 
 
+def _per_class(values) -> Dict[str, float]:
+    """Foreground classes' scores keyed by class id (``'1'``..``'K-1'``)."""
+    return {str(c + 1): float(v) for c, v in enumerate(values)}
+
+
 class Validator:
     """Evaluates ``.pth`` checkpoints over a dataset (or an index subset)
     on ``device`` (default: the current CUDA device; without one, pass
@@ -152,10 +164,6 @@ class Validator:
         require_pth(paths[0])
         loaded = load_pth(paths[0])
         config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
-        if config.n_classes >= 2:
-            raise NotImplementedError(
-                f"not ported to the PyTorch package yet: n_classes={config.n_classes} (K-class validation)"
-            )
         self.config = config
         self.log = get_logger("pcmseg.validate")
         self.device = resolve_device(device)
@@ -189,22 +197,38 @@ class Validator:
             self.model, config, return_pred=config.surface_metrics or self._postprocess
         )
 
+    def _host_rescore(self, masks: np.ndarray, labels) -> tuple:
+        """Per-sample (dice, iou, per-class Dice or None) of host uint8
+        masks, or K-class label maps (means over the foreground classes)."""
+        masks, labels = torch.from_numpy(masks), torch.as_tensor(np.asarray(labels))
+        k = int(self.config.n_classes)
+        if k >= 2:
+            dice_c, iou_c = per_class_dice_iou(masks, labels, k)
+            return dice_c.mean(1).tolist(), iou_c.mean(1).tolist(), dice_c.tolist()
+        dice, iou = per_sample_dice_iou(masks, labels)
+        return dice.tolist(), iou.tolist(), None
+
     def _batch_scores(self, batch) -> tuple:
-        """Per-sample (dice, iou, masks) at ``config.threshold``; ``masks``
-        is the uint8 prediction when ``surface_metrics`` asks for it, else
+        """Per-sample (dice, iou, masks, per-class Dice or None) at
+        ``config.threshold`` (the argmax for a K-class head); ``masks`` is
+        the uint8 prediction when ``surface_metrics`` asks for it, else
         None."""
         if self._ensemble is None:
             m = self._eval_step(self._state, to_device(batch, self.device, self.dtype))
             masks = m["pred"].cpu().numpy() if "pred" in m else None
             if not self._postprocess:
-                return m["dice"].tolist(), m["iou"].tolist(), masks
+                dice_class = m["dice_class"].tolist() if "dice_class" in m else None
+                return m["dice"].tolist(), m["iou"].tolist(), masks, dice_class
         else:
             probs = self._ensemble.predict_probs_batch(batch["image"])
-            masks = (probs > self.config.threshold).astype(np.uint8)
+            if self.config.n_classes >= 2:
+                masks = np.argmax(probs, axis=-1).astype(np.uint8)[..., None]
+            else:
+                masks = (probs > self.config.threshold).astype(np.uint8)
         if self._postprocess:
             masks = np.stack([postprocess_from_config(mk[..., 0], self.config)[..., None] for mk in masks])
-        dice, iou = per_sample_dice_iou(torch.from_numpy(masks), torch.as_tensor(np.asarray(batch["label"])))
-        return dice.tolist(), iou.tolist(), masks if self.config.surface_metrics else None
+        dice, iou, dice_class = self._host_rescore(masks, batch["label"])
+        return dice, iou, masks if self.config.surface_metrics else None, dice_class
 
     def _case_surface(self, mask, label, spacing) -> Dict:
         """Boundary metrics for one case; JSON-safe (inf -> None)."""
@@ -238,6 +262,9 @@ class Validator:
             results["resolution"] = "native"
         results.update(avg_dice=avg_dice, avg_iou=avg_iou, case_count=len(case_results),
                        case_results=case_results)
+        per = [r["dice_per_class"] for r in case_results if "dice_per_class" in r]
+        if per and not native:
+            results["avg_dice_per_class"] = {c: float(np.mean([p[c] for p in per])) for c in per[0]}
         if self.config.surface_metrics:
             results.update(self._surface_averages(case_results))
             results["surface_units"] = "mm" if native else "voxel"
@@ -250,9 +277,11 @@ class Validator:
     def validate(self, save: bool = True) -> Dict:
         case_results: List[Dict] = []
         for batch in self.loader:
-            dices, ious, masks = self._batch_scores(batch)
+            dices, ious, masks, dice_class = self._batch_scores(batch)
             for i, (cid, dice, iou) in enumerate(zip(batch["case_id"], dices, ious)):
                 rec = {"case_id": cid, "dice": float(dice), "iou": float(iou)}
+                if dice_class is not None:
+                    rec["dice_per_class"] = _per_class(dice_class[i])
                 if masks is not None:
                     # unit spacing: this validator scores on the resampled
                     # target_size grid, so distances read in voxels
@@ -271,14 +300,19 @@ class Validator:
         every modality is resampled onto the case's raw label grid, the
         Predictor runs at that resolution (tiled and blended when the
         volume exceeds one window), and the mask is scored against the
-        unresampled binarized label.
+        unresampled binarized label, or, K-class, the label map of class
+        ids, the surface metrics then scoring the foreground union.
         """
         predictor = self._native_predictor()
         cfg = self.config
+        k = int(cfg.n_classes)
         case_results: List[Dict] = []
         for rec in self.dataset.case_list:
             label_vol = read_volume(rec.label_path)
-            label = (label_vol.data > 0).astype(np.float32)[..., None]
+            if k >= 2:
+                label = np.clip(np.rint(label_vol.data), 0, k - 1).astype(np.float32)[..., None]
+            else:
+                label = (label_vol.data > 0).astype(np.float32)[..., None]
             channels = []
             for m in cfg.modalities:
                 p = rec.modality_files.get(m)
@@ -291,13 +325,12 @@ class Validator:
                 channels.append(normalize_intensity(data, cfg.normalize, cfg.norm_percentiles))
             image = np.stack(channels, axis=-1).astype(np.float32)
             mask = predictor.predict_mask(image)[..., None].astype(np.float32)
-            dice, iou = per_sample_dice_iou(torch.from_numpy(mask[None]), torch.from_numpy(label[None]))
-            case_rec = {
-                "case_id": rec.case_id,
-                "dice": float(dice[0]),
-                "iou": float(iou[0]),
-                "shape": list(label_vol.shape),
-            }
+            dice, iou, dice_class = self._host_rescore(mask[None], label[None])
+            case_rec = {"case_id": rec.case_id, "dice": float(dice[0]), "iou": float(iou[0])}
+            if dice_class is not None:
+                case_rec["dice_per_class"] = _per_class(dice_class[0])
+                mask, label = (mask > 0).astype(np.float32), (label > 0).astype(np.float32)
+            case_rec["shape"] = list(label_vol.shape)
             if cfg.surface_metrics:
                 # Volume spacing is (sx, sy, sz); data axes are (z, y, x):
                 # reversed, distances come out in millimetres

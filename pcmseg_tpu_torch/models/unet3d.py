@@ -5,7 +5,8 @@ Module names follow the reference PyTorch model, so a
 ``params_to_torch_state_dict`` export loads with ``strict=True``:
 
   ``inc.conv.{0,3}``, ``down{i}.maxpool_conv.1.conv.{0,3}``, ``up{i}.up``,
-  ``up{i}.conv.conv.{0,3}``, ``outc``; BatchNorm at ``.1`` / ``.4``.
+  ``up{i}.conv.conv.{0,3}``, ``outc``; BatchNorm (or GroupNorm: ``weight``
+  and ``bias`` only) at ``.1`` / ``.4``.
 
 Tensors are channels-last (N, D, H, W, C) as in the JAX package. Every 3³
 conv goes through ``ops.kernels.conv3d.conv3x3x3``: the hand-written CUDA
@@ -13,8 +14,10 @@ kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor. With
 ``norm_layer='none'`` (the BN-folded serving graph) the ReLU is fused into
 the kernel's epilogue. With grad enabled a conv runs
 ``ops.hybrid_conv.conv3x3``, whose backward is the kernels too (dx and dW).
-Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm and
-the 1×1×1 head are stock PyTorch, as the JAX package leaves them to XLA.
+Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm,
+GroupNorm (``norm_layer='group'``, ``min(group_norm_groups, features)``
+groups, as ``unet3d.py:247-253``) and the 1×1×1 head are stock PyTorch, as
+the JAX package leaves them to XLA.
 With ``remat`` the blocks (``inc``, ``down1-4``, ``up1-4``) are recomputed
 in the backward (``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
 With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
@@ -42,7 +45,7 @@ from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 
 MIN_INPUT_SIZE = 16  # four 2x max-pools
-NORM_LAYERS = ("batch", "none")
+NORM_LAYERS = ("batch", "group", "none")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -149,6 +152,60 @@ class BatchNorm(nn.BatchNorm3d):
         return x * mult.to(x.dtype) + shift.to(x.dtype)
 
 
+def _group_view(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """(N, ..., C) → (N, voxels, groups, C // groups), a view."""
+    return t.reshape(t.shape[0], -1, groups, t.shape[-1] // groups)
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """GroupNorm over NDHWC with flax's arithmetic (``normalization.py``
+    ``_compute_stats`` / ``_normalize``): per sample and group, the mean and
+    the fast variance E[x²] − mean² clipped at 0, in fp32 over (voxels,
+    channels of the group); ``y = (x − mean)·(rsqrt(var + eps)·γ) + β`` in
+    fp32, cast to x's dtype. The backward is the analytic one, in fp32,
+    saving x in its own dtype and the (N, G) statistics only."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps):
+        xg = _group_view(x, groups).to(torch.promote_types(x.dtype, torch.float32))
+        mean = xg.mean((1, 3))
+        var = (xg.square().mean((1, 3)) - mean.square()).clamp_min(0.0)
+        r = torch.rsqrt(var + eps)
+        mult = r[:, None, :, None] * _group_view(weight.to(r.dtype)[None], groups)
+        y = (xg - mean[:, None, :, None]) * mult + _group_view(bias.to(r.dtype)[None], groups)
+        ctx.save_for_backward(x, weight, mean, r)
+        ctx.groups = groups
+        return y.reshape(x.shape).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, r = ctx.saved_tensors
+        g = ctx.groups
+        r4 = r[:, None, :, None]
+        xhat = (_group_view(x, g).to(r.dtype) - mean[:, None, :, None]) * r4
+        dyg = _group_view(dy, g).to(r.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[1]:
+            dw = (dyg * xhat).sum((0, 1)).reshape(-1)
+        if ctx.needs_input_grad[2]:
+            db = dyg.sum((0, 1)).reshape(-1)
+        if ctx.needs_input_grad[0]:
+            dxhat = dyg * _group_view(weight.to(r.dtype)[None], g)
+            dx = r4 * (dxhat - dxhat.mean((1, 3), keepdim=True)
+                       - xhat * (dxhat * xhat).mean((1, 3), keepdim=True))
+            dx = dx.reshape(x.shape).to(x.dtype)
+        return dx, dw, db, None, None
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NDHWC with flax's arithmetic (``_GroupNormFn``), the
+    same in training and eval: no running statistics. State-dict keys are
+    ``nn.GroupNorm``'s (``weight``, ``bias``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+
+
 @contextlib.contextmanager
 def _frozen_running_stats(module: nn.Module):
     """BatchNorm layers of ``module`` leave their running statistics alone:
@@ -170,14 +227,20 @@ def _remat_contexts(module: nn.Module):
 class DoubleConv(nn.Module):
     """(3³ conv → norm → ReLU) × 2, as ``conv`` = Sequential of 6."""
 
-    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
         fused = norm_layer == "none"
         layers = []
         for ci in (in_ch, out_ch):
+            if fused:
+                norm = nn.Identity()
+            elif norm_layer == "group":
+                norm = GroupNorm(min(groups, out_ch), out_ch, eps=1e-5, device=device)
+            else:
+                norm = BatchNorm(out_ch, device=device)
             layers += [
                 Conv3x3(ci, out_ch, relu=fused, device=device),
-                nn.Identity() if fused else BatchNorm(out_ch, device=device),
+                norm,
                 nn.Identity() if fused else nn.ReLU(),
             ]
         self.conv = nn.Sequential(*layers)
@@ -233,10 +296,10 @@ def _pad_to_match(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 class Down(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
-            MaxPool2x(), DoubleConv(in_ch, out_ch, norm_layer, device)
+            MaxPool2x(), DoubleConv(in_ch, out_ch, norm_layer, groups, device)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -246,10 +309,10 @@ class Down(nn.Module):
 class Up(nn.Module):
     """Transposed conv to ``out_ch``, pad-align, concat [skip, up], DoubleConv."""
 
-    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, device=None):
+    def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
         self.up = ConvTranspose2x(in_ch, out_ch, device)
-        self.conv = DoubleConv(2 * out_ch, out_ch, norm_layer, device)
+        self.conv = DoubleConv(2 * out_ch, out_ch, norm_layer, groups, device)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = _pad_to_match(self.up(x), skip)
@@ -272,7 +335,8 @@ class Conv1x1(nn.Module):
 class UNet3D(nn.Module):
     """4-level 3D U-Net: (N, D, H, W, n_modalities) → fp32 logits
     (N, D, H, W, n_classes). Base 64 with 5 modalities has 90,311,361
-    parameters.
+    parameters. ``norm_layer`` is 'batch', 'group' (GroupNorm with
+    ``min(group_norm_groups, features)`` groups) or 'none' (BN folded).
 
     ``generator`` seeds the kaiming fan_out init (it must live on
     ``device``); on the ``meta`` device nothing is initialised, which counts
@@ -291,6 +355,7 @@ class UNet3D(nn.Module):
         n_classes: int = 1,
         base_features: int = 64,
         norm_layer: str = "batch",
+        group_norm_groups: int = 8,
         dtype: torch.dtype = torch.bfloat16,
         device=None,
         generator: Optional[torch.Generator] = None,
@@ -299,25 +364,23 @@ class UNet3D(nn.Module):
     ):
         super().__init__()
         if norm_layer not in NORM_LAYERS:
-            raise NotImplementedError(
-                f"norm_layer={norm_layer!r} is not ported; expected one of {NORM_LAYERS}"
-            )
+            raise ValueError(f"norm_layer={norm_layer!r}; expected one of {NORM_LAYERS}")
         self.n_modalities = n_modalities
         self.n_classes = n_classes
         self.norm_layer = norm_layer
         self.dtype = dtype
         self.remat = remat
         self.deep_supervision = deep_supervision
-        f = base_features
-        self.inc = DoubleConv(n_modalities, f, norm_layer, device)
-        self.down1 = Down(f, 2 * f, norm_layer, device)
-        self.down2 = Down(2 * f, 4 * f, norm_layer, device)
-        self.down3 = Down(4 * f, 8 * f, norm_layer, device)
-        self.down4 = Down(8 * f, 16 * f, norm_layer, device)
-        self.up1 = Up(16 * f, 8 * f, norm_layer, device)
-        self.up2 = Up(8 * f, 4 * f, norm_layer, device)
-        self.up3 = Up(4 * f, 2 * f, norm_layer, device)
-        self.up4 = Up(2 * f, f, norm_layer, device)
+        f, kw = base_features, dict(norm_layer=norm_layer, groups=group_norm_groups, device=device)
+        self.inc = DoubleConv(n_modalities, f, **kw)
+        self.down1 = Down(f, 2 * f, **kw)
+        self.down2 = Down(2 * f, 4 * f, **kw)
+        self.down3 = Down(4 * f, 8 * f, **kw)
+        self.down4 = Down(8 * f, 16 * f, **kw)
+        self.up1 = Up(16 * f, 8 * f, **kw)
+        self.up2 = Up(8 * f, 4 * f, **kw)
+        self.up3 = Up(4 * f, 2 * f, **kw)
+        self.up4 = Up(2 * f, f, **kw)
         self.outc = Conv1x1(f, n_classes, device)
         if deep_supervision:  # after outc: the other parameters draw the init of a model without them
             self.ds1 = Conv1x1(8 * f, n_classes, device)
@@ -333,6 +396,7 @@ class UNet3D(nn.Module):
             n_classes=config.n_classes,
             base_features=config.base_features,
             norm_layer=norm_layer or config.norm_layer,
+            group_norm_groups=config.group_norm_groups,
             dtype=DTYPES[config.compute_dtype],
             remat=config.remat,
             **kwargs,
@@ -340,13 +404,13 @@ class UNet3D(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Kaiming-normal fan_out (ReLU gain) weights, zero biases, BN γ=1 β=0."""
+        """Kaiming-normal fan_out (ReLU gain) weights, zero biases, norm γ=1 β=0."""
         for m in self.modules():
             if isinstance(m, (Conv3x3, Conv1x1)):
                 fan_out = m.weight.shape[0] * math.prod(m.weight.shape[2:])
             elif isinstance(m, ConvTranspose2x):
                 fan_out = m.weight.shape[1] * math.prod(m.weight.shape[2:])
-            elif isinstance(m, BatchNorm):
+            elif isinstance(m, (BatchNorm, GroupNorm)):
                 m.reset_parameters()
                 continue
             else:

@@ -1,12 +1,19 @@
-"""Binary segmentation losses in PyTorch, the port of ``pcmseg_tpu/ops/losses.py``.
+"""Segmentation losses in PyTorch, the port of ``pcmseg_tpu/ops/losses.py``.
 
-Same formulas and reductions as the JAX package (``losses.py:24-183``):
-sigmoid → global flatten over the whole batch → fp32 sums, whatever the
-logits' dtype (the sums run over up to 2 M voxels per sample). An optional
-(N,) 0/1 ``weight`` masks padded samples out: for the overlap losses their
-probabilities and targets are zeroed before the sums, for the per-voxel
-losses the mean runs over the real samples only. The multi-class (softmax)
-losses come with K-class training, in a later slice.
+Same formulas and reductions as the JAX package (``losses.py:24-361``):
+sigmoid (binary head) or softmax over the K channels (``n_classes >= 2``,
+integer (N, ..., 1) label maps of class ids 0..K−1) → global flatten over
+the whole batch → fp32 sums, whatever the logits' dtype (the sums run over
+up to 2 M voxels per sample). An optional (N,) 0/1 ``weight`` masks padded
+samples out: for the overlap losses their probabilities and targets are
+zeroed before the sums, for the per-voxel losses the mean runs over the
+real samples only.
+
+K-class: per-class soft Dice / Tversky averaged over the classes, softmax
+cross-entropy as the analog of BCE, focal cross-entropy. The standalone
+'dice' and 'tversky' include the background class; the composites
+'bce_dice' (CE + Dice) and 'focal_dice' score the foreground classes only
+(``_make_multiclass_loss_fn``, ``losses.py:307-353``).
 """
 
 from __future__ import annotations
@@ -125,14 +132,120 @@ def focal_dice_loss(
     )
 
 
+# ---- multi-class (n_classes >= 2, softmax) -------------------------------------
+
+
+def one_hot_targets(labels: Tensor, n_classes: int, dtype: torch.dtype = torch.float32) -> Tensor:
+    """(N, ..., 1) or (N, ...) integer class ids → (N, ..., K) one-hot in
+    ``dtype``. An id outside 0..K−1 is all zeros, as ``jax.nn.one_hot``
+    makes it (a comparison, so no device sync checks the range)."""
+    if labels.shape[-1] == 1:
+        labels = labels[..., 0]
+    classes = torch.arange(n_classes, device=labels.device)
+    return (labels.long()[..., None] == classes).to(dtype)
+
+
+def _softmax_masked(logits: Tensor, labels: Tensor, weight: Optional[Tensor]):
+    probs = torch.softmax(logits.to(_acc_dtype(logits)), dim=-1)
+    t = one_hot_targets(labels, logits.shape[-1], probs.dtype)
+    if weight is not None:
+        w = _sample_weight(weight, logits)
+        probs = probs * w
+        t = t * w
+    return probs, t
+
+
+def _class_mean(per_class: Tensor, include_background: bool) -> Tensor:
+    return per_class[0 if include_background else 1:].mean()
+
+
+def softmax_dice_loss(
+    logits: Tensor, labels: Tensor, smooth: float = 1.0, weight=None, include_background: bool = False
+) -> Tensor:
+    """``1 − mean_c (2·∩_c + s) / (Σp_c + Σt_c + s)`` over the global flatten,
+    the mean over classes 1..K−1 (class 0 too with ``include_background``)."""
+    probs, t = _softmax_masked(logits, labels, weight)
+    axes = tuple(range(probs.dim() - 1))
+    inter = (probs * t).sum(axes)
+    denom = probs.sum(axes) + t.sum(axes)
+    return 1.0 - _class_mean((2.0 * inter + smooth) / (denom + smooth), include_background)
+
+
+def _log_pt(logits: Tensor, labels: Tensor) -> Tensor:
+    """Per-voxel log-probability of the true class."""
+    logp = torch.log_softmax(logits.to(_acc_dtype(logits)), dim=-1)
+    return (one_hot_targets(labels, logits.shape[-1], logp.dtype) * logp).sum(-1)
+
+
+def ce_loss(logits: Tensor, labels: Tensor, weight=None) -> Tensor:
+    """Mean softmax cross-entropy (``CrossEntropyLoss``, mean reduction)."""
+    return _weighted_mean(-_log_pt(logits, labels), weight)
+
+
+def mc_tversky_loss(
+    logits: Tensor,
+    labels: Tensor,
+    alpha: float = 0.3,
+    beta: float = 0.7,
+    smooth: float = 1.0,
+    weight=None,
+    include_background: bool = False,
+) -> Tensor:
+    """``1 − mean_c (TP_c + s) / (TP_c + α·FP_c + β·FN_c + s)``, classes as in
+    :func:`softmax_dice_loss`."""
+    probs, t = _softmax_masked(logits, labels, weight)
+    axes = tuple(range(probs.dim() - 1))
+    tp = (probs * t).sum(axes)
+    fp = probs.sum(axes) - tp
+    fn = t.sum(axes) - tp
+    return 1.0 - _class_mean((tp + smooth) / (tp + alpha * fp + beta * fn + smooth), include_background)
+
+
+def mc_focal_loss(logits: Tensor, labels: Tensor, gamma: float = 2.0, weight=None) -> Tensor:
+    """``−(1 − p_t)^γ log p_t`` with p_t the softmax probability of the true
+    class, mean reduction. The base is clamped to >= 1e-7: a pow lowered as
+    exp(γ·log(base)) returns NaN at base 0, which a saturated voxel reaches
+    (``losses.py:293-297``)."""
+    log_pt = _log_pt(logits, labels)
+    base = (1.0 - torch.exp(log_pt)).clamp_min(1e-7)
+    return _weighted_mean(-torch.pow(base, gamma) * log_pt, weight)
+
+
+def _make_multiclass_loss_fn(name: str, **kwargs) -> Callable:
+    smooth = kwargs.get("dice_smooth", 1.0)
+    if name == "dice":
+        return lambda logits, targets, weight=None: softmax_dice_loss(
+            logits, targets, smooth, weight, include_background=True
+        )
+    if name == "bce_dice":  # CE is the K-class analog of BCE
+        cw, dw = kwargs.get("bce_weight", 0.5), kwargs.get("dice_weight", 0.5)
+        return lambda logits, targets, weight=None: (
+            cw * ce_loss(logits, targets, weight) + dw * softmax_dice_loss(logits, targets, smooth, weight)
+        )
+    if name == "tversky":
+        return lambda logits, targets, weight=None: mc_tversky_loss(
+            logits, targets, kwargs.get("tversky_alpha", 0.3), kwargs.get("tversky_beta", 0.7),
+            smooth, weight, include_background=True,
+        )
+    if name == "focal":
+        return lambda logits, targets, weight=None: mc_focal_loss(
+            logits, targets, kwargs.get("focal_gamma", 2.0), weight
+        )
+    if name == "focal_dice":
+        fw, dw = kwargs.get("bce_weight", 0.5), kwargs.get("dice_weight", 0.5)
+        g = kwargs.get("focal_gamma", 2.0)
+        return lambda logits, targets, weight=None: (
+            fw * mc_focal_loss(logits, targets, g, weight) + dw * softmax_dice_loss(logits, targets, smooth, weight)
+        )
+    raise ValueError(f"unknown loss: {name!r}")
+
+
 def make_loss_fn(name: str, n_classes: int = 1, **kwargs) -> Callable:
-    """Loss factory keyed by config names (``losses.py:356``); the returned
+    """Loss factory keyed by config names (``losses.py:356``); with
+    ``n_classes >= 2`` each name is its softmax analog. The returned
     function takes (logits, targets, weight=None)."""
     if n_classes >= 2:
-        raise NotImplementedError(
-            f"n_classes={n_classes}: the multi-class (softmax) losses are not ported "
-            "to the PyTorch package yet"
-        )
+        return _make_multiclass_loss_fn(name, **kwargs)
     smooth = kwargs.get("dice_smooth", 1.0)
     if name == "dice":
         return lambda logits, targets, weight=None: dice_loss(logits, targets, smooth, weight)

@@ -1,7 +1,9 @@
 """Evaluation metrics, the port of ``pcmseg_tpu/ops/metrics.py`` as the eval
 step uses them (``train/steps.py:392-400``): per sample, over flattened
 binary masks, Dice = 2·∩ / (Σp + Σt + EPS) and IoU = ∩ / (Σp + Σt − ∩ +
-EPS), EPS in the denominator only (the reference validator's formulas).
+EPS), EPS in the denominator only (the reference validator's formulas). For
+K-class label maps, the same per foreground class 1..K−1
+(``steps.py:366-378``).
 """
 
 from __future__ import annotations
@@ -23,3 +25,15 @@ def per_sample_dice_iou(
     inter = (p * t).sum(1)
     psum, tsum = p.sum(1), t.sum(1)
     return (2.0 * inter) / (psum + tsum + eps), inter / (psum + tsum - inter + eps)
+
+
+def per_class_dice_iou(
+    pred: torch.Tensor, target: torch.Tensor, n_classes: int, eps: float = EPS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, ...) integer label maps → ((N, K−1) Dice, (N, K−1) IoU) of the
+    foreground classes 1..K−1, each class scored as a binary mask."""
+    n = pred.shape[0]
+    p = pred.reshape(n, -1).long()
+    t = target.reshape(n, -1).long()
+    scores = [per_sample_dice_iou(p == c, t == c, eps) for c in range(1, n_classes)]
+    return torch.stack([d for d, _ in scores], 1), torch.stack([i for _, i in scores], 1)

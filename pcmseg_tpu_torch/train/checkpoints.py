@@ -11,7 +11,9 @@ Weight layouts:
   * JAX conv kernel (kD, kH, kW, I, O) ↔ ``.pth`` conv weight (O, I, kD, kH, kW);
   * JAX transposed-conv kernel (kD, kH, kW, I, O), stored spatially flipped
     (``pcmseg_tpu/train/checkpoints.py:335-339``) ↔ ``.pth`` (I, O, kD, kH, kW);
-  * BN scale/bias/mean/var ↔ weight/bias/running_mean/running_var.
+  * BN scale/bias/mean/var ↔ weight/bias/running_mean/running_var;
+    GroupNorm scale/bias ↔ weight/bias (no running statistics);
+  * a K-class head's ``outc`` (and ``ds{i}``) has K outputs.
 The conv kernel's own packed layout is built from the ``.pth`` layout at
 run time (``ops/kernels/conv3d.py::pack_weight``).
 """
@@ -52,7 +54,8 @@ def state_dict_from_jax_params(
 
     Mirrors ``pcmseg_tpu.train.checkpoints.params_to_torch_state_dict``
     without importing JAX. BN-folded trees (no ``norm{i}`` entries) give a
-    state dict for ``UNet3D(norm_layer='none')``. A deep-supervision tree's
+    state dict for ``UNet3D(norm_layer='none')``; GroupNorm trees (``norm{i}``
+    without batch statistics) one for ``UNet3D(norm_layer='group')``. A deep-supervision tree's
     aux heads ``ds{i}``, which that exporter leaves out, become ``ds{i}.weight``
     and ``ds{i}.bias`` of ``UNet3D(deep_supervision=True)``.
     """

@@ -1,4 +1,9 @@
-"""Train and eval steps, the port of ``pcmseg_tpu/train/steps.py`` (binary head).
+"""Train and eval steps, the port of ``pcmseg_tpu/train/steps.py``.
+
+Binary heads (sigmoid) and K-class heads (``n_classes >= 2``: softmax over
+the K logits, integer label maps of class ids, which keep their integer
+dtype through ``align_labels`` and reach the losses' one-hot as class ids).
+Models with GroupNorm have no running statistics to move.
 
 With a deep-supervision model (``UNet3D(deep_supervision=True)``) the
 training loss is the loss at every decoder scale, weighted ``DS_WEIGHTS``
@@ -32,7 +37,7 @@ import torch
 from torch import nn
 
 from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
-from pcmseg_tpu_torch.ops.metrics import per_sample_dice_iou
+from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
@@ -133,10 +138,6 @@ def unported_training_options(config) -> List[str]:
         refused.append("async_checkpoint")
     if config.profile_dir:
         refused.append("profile_dir (profiling)")
-    if config.n_classes >= 2:
-        refused.append(f"n_classes={config.n_classes} (K-class training)")
-    if config.norm_layer != "batch":
-        refused.append(f"norm_layer={config.norm_layer!r}")
     return refused
 
 
@@ -221,11 +222,16 @@ def make_eval_step(
     """(state, batch) -> {'loss', 'dice', 'iou', 'dice_sum', 'iou_sum',
     'weight_sum'}: the batch loss with the running statistics, and Dice/IoU
     per sample at ``config.threshold`` (``steps.py:389-414``), plus 'pred',
-    the uint8 mask, with ``return_pred``. With EMA on (and ``ema_eval``) the
-    averaged parameters are scored; ``state`` is read for its ``ema`` only."""
+    the uint8 mask, with ``return_pred``. K-class (``steps.py:346-388``):
+    the argmax label map is scored per foreground class 1..K−1
+    ('dice_class', 'iou_class', (N, K−1)), 'dice' and 'iou' are the means
+    over those classes, and 'pred' is the (N, D, H, W, 1) uint8 label map.
+    With EMA on (and ``ema_eval``) the averaged parameters are scored;
+    ``state`` is read for its ``ema`` only."""
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     threshold = config.threshold
+    n_classes = int(config.n_classes)
     use_ema = config.ema_decay > 0 and config.ema_eval
 
     @torch.no_grad()
@@ -236,19 +242,27 @@ def make_eval_step(
             logits = torch.func.functional_call(model, state.ema, (images,))
         else:
             logits = model(images)
-        labels = align_labels(logits, batch["label"])
+        out = {}
+        if n_classes >= 2:
+            # the (N, ..., 1) class map nearest-resized to the logits' grid
+            labels = align_labels(logits[..., :1], batch["label"])
+            pred = logits.float().argmax(-1, keepdim=True)
+            out["dice_class"], out["iou_class"] = per_class_dice_iou(pred, labels, n_classes)
+            dice, iou = out["dice_class"].mean(1), out["iou_class"].mean(1)
+        else:
+            labels = align_labels(logits, batch["label"])
+            pred = (torch.sigmoid(logits.float()) > threshold).float()
+            dice, iou = per_sample_dice_iou(pred, labels)
         loss = loss_fn(logits, labels, weight)
-        pred = (torch.sigmoid(logits.float()) > threshold).float()
-        dice, iou = per_sample_dice_iou(pred, labels)
         w = weight.float() if weight is not None else torch.ones_like(dice)
-        out = {
-            "loss": loss,
-            "dice": dice,
-            "iou": iou,
-            "dice_sum": (dice * w).sum(),
-            "iou_sum": (iou * w).sum(),
-            "weight_sum": w.sum(),
-        }
+        out.update(
+            loss=loss,
+            dice=dice,
+            iou=iou,
+            dice_sum=(dice * w).sum(),
+            iou_sum=(iou * w).sum(),
+            weight_sum=w.sum(),
+        )
         if return_pred:
             out["pred"] = pred.to(torch.uint8)
         return out

@@ -212,6 +212,19 @@ def test_pth_has_no_ds_heads_and_serves_and_pt_resumes_with_them(tree, tmp_path)
 
 @pytest.mark.parametrize("option", [dict(n_classes=3), dict(norm_layer="group")], ids=lambda o: next(iter(o)))
 def test_k_class_and_group_norm_are_still_refused(option):
-    config = get_config(base_features=4, deep_supervision=True, **option)
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        steps.refuse_unported_training(config)
+    """K-class heads and GroupNorm, ported since, are no longer refused: a
+    deep-supervision step of either takes every head's loss (3 outputs each
+    for K = 3) and moves every head (tests/test_torch_kclass.py holds the
+    K = 3 GroupNorm step against JAX)."""
+    config = get_config(**_kw(target_size=(16,) * 3, **option))
+    steps.refuse_unported_training(config)
+    assert steps.unported_training_options(config) == []
+    model = UNet3D.from_config(config, deep_supervision=True, generator=torch.Generator().manual_seed(0))
+    state = steps.create_train_state(model, config)
+    before = {f"ds{i}": getattr(model, f"ds{i}").weight.detach().clone() for i in (1, 2, 3)}
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.normal(size=(2, 16, 16, 16, 5)).astype(np.float32)),
+             "label": torch.from_numpy(rng.integers(0, config.n_classes + 1, (2, 16, 16, 16, 1)).astype(np.uint8))}
+    assert np.isfinite(float(steps.make_train_step(model, config)(state, batch)["loss"]))
+    for name, w in before.items():
+        assert w.shape[0] == config.n_classes and not torch.equal(getattr(model, name).weight, w), name

@@ -74,10 +74,19 @@ def test_zero_weight_sample_drops_out_of_the_loss(data):
 
 
 def test_unknown_and_unported_losses_raise():
+    """An unknown name raises for either head; ``n_classes >= 2``, ported
+    since, gives the softmax loss (tests/test_torch_kclass.py holds each
+    against JAX)."""
     with pytest.raises(ValueError):
         losses.make_loss_fn("nope")
-    with pytest.raises(NotImplementedError, match="n_classes"):
-        losses.make_loss_fn("dice", n_classes=3)
+    with pytest.raises(ValueError):
+        losses.make_loss_fn("nope", n_classes=3)
+    logits = torch.zeros(1, 4, 4, 4, 3)
+    labels = torch.zeros(1, 4, 4, 4, 1, dtype=torch.uint8)
+    # uniform softmax over 64 voxels of class 0: Dice of class 0 is
+    # (2·64/3 + 1)/(64/3 + 64 + 1), of classes 1 and 2 (0 + 1)/(64/3 + 0 + 1)
+    want = 1.0 - ((2 * 64 / 3 + 1) / (64 / 3 + 65) + 2 / (64 / 3 + 1)) / 3
+    assert losses.make_loss_fn("dice", n_classes=3)(logits, labels).item() == pytest.approx(want, rel=1e-6)
 
 
 def test_metrics_match_jax(data):

@@ -13,7 +13,7 @@ import torch
 
 from pcmseg_tpu.models import UNet3D as JaxUNet3D
 from pcmseg_tpu.train.checkpoints import params_to_torch_state_dict
-from pcmseg_tpu_torch.models.unet3d import UNet3D, param_count
+from pcmseg_tpu_torch.models.unet3d import GroupNorm, UNet3D, param_count
 from pcmseg_tpu_torch.ops.kernels import conv3d
 
 BASE = 4
@@ -118,8 +118,13 @@ def test_guards():
         model(torch.zeros(1, 16, 16, 16, 4))
     with pytest.raises(ValueError, match=">= 16"):
         model(torch.zeros(1, 16, 8, 16, 5))
-    with pytest.raises(NotImplementedError):
-        UNet3D(base_features=4, norm_layer="group")
+    # GroupNorm, ported since (tests/test_torch_groupnorm.py holds it against
+    # flax): min(8, features) groups, no running statistics
+    group = UNet3D(base_features=4, norm_layer="group")
+    assert [m.num_groups for m in group.inc.conv if isinstance(m, GroupNorm)] == [4, 4]
+    assert not [k for k in group.state_dict() if "running" in k]
+    with pytest.raises(ValueError, match="norm_layer"):
+        UNet3D(base_features=4, norm_layer="layer")
     with pytest.raises(ValueError, match=">= 16"):  # the guard holds in training mode too
         model.train()(torch.zeros(1, 16, 16, 8, 5))
 

@@ -29,7 +29,7 @@ from pcmseg_tpu.train.steps import create_train_state
 from pcmseg_tpu_torch.cli.main import main as torch_main
 from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu_torch.infer import sliding_window
-from pcmseg_tpu_torch.infer.predict import Predictor, load_multimodal_images
+from pcmseg_tpu_torch.infer.predict import Predictor, load_multimodal_images, unported_options
 from pcmseg_tpu_torch.infer.serve import PredictionServer
 from pcmseg_tpu_torch.train.checkpoints import load_pth, save_pth
 
@@ -237,7 +237,16 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys, monkeypat
     ],
 )
 def test_unported_options_are_refused(slice_setup, overrides, names):
+    """Each option the port has not ported is refused by name. K-class
+    serving, ported since, passes that gate, and the binary checkpoint then
+    fails the 3-class model's strict load (tests/test_torch_kclass.py serves
+    K-class checkpoints against JAX)."""
     config, pth, _, _ = slice_setup
+    if names == "n_classes":
+        assert unported_options(config.replace(**overrides)) == []
+        with pytest.raises(RuntimeError, match="outc"):
+            Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=names):
         Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
 

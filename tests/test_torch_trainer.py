@@ -120,10 +120,20 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option):
     """Each option the port has not ported is refused by name; deep
-    supervision, ported since, builds a trainer whose model has the heads
-    (tests/test_torch_deep_supervision.py holds it against JAX)."""
+    supervision, K-class heads and GroupNorm, ported since, build a trainer
+    whose model has them (tests/test_torch_deep_supervision.py,
+    tests/test_torch_kclass.py and tests/test_torch_groupnorm.py hold them
+    against JAX)."""
     if "deep_supervision" in option:
         assert Trainer(_config(tree, tmp_path, **option), device="cpu").state.model.deep_supervision
+        return
+    if "n_classes" in option:
+        model = Trainer(_config(tree, tmp_path, **option), device="cpu").state.model
+        assert model.n_classes == 3 and model.outc.weight.shape[0] == 3
+        return
+    if "norm_layer" in option:
+        model = Trainer(_config(tree, tmp_path, **option), device="cpu").state.model
+        assert model.norm_layer == "group" and not [k for k in model.state_dict() if "running" in k]
         return
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         Trainer(_config(tree, tmp_path, **option), device="cpu")

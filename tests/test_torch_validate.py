@@ -298,10 +298,27 @@ def test_postprocess_matches(name, mode, min_voxels, connectivity):
 # ---- refusals, the EMA checkpoint, the verbs ------------------------------------
 
 
-def test_validator_refuses_k_class(folds):
-    _, config = _configs(folds, "kclass", n_classes=3)
-    with pytest.raises(NotImplementedError, match="n_classes=3"):
-        Validator(config, folds[1][0], explicit=["n_classes"], device="cpu")
+def test_validator_refuses_k_class(folds, tmp_path):
+    """K-class validation, ported since (tests/test_torch_groupnorm.py holds
+    a trained K = 3 cohort against JAX): fold 1's BatchNorm model with a
+    3-class head grafted on (logits 0, z and z/2 + 1 for its binary logit z)
+    is scored through the eval step by both Validators, per class within the
+    Dice gate; each case's ``dice`` is the mean of its classes."""
+    sd, snapshot = load_pth(folds[1][0])
+    w, b = sd["outc.weight"], sd["outc.bias"]
+    sd["outc.weight"] = torch.cat([torch.zeros_like(w), w, 0.5 * w])
+    sd["outc.bias"] = torch.cat([torch.zeros_like(b), b, 0.5 * b + 1.0])
+    pth = save_pth(str(tmp_path / "kclass.pth"), sd, {**snapshot, "n_classes": 3})
+    jax_config, config = _configs(folds, "kclass")
+    assert Validator(config, pth, device="cpu").config.n_classes == 3  # adopted from the snapshot
+    want = JaxValidator(jax_config, pth).validate()
+    got = Validator(config, pth, device="cpu").validate()
+    _assert_results_match(got, want)
+    assert sorted(got["avg_dice_per_class"]) == ["1", "2"]
+    for g, wr in zip(got["case_results"], want["case_results"]):
+        for c in ("1", "2"):
+            assert abs(g["dice_per_class"][c] - wr["dice_per_class"][c]) <= DICE_ATOL, (c, g, wr)
+        assert g["dice"] == pytest.approx(np.mean(list(g["dice_per_class"].values())))
 
 
 def test_ema_checkpoint_is_scored_with_its_own_weights(folds, tmp_path):
