@@ -122,7 +122,32 @@ kernel on them:
  13. profile: where a warm 128³ case's time goes: host decode, device
      path and mask write each timed alone, the device path's time per
      kernel (torch.profiler), and the card's idle share over a warm
-     ``run_once`` of four 128³ cases.
+     ``run_once`` of four 128³ cases;
+ 14. profiling: ``profile_dir`` through each entry point that takes it,
+     each in a process of its own (``chip_smoke.py --profiled WORK`` runs
+     the first two): a flagship ``Trainer`` with ``profile_steps=2`` on the cache phase's
+     12 cases (3 steps an epoch: the window, steps 1 and 2, closes at the
+     epoch's end), whose trace file holds exactly 2 x 140 B1 and 2 x 72 B2
+     kernel events by name, each step timed (synchronised) inside and
+     outside the window; a ``PredictionServer`` over the serve cases whose
+     window, written by ``close()``, holds 18 B1 per forward and one
+     ``case:`` span per case; ``predict --profile`` in its own process;
+ 15. async_ckpt: the 12 cases, flagship configuration, 4 epochs from the
+     same init with synchronous and asynchronous checkpoints: histories
+     and parameters equal, latest, best and best.pth bitwise-equal tensors
+     and equal meta (but the two config keys that differ); an async run
+     killed after epoch 2 and resumed bitwise equal to the uninterrupted
+     one; a writer that cannot write raised by ``train()``; exact launch
+     counts; each run's wall time and epoch times (with and without a
+     write in flight), the training thread's time in saves, the writer's
+     seconds per task, collapsed tasks and the peak pinned host bytes;
+ 16. ingest: ``device_ingest`` over the serve cases: the device stack
+     against the host path's bf16 stack (max |d| at most 2^-8, the share
+     of elements that differ), the masks against the host path's except
+     within 1e-2 of the threshold, 18 B1 per forward; then warm
+     ``run_once`` of the four 128³ cases with host and device ingest in
+     turns (host, device, device, host): vol/s, the card's idle share,
+     host decode and normalize ms per case and the ingest's device ms.
 
 Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
@@ -130,8 +155,9 @@ before doing anything. The last lines are the kernels' JSON record (per
 kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
-``cache_c``, ``ds`` and ``kclass`` those of the cache, ds and kclass
-phases), the nvidia-smi line, and the device JSON.
+``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt`` and
+``ingest`` those of the phases of those names), the nvidia-smi line, and
+the device JSON.
 """
 
 from __future__ import annotations
@@ -1977,6 +2003,368 @@ def kclass(work: str, device, card: str, bn_step_s) -> tuple:
     return tuple(total)
 
 
+# ---- profiling, asynchronous checkpoints and device ingest (slice 7) ----------------
+
+PROFILE_STEPS = 2  # the trainer's profiled window: global steps 1 and 2 of epoch 0
+ASYNC_EPOCHS = 4
+# device ingest against the host path's bf16 stack: one bf16 step at 1.0
+INGEST_MAX_DIFF = 2.0**-8
+UNDECIDED_P = 1e-2  # masks may differ only where the host path's p is this close to the threshold
+
+
+def trace_events(log_dir: str) -> list:
+    """The events of the one ``*.pt.trace.json`` that torch.profiler wrote under ``log_dir``."""
+    import glob
+
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: {len(files)} trace files, expected 1")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if isinstance(e, dict)]
+    log(f"  trace {os.path.relpath(files[0], REPO)}: {os.path.getsize(files[0]) / 2**20:.1f} MiB, "
+        f"{len(events)} events")
+    return events
+
+
+def kernel_events(events: list) -> tuple:
+    """(B1, B2) launches recorded as device kernel events, by kernel name."""
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return (sum("conv3x3x3_kernel" in n for n in names), sum("conv3x3_dw_kernel" in n for n in names))
+
+
+def profiled_runs(work: str, device) -> dict:
+    """The two profiled runs of the profiling phase, in a process of their
+    own (``chip_smoke.py --profiled WORK``): a flagship Trainer with
+    ``profile_steps=2`` on the cache phase's 12 cases, each step timed
+    (synchronised), and a PredictionServer over the serve cases. Returns
+    their launch counts, step seconds and stats."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer.serve import PredictionServer
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    config = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "cache_data"),
+                        save_dir=os.path.join(work, "prof_ckpt"), cache_dir=os.path.join(work, "preproc"), seed=0,
+                        **{**TRAIN, "profile_dir": os.path.join(work, "prof_train"), "profile_steps": PROFILE_STEPS})
+    trainer = Trainer(config, device=device)
+    steps = math.ceil(len(trainer.train_indices) / config.batch_size)
+    step_s = []
+    real_step = trainer._cached_train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    trainer._cached_train_step = timed_step
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    out = {"train_s": time.perf_counter() - t0, "steps": steps, "epochs": config.num_epochs, "step_s": step_s,
+           "train_launches": [conv3d.launches, conv3d_grad.launches],
+           "want_train": list(expected_train_launches(config, steps=config.num_epochs * steps,
+                                                      eval_forwards=config.num_epochs))}
+    del trainer
+    torch.cuda.empty_cache()
+
+    serve_config = get_config(base_features=BASE_FEATURES, norm_layer="batch",
+                              profile_dir=os.path.join(work, "prof_serve"))
+    server = PredictionServer(serve_config, os.path.join(work, "model.pth"), os.path.join(work, "inbox"),
+                              os.path.join(work, "prof_outbox"), explicit=["profile_dir"], min_age=0.0, device=device)
+    conv3d.launches = 0
+    try:
+        out["serve_stats"] = server.run_once()
+    finally:
+        server.close()
+    out.update(serve_launches=conv3d.launches, forwards=expected_forwards(server.config),
+               profile_steps=server.config.profile_steps)
+    return out
+
+
+def profiling_phase(work: str, device, card: str):
+    """``profile_dir`` on the three entry points that take it, each in a
+    process of its own, as a user's ``train --profile`` / ``serve
+    --profile`` / ``predict --profile`` runs: the Trainer's trace file
+    holds exactly 2 x 140 B1 and 2 x 72 B2 kernel events by name, the
+    server's window 18 B1 per forward and one ``case:`` span per case, and
+    ``predict --profile`` exits 0 with 18 B1 in its trace. (Run in this
+    script's own process, after the phases before it, the Trainer's window
+    lost one B1 kernel event of ~10,560 in each of three H100 runs.)
+    Returns the (B1, B2) launches of the Trainer and the server."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiled", work], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the profiled runs exited {proc.returncode}: {proc.stderr[-3000:]}")
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = tuple(run["train_launches"])
+    events = trace_events(os.path.join(work, "prof_train"))
+    traced = kernel_events(events)
+    want_traced = (PROFILE_STEPS * 140, PROFILE_STEPS * 72)
+    step_s, steps = run["step_s"], run["steps"]
+    inside = step_s[1:1 + PROFILE_STEPS]
+    outside = step_s[steps:]  # the warm epoch after the window
+    log(f"profiling, Trainer ({run['epochs']} epochs of {steps} flagship steps, profile_steps {PROFILE_STEPS}, "
+        f"{run['train_s']:.1f} s in a process of {time.perf_counter() - t0:.1f} s): trace kernel events B1 "
+        f"{traced[0]}, B2 {traced[1]} (expected {want_traced}); step (synchronised) inside the window "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in inside)} ms, outside {', '.join(f'{s * 1e3:.1f}' for s in outside)} ms "
+        f"(median {sorted(outside)[len(outside) // 2] * 1e3:.1f}); launches B1 {launches[0]}, B2 {launches[1]} "
+        f"(expected {tuple(run['want_train'])}) [{card}]")
+    if list(launches) != run["want_train"] or len(step_s) != run["epochs"] * steps:
+        raise AssertionError(f"profiled trainer: launches {launches}, expected {run['want_train']}; "
+                             f"{len(step_s)} steps")
+    if traced != want_traced:
+        kernels = sorted((e["ts"], e["name"][:40]) for e in events if e.get("cat") == "kernel")
+        kernels = [(round(ts - kernels[0][0]), name) for ts, name in kernels]
+        raise AssertionError(f"the trainer's trace holds {traced} conv kernels, expected {want_traced}; "
+                             f"{len(kernels)} kernel events, the first (us) {kernels[:4]}, the last {kernels[-3:]}")
+
+    events = trace_events(os.path.join(work, "prof_serve"))
+    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("case:"))
+    traced, forwards = kernel_events(events), run["forwards"]
+    log(f"profiling, PredictionServer over {len(CASES)} cases ({forwards} forwards, window of {run['profile_steps']} "
+        f"cases written by close()): trace B1 {traced[0]} (expected {18 * forwards}), spans {spans}; launches B1 "
+        f"{run['serve_launches']} [{card}]")
+    if (run["serve_stats"]["done"] != len(CASES) or traced != (18 * forwards, 0)
+            or run["serve_launches"] != 18 * forwards or spans != [f"case:{c}" for c in sorted(CASES)]):
+        raise AssertionError(f"profiled server: stats {run['serve_stats']}, trace {traced}, spans {spans}")
+
+    # predict --profile
+    cli_dir = os.path.join(work, "prof_cli")
+    argv = ["predict", "--model_path", os.path.join(work, "model.pth"), "--input_dir",
+            os.path.join(work, "inbox", sorted(CASES)[0]), "--output_dir", os.path.join(work, "prof_cli_out"),
+            "--profile", cli_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pcmseg_tpu_torch", *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"predict --profile exited {proc.returncode}: {proc.stderr[-2000:]}")
+    traced = kernel_events(trace_events(cli_dir))
+    log(f"profiling, predict --profile: exit 0 in {time.perf_counter() - t0:.1f} s, trace B1 {traced[0]} "
+        f"(expected 18) [{card}]")
+    if traced != (18, 0):
+        raise AssertionError(f"predict --profile traced {traced}")
+    return launches[0] + run["serve_launches"], launches[1]
+
+
+def same_tree(a, b, skip=()) -> bool:
+    """Nested payloads equal: tensors bitwise, other leaves by ==, keys in ``skip`` left out."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and [k for k in a if k not in skip] == [k for k in b if k not in skip]
+                and all(same_tree(a[k], b[k], skip) for k in a if k not in skip))
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(same_tree(x, y, skip) for x, y in zip(a, b))
+    return a == b
+
+
+def async_ckpt(work: str, device, card: str):
+    """The cache phase's 12 cases in the flagship configuration for
+    ASYNC_EPOCHS epochs from the same init, with synchronous and with
+    asynchronous checkpoints: equal histories and parameters; latest, best
+    and best.pth bitwise equal tensors and equal meta; an async run killed
+    after epoch 2 and resumed bitwise equal to the uninterrupted one; a
+    writer that cannot write raised by ``train()``. Returns the async run's
+    (B1, B2) launches."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.train.checkpoints import train_checkpoint_path
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    base = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "cache_data"),
+                      cache_dir=os.path.join(work, "preproc"), seed=0, **{**TRAIN, "num_epochs": ASYNC_EPOCHS})
+    runs = {}
+    for name, on in (("sync", False), ("async", True)):
+        config = base.replace(save_dir=os.path.join(work, f"ack_{name}"), async_checkpoint=on)
+        trainer = Trainer(config, device=device)
+        steps = math.ceil(len(trainer.train_indices) / config.batch_size)
+        epochs, saves = [], []
+        real_epoch, real_save = trainer.train_epoch, trainer._save_epoch
+
+        def epoch(trainer=trainer, real_epoch=real_epoch, epochs=epochs):
+            busy = trainer.writer is not None and trainer.writer.in_flight() > 0
+            t = time.perf_counter()
+            loss = real_epoch()  # ends with the host fetching the last loss
+            epochs.append((time.perf_counter() - t, busy))
+            return loss
+
+        def save(*args, real_save=real_save, saves=saves):
+            t = time.perf_counter()
+            real_save(*args)
+            saves.append(time.perf_counter() - t)
+
+        trainer.train_epoch, trainer._save_epoch = epoch, save
+        conv3d.launches = conv3d_grad.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (conv3d.launches, conv3d_grad.launches)
+        want = expected_train_launches(config, steps=ASYNC_EPOCHS * steps, eval_forwards=ASYNC_EPOCHS)
+        if launches != want:
+            raise AssertionError(f"{name} checkpoints: launches {launches}, expected {want}")
+        line = (f"async_ckpt {name}: {ASYNC_EPOCHS} epochs in {wall:.2f} s; train epochs "
+                f"{', '.join(f'{s:.3f}' + (' (write in flight)' if b else '') for s, b in epochs)} s; ")
+        if trainer.writer is None:
+            line += f"saves on the training thread {', '.join(f'{s:.3f}' for s in saves)} s = {sum(saves):.2f} s"
+        else:
+            st = trainer.writer.stats
+            line += (f"training thread blocked in saves {st['blocked_s']:.3f} s (submits "
+                     f"{', '.join(f'{s:.3f}' for s in saves)} s, backpressure and the final drain included); "
+                     f"writer {', '.join(f'{s:.3f}' for s in st['task_s'])} s per task, {st['submitted']} submitted, "
+                     f"{st['collapsed']} collapsed; peak pinned host {trainer.writer.snapshots.peak_pinned_bytes / 1e9:.3f} GB")
+        log(line + f"; launches B1 {launches[0]}, B2 {launches[1]} (expected {want}) [{card}]")
+        runs[name] = (history, trainer, config, launches)
+    (h_sync, t_sync, c_sync, _), (h_async, t_async, c_async, launches) = runs["sync"], runs["async"]
+    skip = ("save_dir", "async_checkpoint")
+    same = {"history": h_sync == h_async, "params": same_params(t_sync, t_async)}
+    for name in ("latest", "best"):
+        a, b = (torch.load(train_checkpoint_path(c.save_dir, name), map_location="cpu", weights_only=True)
+                for c in (c_sync, c_async))
+        same[name] = same_tree(a, b, skip)
+    a, b = (torch.load(os.path.join(c.save_dir, "best.pth"), map_location="cpu", weights_only=True)
+            for c in (c_sync, c_async))
+    same["best.pth"] = same_tree(a, b, skip)
+    log(f"async_ckpt: async equal to sync (tensors bitwise, meta but save_dir/async_checkpoint): {same} [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"the asynchronous run differs from the synchronous one: {same}")
+    del t_sync
+    torch.cuda.empty_cache()
+
+    killed = c_async.replace(save_dir=os.path.join(work, "ack_killed"), num_epochs=2)
+    Trainer(killed, device=device).train()
+    resumed = Trainer(killed.replace(num_epochs=ASYNC_EPOCHS, resume=True), device=device)
+    again = resumed.train()
+    equal = resumed.start_epoch == 2 and again == h_async and same_params(resumed, t_async)
+    log(f"async_ckpt: killed after epoch 2 and resumed from the async latest, bitwise equal to the "
+        f"uninterrupted run: {equal} [{card}]")
+    if not equal:
+        raise AssertionError("the resumed asynchronous run differs from the uninterrupted one")
+    del resumed, t_async
+    torch.cuda.empty_cache()
+
+    # a writer that cannot write: save_dir under a regular file
+    blocker = os.path.join(work, "ack_blocker")
+    with open(blocker, "w") as f:
+        f.write("not a directory\n")
+    failing = c_async.replace(save_dir=os.path.join(blocker, "ckpt"), num_epochs=1)
+    try:
+        Trainer(failing, device=device).train()
+    except OSError as e:
+        log(f"async_ckpt: a writer that cannot write surfaced from train(): {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("a failing checkpoint writer did not surface from train()")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ingest(work: str, server, device, card: str):
+    """``device_ingest`` over the serve cases with the seeded base-64 model:
+    the device stack against the host path's bf16 stack (max |d| at most one
+    bf16 step at 1.0), the masks against the host path's (equal except
+    where the host p is within UNDECIDED_P of the threshold), 18 B1 per
+    forward; then warm run_once of the profile phase's four 128^3 cases,
+    host and device ingest in turns (host, device, device, host): vol/s, the
+    card's idle share, host decode and normalize ms per case, the ingest's
+    device ms. Returns the device-ingest server run's B1 launches."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.infer.serve import PredictionServer
+    from pcmseg_tpu_torch.ops.kernels import conv3d
+
+    inbox = os.path.join(work, "inbox")
+    host = server.predictor
+    dev_server = PredictionServer(server.config.replace(device_ingest=True), os.path.join(work, "model.pth"), inbox,
+                                  os.path.join(work, "ingest_outbox"), explicit=["device_ingest"], min_age=0.0,
+                                  device=device)
+    dev = dev_server.predictor
+    if not dev.config.device_ingest:
+        raise AssertionError("the device-ingest server lost device_ingest")
+    forwards = expected_forwards(dev.config)
+    conv3d.launches = 0
+    stats = dev_server.run_once()
+    launches = conv3d.launches
+    log(f"ingest: device-ingest run_once over {len(CASES)} cases: stats {stats}, launches B1 {launches} "
+        f"(expected {18 * forwards}) [{card}]")
+    if stats["done"] != len(CASES) or launches != 18 * forwards:
+        raise AssertionError(f"device-ingest serving: stats {stats}, {launches} launches")
+    for case_id in sorted(CASES):
+        case = os.path.join(inbox, case_id)
+        want = host._upload(host.read_case(case)[0])  # the host path's bf16 stack on the card
+        got = dev.load_case(case)[0]
+        if got.device != want.device or got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{case_id}: device stack {got.dtype} {tuple(got.shape)} on {got.device}")
+        diff = (got.float() - want.float()).abs()
+        p_host = host.predict_probs(want)[..., 0]
+        m_host, m_dev = host.predict_mask(want), dev.predict_mask(got)
+        undecided = np.abs(p_host - dev.config.threshold) <= UNDECIDED_P
+        differ = m_host != m_dev
+        log(f"  {case_id} {CASES[case_id]}: stack max|d| {diff.max().item():.4g} (bound {INGEST_MAX_DIFF:.4g}), "
+            f"elements differing {(diff > 0).float().mean().item():.4f}; mask voxels differing {int(differ.sum())}, "
+            f"all within {UNDECIDED_P} of the threshold: {not (differ & ~undecided).any()} "
+            f"({int(undecided.sum())} voxels there) [{card}]")
+        if diff.max().item() > INGEST_MAX_DIFF or (differ & ~undecided).any():
+            raise AssertionError(f"{case_id}: device ingest disagrees with the host path")
+
+    # warm run_once of four 128^3 cases, host and device ingest in turns
+    prof_inbox = os.path.join(work, "profile_inbox")
+    case = os.path.join(prof_inbox, "case_0")
+    servers = {"host": server, "device": dev_server}
+    rates = {"host": [], "device": []}
+    for turn in ("host", "device", "device", "host"):
+        s = servers[turn]
+        s.input_root, s.output_dir = prof_inbox, os.path.join(work, f"ingest_{turn}")
+        shutil.rmtree(s.output_dir, ignore_errors=True)
+        done = s.stats["done"]
+        t0 = time.perf_counter()
+        s.run_once()
+        rates[turn].append(PROFILE_CASES / (time.perf_counter() - t0))
+        if s.stats["done"] - done != PROFILE_CASES or s.stats["failed"]:
+            raise AssertionError(f"warm {turn}-ingest run_once: stats {s.stats}, {done} done before")
+    idle = {}
+    for turn, s in servers.items():
+        shutil.rmtree(s.output_dir, ignore_errors=True)
+        _, wall, idle[turn], busy = idle_share(s.run_once)
+        idle[turn] = (idle[turn], busy, wall)
+
+    def median_host_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[n // 2]
+
+    decode = median_host_ms(lambda: dev.read_case(case))
+    decode_normalize = median_host_ms(lambda: host.read_case(case))
+    raw = dev.read_case(case)[0]
+    _, ingest_wall, _, ingest_busy = idle_share(lambda: dev.ingest(raw))
+    log(f"ingest, warm run_once of {PROFILE_CASES} 128^3 cases (host, device, device, host): host ingest "
+        f"{', '.join(f'{r:.3f}' for r in rates['host'])} vol/s, device ingest "
+        f"{', '.join(f'{r:.3f}' for r in rates['device'])} vol/s; profiled run_once: card idle "
+        f"{idle['host'][0]:.3f} (host, {idle['host'][1]:.1f} busy ms of {idle['host'][2] * 1e3:.1f}) and "
+        f"{idle['device'][0]:.3f} (device, {idle['device'][1]:.1f} of {idle['device'][2] * 1e3:.1f}) [{card}]")
+    log(f"ingest, one 128^3 case: host decode {decode:.1f} ms, decode + normalize {decode_normalize:.1f} ms "
+        f"(normalize {decode_normalize - decode:.1f} ms); device ingest (pinned upload of 5 int16 channels, "
+        f"percentiles, scale, cast, stack) {ingest_busy:.2f} device-ms in {ingest_wall * 1e3:.1f} ms [{card}]")
+    del dev_server
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -1989,6 +2377,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--profiled"]:  # the profiling phase's own process
+        print(json.dumps(profiled_runs(sys.argv[2], torch.device("cuda"))))
+        return 0
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.data.native import get_native_lib
     from pcmseg_tpu_torch.ops.kernels import build
@@ -2026,6 +2417,9 @@ def main() -> int:
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
     serve_launches, server = serve(work, config, device, card)
     profile(work, server, card)
+    profiling_launches = profiling_phase(work, device, card)
+    async_launches = async_ckpt(work, device, card)
+    ingest_launches = ingest(work, server, device, card)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
@@ -2038,7 +2432,8 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[0], "serve": serve_launches, "cv": cv_launches[0],
                                  "validate": validate_launches[0],
                                  **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0],
-                                 "kclass": kclass_launches[0]},
+                                 "kclass": kclass_launches[0], "profiling": profiling_launches[0],
+                                 "async_ckpt": async_launches[0], "ingest": ingest_launches},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2052,7 +2447,8 @@ def main() -> int:
             "launches": train_launches[1],
             "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1],
                                  **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1],
-                                 "kclass": kclass_launches[1]},
+                                 "kclass": kclass_launches[1], "profiling": profiling_launches[1],
+                                 "async_ckpt": async_launches[1]},
             **dw,
         },
     ]}))

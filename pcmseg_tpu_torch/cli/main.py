@@ -12,6 +12,10 @@ given ``--device cpu``).
     python -m pcmseg_tpu_torch serve --model_path m.pth --input_root IN --output_dir OUT --once
     python -m pcmseg_tpu_torch export --model_path CKPT/best.pt --output m.pth
     python -m pcmseg_tpu_torch warm-cache --data_dir DATA --cache_dir CACHE
+
+``train``, ``predict`` and ``serve`` take ``--profile DIR``: a
+``torch.profiler`` trace of a few steps, of the prediction, or of the first
+served cases, written into DIR as a Chrome / TensorBoard trace.
 """
 
 from __future__ import annotations
@@ -76,14 +80,16 @@ def cmd_validate(args) -> int:
 
 def cmd_predict(args) -> int:
     from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.utils.profiling import trace
 
     config, explicit = _config_from_args(args, with_explicit=True)
     predictor = Predictor(config, args.model_path, explicit=explicit, device=args.device)
-    out = predictor.predict_and_save(
-        args.input_dir,
-        os.path.join(args.output_dir, args.output_name),
-        threshold=args.threshold,
-    )
+    with trace(config.profile_dir, predictor.device):
+        out = predictor.predict_and_save(
+            args.input_dir,
+            os.path.join(args.output_dir, args.output_name),
+            threshold=args.threshold,
+        )
     print(f"saved: {out}")
     return 0
 
@@ -106,14 +112,17 @@ def cmd_serve(args) -> int:
         min_age=min_age,
         device=args.device,
     )
-    if args.once:
-        stats = server.run_once()
-    else:
-        stats = server.run(
-            poll_interval=args.poll_interval,
-            max_polls=args.max_polls,
-            stop_file=args.stop_file,
-        )
+    try:
+        if args.once:
+            stats = server.run_once()
+        else:
+            stats = server.run(
+                poll_interval=args.poll_interval,
+                max_polls=args.max_polls,
+                stop_file=args.stop_file,
+            )
+    finally:
+        server.close()  # write a --profile trace whose window is still open
     waiting = f", {stats['waiting']} waiting" if stats.get("waiting") else ""
     print(f"served: {stats['done']} done, {stats['failed']} failed{waiting}")
     if stats["failed"]:

@@ -21,9 +21,9 @@ def _add_postprocess_flags(p: argparse.ArgumentParser) -> None:
     # Dice effect is measurable before it's turned on in serving
     p.add_argument("--device_ingest", action="store_true", default=None,
                    help="normalize+cast+stack each case's modalities ON "
-                        "the device (raw int16 upload) instead of the "
-                        "host C++ pass — cuts steady serving host time "
-                        "(see BENCH.md round-4 'Device ingest')")
+                        "the device (raw upload in each volume's own "
+                        "dtype, int16 at 2 B/voxel) instead of the host "
+                        "C++ pass; the host then only decodes")
     p.add_argument("--postprocess", choices=["none", "largest_cc"],
                    default=None,
                    help="filter thresholded masks: largest_cc keeps only "
@@ -71,9 +71,10 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--async_checkpoint", action="store_true", default=None,
-        help="overlap checkpoint writes with the next epoch "
-             "(disables state donation — pair with --remat 1 at large "
-             "target sizes; see config.async_checkpoint)",
+        help="overlap checkpoint writes with the next epoch: a writer "
+             "thread saves a snapshot of the state held in pinned host "
+             "memory (two snapshots at most, ~1.1 GB each for the "
+             "base-64 model)",
     )
     p.add_argument(
         "--remat", type=int, choices=[0, 1], default=None,
@@ -174,8 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prompt for training mode (reference "
                          "train_bph_optimized.py:509-522 parity shim)")
     pt.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a jax.profiler trace of the first few "
-                         "training steps into DIR")
+                    help="write a torch.profiler trace (Chrome / "
+                         "TensorBoard *.pt.trace.json) of --profile_steps "
+                         "training steps, from the second on, into DIR")
     pt.add_argument("--profile_steps", type=int, default=None)
 
     # validate
@@ -237,7 +239,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(+0.000-0.002) — use when chasing the last "
                          "margin, not in routine serving")
     pp.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a jax.profiler trace of the prediction "
+                    help="write a torch.profiler trace (Chrome / "
+                         "TensorBoard *.pt.trace.json) of the prediction "
                          "into DIR")
     pp.add_argument("--no_ema", action="store_true",
                     help="serve the live (non-averaged) weights of an "
@@ -281,8 +284,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="8-way flip-ensemble test-time augmentation (8x "
                          "compute; see predict --help for when it pays)")
     ps.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a jax.profiler trace of the first few "
-                         "served cases into DIR")
+                    help="write a torch.profiler trace (Chrome / "
+                         "TensorBoard *.pt.trace.json) of the first "
+                         "--profile_steps served cases into DIR")
     ps.add_argument("--profile_steps", type=int, default=None,
                     help="number of cases the serve trace covers "
                          "(default: config.profile_steps)")

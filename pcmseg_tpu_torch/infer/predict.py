@@ -9,6 +9,13 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
   * one H2D copy per case from pinned host memory, in bf16 when the net
     computes in bf16 (it casts at its first layer, so rounding on the host
     changes nothing);
+  * or, with ``config.device_ingest`` (``predict.py:151-215, 476-559``),
+    device ingest: the host only decodes (and resamples) each modality
+    (``load_multimodal_raw``); each present channel goes to the device raw,
+    in its own dtype, through pinned memory, and the normalization
+    (``normalize_intensity``'s semantics), the cast and the channel stack
+    run there (``Predictor.ingest``). The stack then passes through the
+    rest of the path untouched, tiled or not;
   * BN folded into the convs (``config.fold_bn``), so all 18 3³ convs run
     the CUDA kernel with bias and ReLU fused; a GroupNorm model is served
     unfolded (per-sample statistics cannot fold): each conv runs the kernel
@@ -27,14 +34,17 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
     postprocessing on the host (``infer/postprocess.py``, per class for a
     label map), atomic write.
 
-Options of the JAX Predictor that this package has not ported raise
-``NotImplementedError`` at construction. ``pallas_inference`` is a TPU
-switch and is ignored: on CUDA the hand-written kernel is the only conv.
+``spatial_parallel``, the one option of the JAX Predictor that this package
+has not ported, raises ``NotImplementedError`` at construction.
+``profile_dir`` is read by the callers (``cli/main.py``'s ``predict`` and
+the server), not by the Predictor. ``pallas_inference`` is a TPU switch and
+is ignored: on CUDA the hand-written kernel is the only conv.
 """
 
 from __future__ import annotations
 
 import glob
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -70,6 +80,60 @@ def _find_volume_file(directory: str) -> Optional[str]:
     return None
 
 
+def load_multimodal_raw(
+    case_dir: str,
+    modalities: Sequence[str] = DEFAULT_MODALITIES,
+    handle_missing: str = "zero_fill",
+    coregister: bool = False,
+) -> Tuple[List[Optional[np.ndarray]], Volume]:
+    """Case dir with per-modality subdirs → (per-modality raw (D, H, W)
+    arrays in their own dtypes, reference Volume): decoded and resampled,
+    not normalized, cast or stacked (the device ingest's host half).
+
+    The first modality found is the spatial reference; the others are
+    resampled onto its grid shape if they differ. A missing modality is
+    None under ``zero_fill``, the reference's array under ``duplicate``,
+    and a ``FileNotFoundError`` under ``skip``. Modalities are read on one
+    thread each, capped at the host's cores (decode and resampling release
+    the GIL).
+    """
+    decode_threads = max(1, min(len(modalities), os.cpu_count() or 1))
+
+    def read(m: str) -> Optional[Volume]:
+        path = _find_volume_file(os.path.join(case_dir, m))
+        return read_volume(path) if path else None
+
+    with ThreadPoolExecutor(max_workers=decode_threads) as pool:
+        volumes: Dict[str, Optional[Volume]] = dict(zip(modalities, pool.map(read, modalities)))
+        reference = next((volumes[m] for m in modalities if volumes[m] is not None), None)
+        if reference is None:
+            raise FileNotFoundError(
+                f"no modality volumes found under {case_dir!r} (expected subdirs {list(modalities)})"
+            )
+
+        def channel(m: str) -> Optional[np.ndarray]:
+            vol = volumes[m]
+            if vol is None:
+                if handle_missing == "zero_fill":
+                    return None
+                if handle_missing != "duplicate":
+                    raise FileNotFoundError(
+                        f"modality {m!r} missing in {case_dir!r} (strategy={handle_missing})"
+                    )
+                vol = reference
+            if coregister:
+                from pcmseg_tpu_torch.data.resample import grids_match, resample_to_grid
+
+                if not grids_match(vol, reference):
+                    vol = resample_to_grid(vol, reference, mode="linear")
+            data = vol.data
+            if data.shape != reference.shape:
+                data = resample_array(data, reference.shape, mode="linear")
+            return np.ascontiguousarray(data)
+
+        return list(pool.map(channel, modalities)), reference
+
+
 def load_multimodal_images(
     case_dir: str,
     modalities: Sequence[str] = DEFAULT_MODALITIES,
@@ -80,48 +144,18 @@ def load_multimodal_images(
 ) -> Tuple[np.ndarray, Volume]:
     """Case dir with per-modality subdirs → ((D, H, W, C) float32, reference Volume).
 
-    The first modality found is the spatial reference; the others are
-    resampled onto its grid shape if they differ. Modalities are read and
-    normalized on one thread each, capped at the host's cores (decode,
-    resampling and the native normalize release the GIL); each thread owns
-    its own channel of the stack.
+    The channels of :func:`load_multimodal_raw`, each normalized as in
+    training on one thread (the native normalize releases the GIL) into its
+    own channel of the stack; a zero-filled modality stays 0.
     """
-    decode_threads = max(1, min(len(modalities), os.cpu_count() or 1))
-
-    def read(m: str) -> Optional[Volume]:
-        path = _find_volume_file(os.path.join(case_dir, m))
-        return read_volume(path) if path else None
-
-    with ThreadPoolExecutor(max_workers=decode_threads) as pool:
-        volumes: Dict[str, Optional[Volume]] = dict(zip(modalities, pool.map(read, modalities)))
-    reference = next((volumes[m] for m in modalities if volumes[m] is not None), None)
-    if reference is None:
-        raise FileNotFoundError(
-            f"no modality volumes found under {case_dir!r} (expected subdirs {list(modalities)})"
-        )
-
+    channels, reference = load_multimodal_raw(case_dir, modalities, handle_missing, coregister)
     n_ch = len(modalities)
     out = np.empty((*reference.shape, n_ch), dtype=np.float32)
 
-    def fill(i: int, m: str) -> None:
-        vol = volumes[m]
-        if vol is None:
-            if handle_missing == "zero_fill":
-                out[..., i] = 0
-                return
-            if handle_missing != "duplicate":
-                raise FileNotFoundError(
-                    f"modality {m!r} missing in {case_dir!r} (strategy={handle_missing})"
-                )
-            vol = reference
-        if coregister:
-            from pcmseg_tpu_torch.data.resample import grids_match, resample_to_grid
-
-            if not grids_match(vol, reference):
-                vol = resample_to_grid(vol, reference, mode="linear")
-        data = vol.data
-        if data.shape != reference.shape:
-            data = resample_array(data, reference.shape, mode="linear")
+    def fill(i: int, data: Optional[np.ndarray]) -> None:
+        if data is None:
+            out[..., i] = 0
+            return
         fused = False
         if normalize in ("percentile", "minmax"):
             p_lo, p_hi = norm_percentiles if normalize == "percentile" else (0.0, 100.0)
@@ -129,9 +163,64 @@ def load_multimodal_images(
         if not fused:  # zscore / none, exotic dtypes, or no native library
             out[..., i] = normalize_intensity(data, normalize, norm_percentiles)
 
-    with ThreadPoolExecutor(max_workers=decode_threads) as pool:
-        list(pool.map(lambda im: fill(*im), enumerate(modalities)))
+    with ThreadPoolExecutor(max_workers=max(1, min(n_ch, os.cpu_count() or 1))) as pool:
+        list(pool.map(fill, range(n_ch), channels))
     return out, reference
+
+
+# raw dtypes that PyTorch has no CUDA arithmetic for, or that JAX's ingest
+# (x64 off) casts on the host: converted to float32 there, before the upload
+# (exact for uint16; 4 B/voxel on the wire where uint16 took 2, float64 8)
+_HOST_FLOAT32 = {np.dtype(t) for t in ("uint16", "uint32", "uint64", "float64")}
+
+
+def _wire_array(a: np.ndarray) -> np.ndarray:
+    """A raw channel as it is uploaded: native byte order, C-contiguous,
+    float32 for the dtypes of ``_HOST_FLOAT32``."""
+    if a.dtype.newbyteorder("=") in _HOST_FLOAT32:
+        return np.ascontiguousarray(a, dtype=np.float32)
+    return np.ascontiguousarray(a, dtype=a.dtype.newbyteorder("="))
+
+
+def percentiles(x: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
+    """``np.percentile(x, qs)`` with linear interpolation, as
+    ``jnp.percentile`` computes it, in fp32 on x's device at any size
+    (``torch.quantile`` refuses more than 2**24 elements): the sorted
+    values at ``floor`` and ``ceil`` of ``q / 100 * (n - 1)``, weighted by
+    the fractional part."""
+    flat = torch.sort(x.reshape(-1).float()).values
+    n = flat.numel()
+    out = []
+    for q in qs:
+        # positions and weights on the host (no device tensor is built from
+        # them, so nothing waits for the card); the weights are fp32 values
+        pos = min(max(float(q) / 100.0 * (n - 1), 0.0), n - 1.0)
+        w_hi = np.float32(pos - math.floor(pos))
+        w_lo = np.float32(1.0) - w_hi
+        out.append(flat[math.floor(pos)] * float(w_lo) + flat[math.ceil(pos)] * float(w_hi))
+    return torch.stack(out)
+
+
+def normalize_on_device(x: torch.Tensor, mode: str, norm_percentiles: Sequence[float]) -> torch.Tensor:
+    """``normalize_intensity`` (``data/resample.py``) on x's device, in fp32:
+    clip to the percentiles (or min/max) and scale to [0, 1], with 0 where
+    the span is 0; or zero mean, unit variance (the std taken as 1 where it
+    is 0); or the values as they are."""
+    x = x.float()
+    if mode == "none":
+        return x
+    if mode == "zscore":
+        std = x.std(correction=0)
+        return (x - x.mean()) / torch.where(std > 0, std, torch.ones_like(std))
+    if mode == "percentile":
+        lo, hi = percentiles(x, norm_percentiles)
+        x = torch.minimum(torch.maximum(x, lo), hi)
+    elif mode == "minmax":
+        lo, hi = x.min(), x.max()
+    else:
+        raise ValueError(f"unknown normalize mode: {mode!r}")
+    denom = hi - lo
+    return torch.where(denom > 0, (x - lo) / denom, torch.zeros_like(x))
 
 
 def expand_model_paths(checkpoint_path) -> List[str]:
@@ -159,10 +248,6 @@ def unported_options(config: Config) -> List[str]:
     refused = []
     if config.spatial_parallel > 1:
         refused.append(f"spatial_parallel={config.spatial_parallel}")
-    if config.device_ingest:
-        refused.append("device_ingest")
-    if config.profile_dir:
-        refused.append("profile_dir (profiling)")
     return refused
 
 
@@ -248,9 +333,12 @@ class Predictor:
             total = p if total is None else total + p
         return total / len(self.models)
 
-    def _upload(self, image: np.ndarray) -> torch.Tensor:
+    def _upload(self, image) -> torch.Tensor:
         """Host array → device tensor in the compute dtype; on CUDA through
-        pinned memory, one H2D copy."""
+        pinned memory, one H2D copy. A tensor (the device-ingested stack)
+        passes through as it is."""
+        if isinstance(image, torch.Tensor):
+            return image.to(self.device, self.dtype)
         host = torch.from_numpy(np.ascontiguousarray(image))
         if self.device.type != "cuda":
             return host.to(self.dtype)
@@ -259,11 +347,13 @@ class Predictor:
         return pinned.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
-    def _predict_probs_device(self, image: np.ndarray) -> torch.Tensor:
-        """(D, H, W, K) fp32 probabilities on the device."""
-        image = np.asarray(image)
+    def _predict_probs_device(self, image) -> torch.Tensor:
+        """(D, H, W, K) fp32 probabilities on the device, from a host array
+        or the device-ingested stack."""
+        if not isinstance(image, torch.Tensor):
+            image = np.asarray(image)
         if image.ndim != 4:
-            raise ValueError(f"expected (D,H,W,C), got {image.shape}")
+            raise ValueError(f"expected (D,H,W,C), got {tuple(image.shape)}")
         x = self._upload(image)
         ws = self.config.window_size
         needs_tiling = self.config.sliding_window or any(
@@ -286,22 +376,23 @@ class Predictor:
             )
         return self._sw_fns[key](x)
 
-    def predict_probs(self, image: np.ndarray) -> np.ndarray:
+    def predict_probs(self, image) -> np.ndarray:
         """(D, H, W, C) image → (D, H, W, K) probabilities (sigmoid, or
         softmax over the K classes)."""
         return self._predict_probs_device(image).cpu().numpy()
 
     @torch.inference_mode()
-    def predict_probs_batch(self, images: np.ndarray) -> np.ndarray:
+    def predict_probs_batch(self, images) -> np.ndarray:
         """(N, D, H, W, C) window-sized batch → (N, D, H, W, K)
         probabilities, whole-volume (no tiling): for callers whose inputs
         already fit one window, as ensemble validation's target_size cases."""
-        images = np.asarray(images)
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
         if images.ndim != 5:
-            raise ValueError(f"expected (N,D,H,W,C), got {images.shape}")
+            raise ValueError(f"expected (N,D,H,W,C), got {tuple(images.shape)}")
         return self._apply(self._upload(images)).cpu().numpy()
 
-    def predict_mask(self, image: np.ndarray, threshold: Optional[float] = None) -> np.ndarray:
+    def predict_mask(self, image, threshold: Optional[float] = None) -> np.ndarray:
         """(D, H, W, C) image → (D, H, W) uint8 mask, thresholded on the
         device (for a K-class head the argmax label map of the fp32
         probabilities, ``threshold`` unused), then postprocessed as the
@@ -314,24 +405,69 @@ class Predictor:
             mask = (probs[..., 0] > threshold).to(torch.uint8)
         return postprocess_from_config(mask.cpu().numpy(), self.config)
 
-    def load_case(
-        self, case_dir: str, handle_missing: Optional[str] = None
-    ) -> Tuple[np.ndarray, Volume]:
-        """Host decode + normalize of one case dir → (image, reference Volume)."""
+    def read_case(self, case_dir: str, handle_missing: Optional[str] = None):
+        """The host half of one case's ingest, with no device work (the
+        server's prefetch thread runs it): (the raw channels under
+        ``device_ingest``, else the normalized (D, H, W, C) float32 stack;
+        the reference Volume)."""
         cfg = self.config
+        handle_missing = handle_missing or cfg.missing_strategy
+        if cfg.device_ingest:
+            return load_multimodal_raw(
+                case_dir, modalities=cfg.modalities, handle_missing=handle_missing, coregister=cfg.coregister
+            )
         return load_multimodal_images(
             case_dir,
             modalities=cfg.modalities,
-            handle_missing=handle_missing or cfg.missing_strategy,
+            handle_missing=handle_missing,
             normalize=cfg.normalize,
             norm_percentiles=cfg.norm_percentiles,
             coregister=cfg.coregister,
         )
 
+    def ingest(self, image):
+        """The device half: under ``device_ingest`` the raw channels of
+        ``read_case`` → the normalized stack on the device; a host stack
+        is returned as it is (``_upload`` copies it)."""
+        return self._device_ingest_stack(image) if self.config.device_ingest else image
+
+    def load_case(self, case_dir: str, handle_missing: Optional[str] = None):
+        """One case dir → (image, reference Volume): a host array, or under
+        ``device_ingest`` the (D, H, W, C) stack on the device
+        (``predict.py:538-559``)."""
+        image, reference = self.read_case(case_dir, handle_missing)
+        return self.ingest(image), reference
+
+    def _device_ingest_stack(self, channels: Sequence[Optional[np.ndarray]]) -> torch.Tensor:
+        """Raw per-modality host arrays (None: zero-filled) → the normalized
+        (D, H, W, C) stack on the device in the compute dtype
+        (``predict.py:476-536``). Each present channel is uploaded in its own
+        dtype (int16: the 2 B/voxel of the bf16 wire) through pinned memory,
+        then normalized in fp32, cast and stacked there."""
+        shape = next(c.shape for c in channels if c is not None)
+        cfg = self.config
+        stack = []
+        for c in channels:
+            if c is None:
+                stack.append(torch.zeros(shape, dtype=torch.float32, device=self.device))
+                continue
+            a = _wire_array(c)
+            if self.device.type == "cuda":
+                # numpy copies the (possibly read-only) array into pinned memory
+                dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+                pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+                pinned.numpy()[...] = a
+                x = pinned.to(self.device, non_blocking=True)
+            else:
+                x = torch.from_numpy(a if a.flags.writeable else a.copy())
+            stack.append(normalize_on_device(x, cfg.normalize, cfg.norm_percentiles))
+        return torch.stack(stack, dim=-1).to(self.dtype)
+
     def predict_case(
         self, case_dir: str, handle_missing: Optional[str] = None
     ) -> Tuple[np.ndarray, Volume]:
-        """Case dir → (probabilities (D, H, W, K), reference Volume)."""
+        """Case dir → (probabilities (D, H, W, K), reference Volume), through
+        the host or the device ingest as the config says."""
         image, reference = self.load_case(case_dir, handle_missing)
         return self.predict_probs(image), reference
 

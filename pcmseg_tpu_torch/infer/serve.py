@@ -11,11 +11,18 @@ and the Predictor stays resident:
   * a case whose output exists is done (outputs are written atomically);
     a case that fails ``max_attempts`` times is quarantined;
   * the next case's host decode runs on a one-ahead thread while the
-    current case runs on the device.
+    current case runs on the device; with ``device_ingest`` that thread
+    only decodes (``Predictor.read_case``) and the normalization, cast and
+    stack run on the device from the serving thread (``Predictor.ingest``,
+    ``serve.py:157-202``);
+  * ``profile_dir``: a one-shot ``torch.profiler`` trace of the first
+    ``profile_steps`` cases served, from case 0 (a server may only ever see
+    one case), each case a ``case:{id}`` span; ``close()`` (the CLI calls it
+    on every exit path, ``run`` at its end) writes a window that is still
+    open (``serve.py:69-78, 191-235``).
 
 Fold ensembles, TTA, postprocessing and K-class heads (uint8 label maps of
-class ids) come with the Predictor. Profiling
-(``profile_dir``) is not ported yet and is refused.
+class ids) come with the Predictor.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Dict, List, Optional
 from pcmseg_tpu_torch.core.config import Config
 from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.infer.predict import Predictor, _find_volume_file
+from pcmseg_tpu_torch.utils.profiling import StepTraceController, annotate
 
 
 class PredictionServer:
@@ -63,6 +71,10 @@ class PredictionServer:
         self._attempts: Dict[str, int] = {}
         self.stats = {"done": 0, "failed": 0, "skipped": 0, "waiting": 0}
         self.latencies: Dict[str, float] = {}
+        self._tracer = StepTraceController(
+            config.profile_dir, self.predictor.device, start_step=0, n_steps=config.profile_steps
+        )
+        self._cases_seen = 0
 
     # -- discovery -------------------------------------------------------------
 
@@ -118,17 +130,23 @@ class PredictionServer:
     # -- serving ---------------------------------------------------------------
 
     def _load(self, case_id: str):
-        """Host decode + normalize of one case (thread-safe, no device work)."""
-        return self.predictor.load_case(os.path.join(self.input_root, case_id))
+        """The host half of one case's ingest (thread-safe, no device work):
+        decode and normalize, or under ``device_ingest`` decode only."""
+        return self.predictor.read_case(os.path.join(self.input_root, case_id))
 
     def process_case(self, case_id: str, preloaded=None) -> Optional[str]:
         """Segment one case. ``preloaded`` may be a Future from ``_load``;
         its exception, if any, counts against this case only."""
         t0 = time.perf_counter()
+        self._tracer.on_step(self._cases_seen)
+        self._cases_seen += 1
         try:
             image, reference = preloaded.result() if preloaded is not None else self._load(case_id)
-            mask = self.predictor.predict_mask(image)
-            out = self.predictor.save_mask(mask, reference, self._output_path(case_id))
+            # under device_ingest: the raw channels -> the stack on the device
+            image = self.predictor.ingest(image)
+            with annotate(f"case:{case_id}"):
+                mask = self.predictor.predict_mask(image)
+                out = self.predictor.save_mask(mask, reference, self._output_path(case_id))
         except Exception as e:  # one bad case must not stop the server
             first_failure = case_id not in self._attempts
             self._attempts[case_id] = self._attempts.get(case_id, 0) + 1
@@ -146,6 +164,11 @@ class PredictionServer:
         self.latencies[case_id] = time.perf_counter() - t0
         self.log.info("case %s → %s (%.2fs)", case_id, out, self.latencies[case_id])
         return out
+
+    def close(self) -> None:
+        """Write the profiler trace if its window is still open (a run
+        shorter than the window). Idempotent."""
+        self._tracer.close()
 
     def run_once(self) -> Dict[str, int]:
         """Segment every pending case once; returns the running stats."""
@@ -185,4 +208,5 @@ class PredictionServer:
             except KeyboardInterrupt:
                 self.log.info("interrupted; exiting")
                 break
+        self.close()
         return dict(self.stats)

@@ -72,7 +72,8 @@ def make_sliding_window(
     overlap: float = 0.5,
     blend: str = "gaussian",
     tile_batch: int = 1,
-    device="cpu",
+    *,
+    device,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``run(image) -> (D, H, W, n_out)`` fp32 probabilities on ``device``.
 
@@ -80,6 +81,8 @@ def make_sliding_window(
     (B, wd, wh, ww, n_out) probabilities. ``image`` is (D, H, W, C) on
     ``device``; it may be smaller than one window (it is zero-padded and
     the result cropped).
+    ``device`` has no default: a caller that forgets it fails instead of
+    tiling on the CPU.
     """
     if not 0.0 <= overlap < 1.0:
         raise ValueError(f"overlap must be in [0, 1), got {overlap}")

@@ -20,10 +20,15 @@ run time (``ops/kernels/conv3d.py::pack_weight``).
 
 from __future__ import annotations
 
+import copy
 import os
 import re
 import shutil
-from typing import Any, Dict, Mapping, Optional, Tuple
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,17 +164,28 @@ def train_checkpoint_path(directory: str, name: str) -> str:
     return os.path.join(os.path.abspath(os.path.expanduser(directory)), name + TRAIN_SUFFIX)
 
 
-def save_train_checkpoint(directory: str, name: str, state, meta: Optional[dict] = None) -> str:
-    """Write ``state`` (a ``train.steps.TrainState``) and ``meta`` under
-    ``{directory}/{name}.pt``; returns the path."""
-    payload = {
+def train_payload(state) -> dict:
+    """What a training checkpoint holds of ``state`` (a
+    ``train.steps.TrainState``): the model and optimizer state dicts, the
+    EMA and the step, as the live tensors."""
+    return {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema": state.ema,
         "step": state.step,
-        "meta": meta or {},
     }
+
+
+def write_train_checkpoint(directory: str, name: str, payload: dict, meta: Optional[dict] = None) -> str:
+    """Write ``payload`` (``train_payload`` of a state, or a ``Snapshot``'s)
+    and ``meta`` under ``{directory}/{name}.pt``; returns the path."""
+    payload = {**payload, "meta": meta or {}}
     return _atomic_write(train_checkpoint_path(directory, name), lambda tmp: torch.save(payload, tmp))
+
+
+def save_train_checkpoint(directory: str, name: str, state, meta: Optional[dict] = None) -> str:
+    """Write ``state`` and ``meta`` under ``{directory}/{name}.pt``; returns the path."""
+    return write_train_checkpoint(directory, name, train_payload(state), meta)
 
 
 def copy_train_checkpoint(directory: str, src: str, dst: str) -> str:
@@ -240,3 +256,238 @@ def prune_periodic(directory: str, keep: int, tag: str = "") -> None:
             found.append((int(epoch), entry))
     for _, entry in sorted(found)[:-keep]:
         os.remove(os.path.join(directory, entry))
+
+
+# ---- asynchronous checkpoints --------------------------------------------------
+#
+# The port's state is mutated in place by the next step (JAX's is immutable,
+# so its writer can hold the submitted state as it is): a thread that saved
+# the live tensors while the next epoch trains would write a file that mixes
+# two epochs. The writer therefore saves a ``Snapshot``: the payload copied
+# into host buffers owned by the snapshot, on a side stream (D2H into pinned
+# memory on CUDA), and the training stream waits for that copy before its
+# next kernel (the next forward updates the BN running statistics in place,
+# the next optimizer step the parameters and moments). The buffers of at
+# most ``max_sets`` snapshots exist and are reused epoch after epoch.
+
+
+def _leaves(tree, out: list) -> list:
+    """The tensors of a nested dict/list/tuple payload, in traversal order."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    return out
+
+
+def _rebuild(tree, tensors):
+    """``tree`` with its tensors taken in order from the iterator ``tensors``
+    and everything else copied; a state dict keeps its type and its
+    ``_metadata`` (module versions), as ``torch.save`` of the live one does."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, dict):
+        out = type(tree)((k, _rebuild(v, tensors)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):
+            out._metadata = copy.deepcopy(tree._metadata)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, tensors) for v in tree)
+    return copy.deepcopy(tree)
+
+
+@dataclass
+class Snapshot:
+    """A training state's checkpoint payload in host buffers. ``ready`` is
+    the CUDA event of its D2H copy (None when nothing was on a card)."""
+
+    payload: dict
+    buffers: List[torch.Tensor]
+    layout: tuple
+    ready: Optional["torch.cuda.Event"] = None
+
+    def wait(self) -> None:
+        """Block until the copy has landed in the host buffers."""
+        if self.ready is not None:
+            self.ready.synchronize()
+
+
+class SnapshotPool:
+    """Host buffers for snapshots of one trainer's state on ``device``, at
+    most ``max_sets`` sets, each reused once its snapshot is released.
+
+    A tensor on a CUDA device is copied into pinned memory on a side stream
+    that first waits for the training stream; the training stream then
+    waits on the copy's event, so its next kernel cannot change a tensor
+    before it is copied. The host is not blocked. CPU tensors (Adam's step
+    counts; every tensor of a CPU run) are copied at once.
+    """
+
+    def __init__(self, device, max_sets: int = 2):
+        self.device = torch.device(device)
+        self.max_sets = max_sets
+        self._free: List[Tuple[tuple, List[torch.Tensor]]] = []
+        self._n_sets = 0
+        self._lock = threading.Lock()
+        self._stream = None
+        self.pinned_bytes = 0  # pinned bytes of the sets that exist
+        self.peak_pinned_bytes = 0
+
+    @staticmethod
+    def _pinned(layout: tuple, buffers: List[torch.Tensor]) -> int:
+        return sum(b.numel() * b.element_size() for b, (_, _, kind) in zip(buffers, layout) if kind == "cuda")
+
+    def _acquire(self, layout: tuple) -> List[torch.Tensor]:
+        with self._lock:
+            for i, (lay, buffers) in enumerate(self._free):
+                if lay == layout:
+                    return self._free.pop(i)[1]
+            if self._n_sets >= self.max_sets:
+                raise RuntimeError(f"more than {self.max_sets} snapshots outstanding")
+            self._n_sets += 1
+        buffers = [
+            torch.empty(shape, dtype=dtype, pin_memory=kind == "cuda") for shape, dtype, kind in layout
+        ]
+        with self._lock:
+            self.pinned_bytes += self._pinned(layout, buffers)
+            self.peak_pinned_bytes = max(self.peak_pinned_bytes, self.pinned_bytes)
+        return buffers
+
+    def take(self, state) -> Snapshot:
+        """Snapshot of ``state``'s ``train_payload``."""
+        payload = train_payload(state)
+        leaves = _leaves(payload, [])
+        layout = tuple((tuple(t.shape), t.dtype, t.device.type) for t in leaves)
+        buffers = self._acquire(layout)
+        ready = None
+        if any(t.is_cuda for t in leaves):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                for b, t in zip(buffers, leaves):
+                    b.copy_(t.detach(), non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+            main.wait_event(ready)
+        else:
+            for b, t in zip(buffers, leaves):
+                b.copy_(t.detach())
+        return Snapshot(_rebuild(payload, iter(buffers)), buffers, layout, ready)
+
+    def release(self, snapshot: Snapshot) -> None:
+        """Return a snapshot's buffers for reuse (its payload is void after)."""
+        with self._lock:
+            self._free.append((snapshot.layout, snapshot.buffers))
+
+    def clear(self) -> None:
+        """Drop the free buffer sets."""
+        with self._lock:
+            for layout, buffers in self._free:
+                self._n_sets -= 1
+                self.pinned_bytes -= self._pinned(layout, buffers)
+            self._free.clear()
+
+
+class AsyncCheckpointWriter:
+    """One writer thread for a trainer's checkpoints
+    (``pcmseg_tpu/train/trainer.py:357-455, 854-868``).
+
+    ``submit(kind, state, write)`` snapshots ``state`` and queues
+    ``write(payload)`` on the thread:
+
+      * latest-wins collapse: a queued, not yet started task of the same
+        ``kind`` is cancelled ('latest' onto 'latest', 'best' (best +
+        latest) onto 'best'); 'periodic' tasks never collapse;
+      * backpressure: at most ``max_outstanding`` snapshots are in flight;
+        the caller waits for the oldest beyond that;
+      * a writer failure is raised by the next ``submit``/``drain`` and by
+        ``drain(wait=True)``; ``close()`` completes queued writes and never
+        cancels them.
+
+    ``stats``: tasks submitted, tasks collapsed, seconds the caller was
+    blocked (backpressure and draining included), and each task's writer
+    seconds; ``snapshots.peak_pinned_bytes`` the pinned memory held.
+    """
+
+    def __init__(self, device, max_outstanding: int = 2):
+        self.max_outstanding = max_outstanding
+        self.snapshots = SnapshotPool(device, max_outstanding)
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._tasks: List[Tuple[str, Future, Snapshot]] = []
+        self.stats = {"submitted": 0, "collapsed": 0, "blocked_s": 0.0, "task_s": []}
+
+    def _run(self, snapshot: Snapshot, write: Callable[[dict], Any]) -> None:
+        t0 = time.perf_counter()
+        try:
+            snapshot.wait()
+            write(snapshot.payload)
+        finally:
+            self.snapshots.release(snapshot)
+            self.stats["task_s"].append(time.perf_counter() - t0)
+
+    def in_flight(self) -> int:
+        """Tasks queued or running."""
+        return sum(not f.done() for _, f, _ in self._tasks)
+
+    def submit(self, kind: str, state, write: Callable[[dict], Any]) -> None:
+        t0 = time.perf_counter()
+        if kind != "periodic":
+            kept = []
+            for k, f, snap in self._tasks:
+                if k == kind and f.cancel():
+                    self.snapshots.release(snap)
+                    self.stats["collapsed"] += 1
+                    continue
+                kept.append((k, f, snap))
+            self._tasks = kept
+        while True:
+            live = [f for _, f, _ in self._tasks if not f.done()]
+            if len(live) < self.max_outstanding:
+                break
+            live[0].result()  # the oldest; re-raises a writer failure
+        self.drain()
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="pcmseg_ckpt")
+        snapshot = self.snapshots.take(state)
+        self._tasks.append((kind, self._pool.submit(self._run, snapshot, write), snapshot))
+        self.stats["submitted"] += 1
+        self.stats["blocked_s"] += time.perf_counter() - t0
+
+    def drain(self, wait: bool = False) -> None:
+        """Raise the first writer failure among finished tasks and forget
+        them; with ``wait``, block until every task has finished first."""
+        t0 = time.perf_counter()
+        still, error = [], None
+        for k, f, snap in self._tasks:
+            if f.cancelled():
+                continue
+            if wait or f.done():
+                if error is None:
+                    error = f.exception()
+                else:
+                    f.exception()
+            else:
+                still.append((k, f, snap))
+        self._tasks = still
+        if wait:
+            self.stats["blocked_s"] += time.perf_counter() - t0
+        if error is not None:
+            raise error
+
+    def close(self) -> None:
+        """Complete the queued writes, stop the thread and drop the buffers
+        (idempotent; the writer starts again at the next ``submit``)."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+        for _, f, _ in self._tasks:
+            if not f.cancelled():
+                f.exception()  # consumed: a failure was raised by drain, or the caller is failing already
+        self._tasks.clear()
+        self.snapshots.clear()

@@ -134,10 +134,6 @@ def unported_training_options(config) -> List[str]:
     for name in ("data_parallel", "spatial_parallel", "tensor_parallel"):
         if getattr(config, name) > 1:
             refused.append(f"{name}={getattr(config, name)}")
-    if config.async_checkpoint:
-        refused.append("async_checkpoint")
-    if config.profile_dir:
-        refused.append("profile_dir (profiling)")
     return refused
 
 

@@ -30,14 +30,26 @@ The streamed path of the JAX trainer:
     their batches spread over the epoch's steps (Bresenham) from a host-RAM
     memo (``RamCaseCache``); otherwise every epoch streams. The trainer logs
     which way it went. With augmentation off a cached epoch equals a
-    streamed one: the same plan, the same batch bytes.
+    streamed one: the same plan, the same batch bytes;
+  * ``async_checkpoint`` (``trainer.py:357-455``): each epoch's checkpoints
+    are written by one writer thread while the next epoch trains, from a
+    snapshot of the state in reused pinned host buffers
+    (``train/checkpoints.py``: ``AsyncCheckpointWriter``), with latest-wins
+    collapse of queued writes, at most two snapshots in flight, writer
+    failures raised at the next epoch boundary and at the end of training,
+    and ``close()`` on every exit path of ``train()``;
+  * ``profile_dir`` (``trainer.py:346-349``): a ``torch.profiler`` trace of
+    ``profile_steps`` steps from the second step on, one window, closed at
+    the epoch's end if the epoch ends first (``utils/profiling.py``).
 
-Options of the JAX trainer that are not ported raise ``NotImplementedError``
-naming the option.
+The parallel options of the JAX trainer (data, spatial and tensor
+parallelism) are not ported and raise ``NotImplementedError`` naming the
+option.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from typing import Dict, List, Optional, Sequence
@@ -52,16 +64,19 @@ from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan,
 from pcmseg_tpu_torch.infer.predict import resolve_device
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
 from pcmseg_tpu_torch.train.checkpoints import (
+    AsyncCheckpointWriter,
     copy_train_checkpoint,
     load_train_checkpoint,
     prune_periodic,
     save_pth,
-    save_train_checkpoint,
     serving_state_dict,
     train_checkpoint_path,
+    train_payload,
+    write_train_checkpoint,
 )
 from pcmseg_tpu_torch.train.schedule import EarlyStopping, make_scheduler
 from pcmseg_tpu_torch.utils.logging import StepTimer, get_logger
+from pcmseg_tpu_torch.utils.profiling import StepTraceController
 from pcmseg_tpu_torch.train.steps import (
     create_train_state,
     make_eval_step,
@@ -184,6 +199,8 @@ class Trainer:
         self.best_monitor = float("inf")
         self.start_epoch = 0
         self.timer = StepTimer(warmup_steps=1)
+        self.tracer = StepTraceController(config.profile_dir, self.device, n_steps=config.profile_steps)
+        self.writer = AsyncCheckpointWriter(self.device) if config.async_checkpoint else None
         if config.resume:
             self._try_resume()
 
@@ -270,19 +287,39 @@ class Trainer:
         }
 
     def _save_epoch(self, epoch: int, monitor: float, is_best: bool) -> None:
+        """This epoch's checkpoints, written now or (``async_checkpoint``)
+        by the writer thread from a snapshot while the next epoch trains.
+        One serialization per epoch: 'best' and 'epoch_{e}' are file copies
+        of 'latest', and ``best.pth`` holds the same state's serving weights."""
         cfg = self.config
         meta = self._meta(epoch, monitor)
-        # one serialization per epoch; 'best' and 'epoch_{e}' are file copies
-        latest = self._ckpt_name("latest")
-        save_train_checkpoint(cfg.save_dir, latest, self.state, meta)
-        if is_best:
-            best = self._ckpt_name("best")
-            copy_train_checkpoint(cfg.save_dir, latest, best)
-            weights = serving_state_dict(self.state.model.state_dict(), self.state.ema, cfg.ema_eval)
-            save_pth(os.path.join(cfg.save_dir, best + ".pth"), weights, cfg.to_dict())
-        if cfg.save_frequency and (epoch + 1) % cfg.save_frequency == 0:
-            copy_train_checkpoint(cfg.save_dir, latest, self._ckpt_name(f"epoch_{epoch + 1}"))
-            prune_periodic(cfg.save_dir, cfg.keep_checkpoints, self.tag)
+        if self.writer is not None:
+            meta = copy.deepcopy(meta)  # the live history grows under the writer
+        latest, best = self._ckpt_name("latest"), self._ckpt_name("best")
+        periodic = bool(cfg.save_frequency) and (epoch + 1) % cfg.save_frequency == 0
+
+        def write(payload: dict) -> None:
+            write_train_checkpoint(cfg.save_dir, latest, payload, meta)
+            if is_best:
+                copy_train_checkpoint(cfg.save_dir, latest, best)
+                weights = serving_state_dict(payload["model"], payload["ema"], cfg.ema_eval)
+                save_pth(os.path.join(cfg.save_dir, best + ".pth"), weights, cfg.to_dict())
+            if periodic:
+                copy_train_checkpoint(cfg.save_dir, latest, self._ckpt_name(f"epoch_{epoch + 1}"))
+                prune_periodic(cfg.save_dir, cfg.keep_checkpoints, self.tag)
+
+        if self.writer is None:
+            write(train_payload(self.state))
+            return
+        self.writer.submit("periodic" if periodic else ("best" if is_best else "latest"), self.state, write)
+
+    def close(self) -> None:
+        """Complete queued checkpoint writes and release the writer thread,
+        and stop a profiler window still open (idempotent; ``train()`` calls
+        it on every exit path)."""
+        self.tracer.close()
+        if self.writer is not None:
+            self.writer.close()
 
     def _try_resume(self) -> None:
         path = train_checkpoint_path(self.config.save_dir, self._ckpt_name("latest"))
@@ -370,6 +407,7 @@ class Trainer:
         pending = None  # (step_idx, loss) of the step in flight
         err = 0
         for step_idx in range(n_total):
+            self.tracer.on_step(step_idx)
             err += n_s
             if err >= n_total:
                 err -= n_total
@@ -390,6 +428,7 @@ class Trainer:
             self.timer.stop(items=n)
         if pending is not None:
             self._consume_loss(*pending, losses, n_total)
+        self.tracer.close()  # flush if the epoch was shorter than the window
         return float(np.mean(losses)) if losses else float("nan")
 
     def train_epoch(self) -> float:
@@ -402,6 +441,7 @@ class Trainer:
         n_total = len(self.train_loader)
         pending = None  # (step_idx, loss) of the step in flight
         for step_idx, batch in enumerate(self._device_batches(self.train_loader)):
+            self.tracer.on_step(step_idx)
             self.timer.start()
             metrics = self._train_step(self.state, batch)
             if pending is not None:
@@ -410,6 +450,7 @@ class Trainer:
             self.timer.stop(items=int(batch["n_real"]))
         if pending is not None:
             self._consume_loss(*pending, losses, n_total)
+        self.tracer.close()  # flush if the epoch was shorter than the window
         return float(np.mean(losses)) if losses else float("nan")
 
     def validate_epoch(self) -> Dict[str, float]:
@@ -438,6 +479,14 @@ class Trainer:
         }
 
     def train(self) -> Dict[str, List[float]]:
+        try:
+            return self._train()
+        finally:
+            # on every exit path (a non-finite loss, a writer failure): the
+            # queued writes complete and the writer thread is released
+            self.close()
+
+    def _train(self) -> Dict[str, List[float]]:
         cfg = self.config
         self.log.info(
             "training %d cases (val: %s) for %d epochs, batch %d on %s",
@@ -468,6 +517,7 @@ class Trainer:
                     epoch, train_loss, self.scheduler.lr, self.timer.items_per_sec,
                 )
             set_learning_rate(self.state, self.scheduler.step(monitor))
+            self._drain_saves()  # a writer failure surfaces at the epoch boundary
             # best_monitor moves before the latest save, so a resume from
             # latest(e) never re-awards 'best' to a worse later epoch
             is_best = monitor < self.best_monitor
@@ -477,4 +527,11 @@ class Trainer:
             if cfg.early_stopping and self.early_stopping.step(monitor):
                 self.log.info("early stopping at epoch %d", epoch)
                 break
+        self._drain_saves(wait=True)
         return self.history
+
+    def _drain_saves(self, wait: bool = False) -> None:
+        """Raise an asynchronous write's failure; with ``wait``, first let
+        every queued write finish."""
+        if self.writer is not None:
+            self.writer.drain(wait)

@@ -143,14 +143,14 @@ def test_tile_groups_pad_and_skip():
         return torch.ones(*tiles.shape[:4], 1)
 
     run = sliding_window.make_sliding_window(
-        apply_fn, (20, 16, 16), 2, 1, window_size=(16, 16, 16), overlap=0.5, tile_batch=4
+        apply_fn, (20, 16, 16), 2, 1, window_size=(16, 16, 16), overlap=0.5, tile_batch=4, device="cpu"
     )
     out = run(torch.zeros(20, 16, 16, 2))
     assert calls == [2]  # two tiles along D, one group of two
     np.testing.assert_allclose(out.numpy(), 1.0, rtol=1e-6)
     calls.clear()
     run = sliding_window.make_sliding_window(
-        apply_fn, (44, 16, 16), 2, 1, window_size=(16, 16, 16), overlap=0.5, tile_batch=2
+        apply_fn, (44, 16, 16), 2, 1, window_size=(16, 16, 16), overlap=0.5, tile_batch=2, device="cpu"
     )
     assert len(sliding_window.tile_starts((44, 16, 16), (16, 16, 16), 0.5)) == 5
     np.testing.assert_allclose(run(torch.zeros(44, 16, 16, 2)).numpy(), 1.0, rtol=1e-6)
@@ -237,11 +237,20 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys, monkeypat
     ],
 )
 def test_unported_options_are_refused(slice_setup, overrides, names):
-    """Each option the port has not ported is refused by name. K-class
-    serving, ported since, passes that gate, and the binary checkpoint then
-    fails the 3-class model's strict load (tests/test_torch_kclass.py serves
-    K-class checkpoints against JAX)."""
+    """Each option the port has not ported (``spatial_parallel``) is refused
+    by name. K-class serving, ported since, passes that gate, and the binary
+    checkpoint then fails the 3-class model's strict load
+    (tests/test_torch_kclass.py serves K-class checkpoints against JAX);
+    device ingest and profiling, ported since, build a Predictor that has
+    them (tests/test_torch_ingest.py, tests/test_torch_profiling.py)."""
     config, pth, _, _ = slice_setup
+    if names in ("device_ingest", "profile_dir"):
+        assert unported_options(config.replace(**overrides)) == []
+        predictor = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
+        assert getattr(predictor.config, names) == overrides[names]
+        image, _ = predictor.load_case(os.path.join(slice_setup[2], "case_a"))
+        assert isinstance(image, torch.Tensor) == (names == "device_ingest")
+        return
     if names == "n_classes":
         assert unported_options(config.replace(**overrides)) == []
         with pytest.raises(RuntimeError, match="outc"):

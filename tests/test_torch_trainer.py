@@ -119,11 +119,20 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
     ids=lambda o: next(iter(o)),
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option):
-    """Each option the port has not ported is refused by name; deep
-    supervision, K-class heads and GroupNorm, ported since, build a trainer
-    whose model has them (tests/test_torch_deep_supervision.py,
-    tests/test_torch_kclass.py and tests/test_torch_groupnorm.py hold them
-    against JAX)."""
+    """Each option the port has not ported (the parallel ones) is refused by
+    name; deep supervision, K-class heads, GroupNorm, asynchronous
+    checkpoints and profiling, ported since, build a trainer that has them
+    (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
+    tests/test_torch_groupnorm.py, tests/test_torch_async_checkpoint.py and
+    tests/test_torch_profiling.py hold them against JAX)."""
+    if "async_checkpoint" in option:
+        trainer = Trainer(_config(tree, tmp_path, **option), device="cpu")
+        assert trainer.writer is not None and trainer.writer.snapshots.device == torch.device("cpu")
+        return
+    if "profile_dir" in option:
+        trainer = Trainer(_config(tree, tmp_path, **option), device="cpu")
+        assert trainer.tracer.log_dir == "prof" and trainer.tracer.device == torch.device("cpu")
+        return
     if "deep_supervision" in option:
         assert Trainer(_config(tree, tmp_path, **option), device="cpu").state.model.deep_supervision
         return
