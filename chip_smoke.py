@@ -147,7 +147,26 @@ kernel on them:
      within 1e-2 of the threshold, 18 B1 per forward; then warm
      ``run_once`` of the four 128³ cases with host and device ingest in
      turns (host, device, device, host): vol/s, the card's idle share,
-     host decode and normalize ms per case and the ingest's device ms.
+     host decode and normalize ms per case and the ingest's device ms;
+ 17. dp: data parallelism across processes on the one card. (a) two ranks
+     (``chip_smoke.py --dp-rank R 2 PORT WORK gloo``) in a gloo group on CUDA
+     tensors (NCCL refuses two ranks on one device), 3 flagship steps from
+     the same seeded weights and batches, each rank on its 2 whole
+     microbatches (layout (b)), against the same steps in this process
+     without a group: losses, grad norms and states bitwise equal across
+     the ranks; the first loss and the running statistics after step 1
+     bitwise equal to one process's, step 1's grad norm within
+     DP_GRAD_NORM_RTOL and every parameter after it within DP_PARAM_ATOL
+     of it; the later losses within DP_LOSS_RTOL; exactly 2 x (35 B1, 18 B2)
+     launches per rank and step; each rank's step time and gradient
+     all-reduce time (361.2 MB through the host: gloo's numbers on a shared
+     card, not NCCL's). (b) a one-rank NCCL group (``--dp-trainer 0 1 PORT
+     WORK nccl g1``): a 2-epoch flagship Trainer over the cache phase's 12 cases
+     from the device cache sharded over the one rank, with asynchronous
+     checkpoints, every collective through NCCL; exact launch counts,
+     latest and best.pth, the history bitwise equal to the same run without
+     a group. ``python3 chip_smoke.py --only dp`` runs the kernel
+     checks and this phase alone.
 
 Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
@@ -155,9 +174,9 @@ before doing anything. The last lines are the kernels' JSON record (per
 kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
-``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt`` and
-``ingest`` those of the phases of those names), the nvidia-smi line, and
-the device JSON.
+``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt``, ``ingest``,
+``dp_a`` (both ranks) and ``dp_b`` those of the phases of those names),
+the nvidia-smi line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -2365,6 +2384,330 @@ def ingest(work: str, server, device, card: str):
 
 
 
+# ---- data parallelism across processes (slice 8) --------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 3
+DP_SEED = 11
+# (a) against the one-process steps: a rank's microbatches run the same
+# forward and backward as one process's, so the first step's loss and the
+# running statistics after it are bitwise equal; the gradient sums differ
+# only in fp32 rounding ((g0+g1)+(g2+g3) against ((g0+g1)+g2)+g3), so step
+# 1's grad norm lies within DP_GRAD_NORM_RTOL of one process's and every
+# parameter after it within DP_PARAM_ATOL (measured 2.05e-8, NVIDIA H100
+# 80GB HBM3, 700.00 W). Adam's first update is lr·g/(|g| + eps), about
+# lr·sign(g) whatever the gradient's scale, so the grad norm is what holds
+# the scale and the parameters what hold the signs. From the second step
+# the two are bf16 trainings whose weights differ by Adam's ±lr on
+# noise-level gradients: their parameters drift apart by about lr a step
+# (measured 3.28e-4 after step 3), which no bound tighter than Adam's own
+# separates from a wrong gradient, so they are reported; the losses, which
+# move 3e-3 to 5e-3 a step, are held within DP_LOSS_RTOL (measured 1.89e-6)
+DP_GRAD_NORM_RTOL = 1e-5
+DP_PARAM_ATOL = 1e-6
+DP_LOSS_RTOL = 2e-5
+DP_EPOCHS = 2
+
+
+def dp_batches(device):
+    """DP_STEPS flagship batches (4 x 128^3 x 5 bf16, blob labels), the same
+    in every process: drawn on the card from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(DP_SEED)
+    n = TRAIN["batch_size"]
+    label = blob_label((SIZE,) * 3, device)
+    return [{"image": torch.randn((n, SIZE, SIZE, SIZE, 5), generator=g, device=device).to(torch.bfloat16),
+             "label": torch.stack([label.roll(8 * i, 1) for i in range(n)])} for _ in range(DP_STEPS)]
+
+
+def dp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
+    """One process of a data-parallel group (``chip_smoke.py --dp-rank RANK
+    WORLD PORT WORK BACKEND``): gloo with every rank on card 0, or NCCL
+    with one card a rank; the flagship model from the seed, DP_STEPS steps
+    on this rank's rows of the batches (layout (b): 4 / WORLD whole
+    microbatches of one sample), each step timed (synchronised) and its
+    launches counted, the gradient all-reduce timed inside it; the state
+    after the first step and the final one written to
+    WORK/dp_rank{RANK}_{1,final}.pt."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import collectives, multihost
+    from pcmseg_tpu_torch.parallel.sharding import Mesh, shard_batch, shard_state
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+    device = multihost.local_device() if backend == "nccl" else torch.device("cuda", 0)
+    multihost.establish_collectives()
+    config = get_config(base_features=BASE_FEATURES, **TRAIN)
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    shard_state(model, Mesh(world))
+    state = create_train_state(model, config)
+    step = make_train_step(model, config)
+    reduce_s, real_reduce = [], collectives.GradientAllReduce.__call__
+
+    def timed_reduce(self):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        real_reduce(self)
+        torch.cuda.synchronize(device)
+        reduce_s.append(time.perf_counter() - t)
+
+    collectives.GradientAllReduce.__call__ = timed_reduce
+    out = {"rank": rank, "device": str(device), "loss": [], "grad_norm": [], "step_s": [], "launches": []}
+    for batch in dp_batches(device):
+        local = shard_batch(batch, Mesh(world), rank=rank, accum=config.accum_steps)
+        torch.cuda.synchronize(device)
+        conv3d.launches = conv3d_grad.launches = 0
+        t = time.perf_counter()
+        metrics = step(state, local)
+        out["loss"].append(float(metrics["loss"]))
+        torch.cuda.synchronize(device)
+        out["step_s"].append(time.perf_counter() - t)
+        out["launches"].append([conv3d.launches, conv3d_grad.launches])
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        if len(out["loss"]) in (1, DP_STEPS):
+            name = "1" if len(out["loss"]) == 1 else "final"
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       os.path.join(work, f"dp_rank{rank}_{name}.pt"))
+    out.update(reduce_s=reduce_s, rows=len(local["image"]),
+               reduce_bytes=4 * sum(p.numel() for p in model.parameters() if p.requires_grad))
+    multihost.shutdown()
+    return out
+
+
+def dp_trainer(rank: int, world: int, port: int, work: str, backend: str, name: str) -> dict:
+    """A flagship Trainer over the cache phase's 12 cases for DP_EPOCHS
+    epochs from the device cache (sharded over the ranks: every batch's
+    rows exchanged by an all-reduce) with asynchronous checkpoints
+    (barriers on the writer thread), as rank ``rank`` of a WORLD-rank group
+    of ``backend`` (``chip_smoke.py --dp-trainer ...``); with ``world`` 0,
+    the same without a group. Returns its history, wall time and launches."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import multihost
+    from pcmseg_tpu_torch.train.checkpoints import train_checkpoint_path
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    run = {"rank": rank}
+    if world:
+        multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+        multihost.establish_collectives()
+        import torch.distributed as dist
+
+        run["backend"] = dist.get_backend()
+    config = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "cache_data"),
+                        cache_dir=os.path.join(work, "preproc"), seed=0, save_dir=os.path.join(work, f"dp_{name}"),
+                        **{**TRAIN, "num_epochs": DP_EPOCHS, "async_checkpoint": True})
+    trainer = Trainer(config, device=multihost.local_device() if world else torch.device("cuda"))
+    steps = math.ceil(len(trainer.train_indices) / config.batch_size)
+    val_batches = math.ceil(len(trainer.val_indices) / config.batch_size)
+    micro = config.accum_steps // max(1, world) if world > 1 else config.accum_steps
+    run.update(sharded_cache=trainer._dcache is not None and trainer._dcache["rows"] is not None,
+               cached_rows=int(trainer._dcache["images"].shape[0]), collapse=trainer.writer.collapse,
+               mesh=trainer.mesh.shape)
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    run["history"] = trainer.train()
+    torch.cuda.synchronize()
+    # a rank runs `micro` of each step's microbatches and its share of each
+    # evaluation batch, which the eval step splits over the ranks
+    run.update(wall_s=time.perf_counter() - t0, launches=[conv3d.launches, conv3d_grad.launches],
+               want=[DP_EPOCHS * steps * micro * 35 + DP_EPOCHS * val_batches * 18, DP_EPOCHS * steps * micro * 18],
+               latest_epoch=int(torch.load(train_checkpoint_path(config.save_dir, "latest"),
+                                           weights_only=True)["meta"]["epoch"]),
+               best_pth=os.path.isfile(os.path.join(config.save_dir, "best.pth")))
+    if world:
+        multihost.shutdown()
+    return run
+
+
+def dp_reference(device):
+    """The dp steps in this process without a group: losses, grad norms,
+    step seconds and the states after the first and the last step (on the
+    host)."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    config = get_config(base_features=BASE_FEATURES, **TRAIN)
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    ref = {"loss": [], "grad_norm": [], "step_s": []}
+    for batch in dp_batches(device):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(state, batch)
+        ref["loss"].append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ref["step_s"].append(time.perf_counter() - t)
+        ref["grad_norm"].append(float(metrics["grad_norm"]))
+        if len(ref["loss"]) in (1, DP_STEPS):
+            ref["1" if len(ref["loss"]) == 1 else "final"] = {k: v.detach().cpu().clone()
+                                                              for k, v in model.state_dict().items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spawn_ranks(args_of, world: int, timeout: int = 900) -> list:
+    """``world`` processes of this script with ``args_of(rank)`` as
+    arguments, all at once; each one's last stdout line as JSON. Fails if
+    one exits non-zero or outlives ``timeout``; stops them all."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_of(r)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, stderr) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a process of the group exited {p.returncode}: {stderr[-3000:]}")
+    return [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in outs]
+
+
+def dp_steps(work: str, ref: dict, world: int, backend: str, card: str, what: str) -> list:
+    """``world`` ranks of ``backend`` through dp_rank, held against each
+    other and against ``ref`` (dp_reference); logs each rank's step and
+    all-reduce times. Returns the (B1, B2) launches of all ranks."""
+    import torch
+
+    port, t0 = free_port(), time.perf_counter()
+    ranks = spawn_ranks(lambda r: ["--dp-rank", str(r), str(world), str(port), work, backend], world)
+    wall = time.perf_counter() - t0
+    micro = TRAIN["accum_steps"] // world
+    per_step = [micro * 35, micro * 18]
+    note = "; gloo through the host on one shared card, not NCCL numbers" if backend == "gloo" else ""
+    compared = {}
+    for when in ("1", "final"):
+        states = [torch.load(os.path.join(work, f"dp_rank{r}_{when}.pt"), weights_only=True) for r in range(world)]
+        worst, beyond, stats_rel, stats_equal = 0.0, 0, 0.0, True
+        for k, want in ref[when].items():
+            got = states[0][k]
+            if "running" in k or "num_batches_tracked" in k:
+                stats_equal = stats_equal and torch.equal(got, want)
+                if "running" in k:
+                    stats_rel = max(stats_rel, float(((got - want).abs() / want.abs().clamp_min(1e-3)).max()))
+            else:
+                d = (got - want).abs()
+                worst, beyond = max(worst, float(d.max())), beyond + int((d > DP_PARAM_ATOL).sum())
+        compared[when] = dict(worst=worst, beyond=beyond, stats_rel=stats_rel, stats_equal=stats_equal,
+                              bitwise=all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in ref[when]))
+    first, final = compared["1"], compared["final"]
+    for r in ranks:
+        log(f"{what} rank {r['rank']} of {world} ({backend} on {r['device']}, {r['rows']} rows = {micro} whole "
+            f"microbatches a step): losses {r['loss']}, grad norms {r['grad_norm']}; step "
+            f"{', '.join(f'{s * 1e3:.1f}' for s in r['step_s'])} ms (the first cold); gradient all-reduce of "
+            f"{r['reduce_bytes'] / 1e6:.1f} MB fp32 {', '.join(f'{s * 1e3:.1f}' for s in r['reduce_s'])} ms; "
+            f"launches per step {r['launches']} (expected {per_step}) [{card}{note}]")
+    log(f"{what} one process, no group, the same steps: losses {ref['loss']}; step "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in ref['step_s'])} ms [{card}]; the ranks in {wall:.1f} s of processes")
+    for when, c, held in (("after step 1", first, "held"), (f"after step {DP_STEPS}", final, "reported")):
+        log(f"{what} {when}: ranks' states bitwise equal {c['bitwise']}; against one process: max |d param| "
+            f"{c['worst']:.3g} ({held}, bound {DP_PARAM_ATOL}; {c['beyond']} of {N_PARAMS} elements beyond it), "
+            f"running statistics bitwise equal {c['stats_equal']}, max rel {c['stats_rel']:.3g} [{card}]")
+    rel = max(abs(a - b) / b for a, b in zip(ranks[0]["loss"], ref["loss"]))
+    norm_rel = abs(ranks[0]["grad_norm"][0] - ref["grad_norm"][0]) / ref["grad_norm"][0]
+    log(f"{what} losses: ranks equal {all(r['loss'] == ranks[0]['loss'] for r in ranks)}, first equal to one "
+        f"process's {ranks[0]['loss'][0] == ref['loss'][0]}, max rel {rel:.3g} (bound {DP_LOSS_RTOL}); step 1's "
+        f"grad norm {ranks[0]['grad_norm'][0]!r} against one process's {ref['grad_norm'][0]!r}, rel {norm_rel:.3g} "
+        f"(bound {DP_GRAD_NORM_RTOL}) [{card}]")
+    if any(r["launches"] != [per_step] * DP_STEPS for r in ranks):
+        raise AssertionError(f"dp ranks launched {[r['launches'] for r in ranks]}, expected {per_step} a step")
+    if (any(r["loss"] != ranks[0]["loss"] or r["grad_norm"] != ranks[0]["grad_norm"] for r in ranks)
+            or not first["bitwise"] or not final["bitwise"]):
+        raise AssertionError("the dp ranks differ")
+    # the running statistics after the last step are reported, not held:
+    # they average bf16 forwards of weights that differ (above), and a
+    # near-zero statistic moves by a large fraction of itself (measured up
+    # to 4.12 relative to max(|x|, 1e-3))
+    if ranks[0]["loss"][0] != ref["loss"][0] or not first["stats_equal"]:
+        raise AssertionError(f"dp first step: loss {ranks[0]['loss'][0]} against {ref['loss'][0]}, running "
+                             f"statistics bitwise equal {first['stats_equal']}")
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"dp losses {ranks[0]['loss']} against one process {ref['loss']}")
+    if not norm_rel <= DP_GRAD_NORM_RTOL:
+        raise AssertionError(f"dp step 1 grad norm {ranks[0]['grad_norm'][0]} against one process "
+                             f"{ref['grad_norm'][0]}")
+    if not first["worst"] <= DP_PARAM_ATOL:
+        raise AssertionError(f"dp parameters after step 1 {first['worst']} from one process's")
+    return [sum(sum(s[i] for s in r["launches"]) for r in ranks) for i in (0, 1)]
+
+
+def dp_trainers(work: str, world: int, backend: str, card: str, what: str) -> list:
+    """dp_trainer as ``world`` ranks of ``backend``, then without a group:
+    histories bitwise equal across the ranks, and to the run without a
+    group for one rank (every collective an identity: measured so) or
+    within DP_LOSS_RTOL of it for several, exact launch counts, latest and
+    best.pth written. Returns the (B1, B2) launches of all ranks."""
+    if not os.path.isdir(os.path.join(work, "cache_data")):
+        from pcmseg_tpu_torch.core.config import get_config
+
+        write_train_tree(os.path.join(work, "cache_data"), get_config().modalities, CACHE_CASES, ext=".nii")
+    port, t0 = free_port(), time.perf_counter()
+    runs = spawn_ranks(lambda r: ["--dp-trainer", str(r), str(world), str(port), work, backend, f"g{world}"], world)
+    wall = time.perf_counter() - t0
+    alone = spawn_ranks(lambda r: ["--dp-trainer", "0", "0", "0", work, backend, f"alone{world}"], 1)[0]
+    ranks, walls = runs[0], ", ".join(f"{r['wall_s']:.1f}" for r in runs)
+    rel = max(abs(a - b) / abs(b) for k in ("train_loss", "val_loss")
+              for a, b in zip(ranks["history"][k], alone["history"][k]))
+    log(f"{what} {world}-rank {ranks['backend']} group, Trainer over {CACHE_CASES} cases x {DP_EPOCHS} epochs "
+        f"(cache sharded {ranks['sharded_cache']}, {[r['cached_rows'] for r in runs]} cases a rank, async "
+        f"checkpoints, collapse {ranks['collapse']}, mesh {ranks['mesh']}): history {json.dumps(ranks['history'])}, "
+        f"train() {walls} s; launches "
+        f"{[r['launches'] for r in runs]} (expected {ranks['want']} a rank); without a group "
+        f"{json.dumps(alone['history'])}, {alone['wall_s']:.1f} s; losses max rel diff {rel:.3g}; processes "
+        f"{wall:.1f} s [{card}]")
+    if ranks["backend"] != backend or not ranks["sharded_cache"] or ranks["collapse"] or alone["sharded_cache"]:
+        raise AssertionError(f"{world}-rank {backend} trainer: {ranks}")
+    if any(r["history"] != ranks["history"] for r in runs):
+        raise AssertionError("the trainer's ranks differ")
+    for r in runs + [alone]:
+        if r["launches"] != r["want"] or r["latest_epoch"] != DP_EPOCHS - 1 or not r["best_pth"]:
+            raise AssertionError(f"dp trainer: {r}")
+        if not all(math.isfinite(v) for vals in r["history"].values() for v in vals):
+            raise AssertionError(f"non-finite history {r['history']}")
+    if world == 1 and ranks["history"] != alone["history"]:
+        raise AssertionError(f"the one-rank group's history differs from no group's ({rel:.3g} apart)")
+    if not rel <= DP_LOSS_RTOL:
+        raise AssertionError(f"the {world}-rank group trains {rel:.3g} away from no group")
+    return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
+
+
+def dp_phase(work: str, device, card: str):
+    """Data parallelism across processes on the one card: (a) DP_RANKS
+    processes in a gloo group on CUDA tensors (NCCL refuses two ranks on
+    one device) through ``dp_steps`` (gloo's all-reduce goes through the
+    host: its times on a shared card are not NCCL's); (b) a one-rank NCCL
+    group through ``dp_trainers``. Returns the (B1, B2) launches of (a)'s
+    ranks and of (b)."""
+    ref = dp_reference(device)
+    launches_a = dp_steps(work, ref, DP_RANKS, "gloo", card, "dp (a)")
+    return launches_a, dp_trainers(work, 1, "nccl", card, "dp (b)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     import torch
 
@@ -2379,6 +2722,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--profiled"]:  # the profiling phase's own process
         print(json.dumps(profiled_runs(sys.argv[2], torch.device("cuda"))))
+        return 0
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the dp phase's steps
+        rank, world, port, work, backend = sys.argv[2:7]
+        print(json.dumps(dp_rank(int(rank), int(world), int(port), work, backend)))
+        return 0
+    if sys.argv[1:2] == ["--dp-trainer"]:  # a rank of the dp phase's Trainer
+        rank, world, port, work, backend, name = sys.argv[2:8]
+        print(json.dumps(dp_trainer(int(rank), int(world), int(port), work, backend, name)))
         return 0
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.data.native import get_native_lib
@@ -2404,6 +2755,11 @@ def main() -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    if sys.argv[1:] == ["--only", "dp"]:  # the dp phase alone, after the kernels' checks
+        dp_phase(work, device, card)
+        shutil.rmtree(work, ignore_errors=True)
+        print(card)
+        return 0
     train_launches = train(work, device, card)
     bn_step_s = time_steps(device, card)
     cv_launches, cv_dir = cross_validate(work, device, card)
@@ -2420,6 +2776,9 @@ def main() -> int:
     profiling_launches = profiling_phase(work, device, card)
     async_launches = async_ckpt(work, device, card)
     ingest_launches = ingest(work, server, device, card)
+    del server
+    torch.cuda.empty_cache()
+    dp_launches = dp_phase(work, device, card)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
@@ -2433,7 +2792,8 @@ def main() -> int:
                                  "validate": validate_launches[0],
                                  **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0],
                                  "kclass": kclass_launches[0], "profiling": profiling_launches[0],
-                                 "async_ckpt": async_launches[0], "ingest": ingest_launches},
+                                 "async_ckpt": async_launches[0], "ingest": ingest_launches,
+                                 "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2448,7 +2808,8 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[1], "cv": cv_launches[1], "validate": validate_launches[1],
                                  **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1],
                                  "kclass": kclass_launches[1], "profiling": profiling_launches[1],
-                                 "async_ckpt": async_launches[1]},
+                                 "async_ckpt": async_launches[1], "dp_a": dp_launches[0][1],
+                                 "dp_b": dp_launches[1][1]},
             **dw,
         },
     ]}))

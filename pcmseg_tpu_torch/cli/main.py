@@ -13,6 +13,14 @@ given ``--device cpu``).
     python -m pcmseg_tpu_torch export --model_path CKPT/best.pt --output m.pth
     python -m pcmseg_tpu_torch warm-cache --data_dir DATA --cache_dir CACHE
 
+Under torchrun (``WORLD_SIZE`` > 1), ``train`` joins the job's process
+group (``parallel.multihost.initialize``: NCCL, or gloo with ``--device
+cpu``) and trains data-parallel on ``cuda:LOCAL_RANK``, one card per
+process: the counterpart of the JAX CLI training data-parallel over every
+local device by default::
+
+    torchrun --nproc_per_node N -m pcmseg_tpu_torch train --data_dir DATA --save_dir CKPT
+
 ``train``, ``predict`` and ``serve`` take ``--profile DIR``: a
 ``torch.profiler`` trace of a few steps, of the prediction, or of the first
 served cases, written into DIR as a Chrome / TensorBoard trace.
@@ -42,7 +50,21 @@ def cmd_check(args) -> int:
     return 0 if report["ok"] else 1
 
 
+def _join_process_group(device: str):
+    """Under torchrun, join the job's process group; returns the device to
+    train on (this process's card, or the CPU)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    from pcmseg_tpu_torch.parallel import multihost
+
+    on_cpu = device == "cpu"
+    multihost.initialize(backend="gloo" if on_cpu else None)
+    multihost.establish_collectives()
+    return "cpu" if on_cpu else multihost.local_device()
+
+
 def cmd_train(args) -> int:
+    args.device = _join_process_group(args.device)
     if args.interactive:
         choice = input("select training mode: [1] single-split  [2] cross-validation: ").strip()
         args.cross_validation = choice == "2"

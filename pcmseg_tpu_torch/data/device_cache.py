@@ -27,8 +27,16 @@ Images are bf16 between transforms and each transform computes in fp32 and
 rounds back, as ``device_augment`` casts back to the image dtype after
 every operation. Labels follow the spatial transforms only.
 
-Not ported: ``cache_sharding``, ``_build_multiprocess`` and
-``_batch_constraint`` (meshes and multi-process runs; ROADMAP queue A item 7).
+Data-parallel processes (``cache_sharding``, ``_build_multiprocess``,
+``_batch_constraint``, ``device_cache.py:53, :172, :568``): the stacks' rows
+are split in contiguous blocks over the processes, as JAX shards the case
+axis over 'data' (padded up to a multiple of the process count), and each
+process decodes and holds only its block. Every process computes the same
+row indices for a step; the owners of the rows write them into a zeroed
+global batch, which one all-reduce of its bytes makes whole and bitwise
+on every process (``collectives.exchange``); every process then crops and
+augments the global batch from the same generator, as one process would,
+and keeps its own rows (``parallel.sharding.local_rows``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
 
 # stacks built since the count was last set to 0 (memo hits not counted)
 uploads = 0
@@ -59,21 +69,38 @@ def _memo_key(device: torch.device) -> str:
     return str(device)
 
 
+def cache_sharding(n_rows: int, shard: Optional[Tuple[int, int]]) -> range:
+    """The stack rows a process holds: the contiguous block ``index`` of
+    ``count`` over the rows padded up to a multiple of ``count``
+    (``device_cache.py:53``); all rows in one process."""
+    if shard is None:
+        return range(n_rows)
+    index, count = shard
+    per = -(-n_rows // count)
+    return range(min(n_rows, index * per), min(n_rows, (index + 1) * per))
+
+
 def build_device_cache(
-    dataset, device, num_workers: int = 4, indices: Optional[Sequence[int]] = None
+    dataset, device, num_workers: int = 4, indices: Optional[Sequence[int]] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, object]:
     """Decode every case (``num_workers`` threads, a bounded window ahead)
     and copy it into the stacks on ``device``: {'images': (N, D, H, W, C)
-    bf16, 'labels': (N, D, H, W, 1) uint8}. The wire image holds bf16
-    values, so the cast is exact. ``indices`` caches only that subset (row
-    r = base case ``indices[r]``, as JAX's ``_DatasetView`` maps it)."""
+    bf16, 'labels': (N, D, H, W, 1) uint8, 'rows': the stack rows held}.
+    The wire image holds bf16 values, so the cast is exact. ``indices``
+    caches only that subset (row r = base case ``indices[r]``, as JAX's
+    ``_DatasetView`` maps it). ``shard=(index, count)``: a data-parallel
+    process's block of the rows only (:func:`cache_sharding`), decoded by
+    this process alone."""
     global uploads
     device = torch.device(device)
     memo = getattr(dataset, "_device_cache_memo", {})
-    key = _memo_key(device)
+    key = _memo_key(device) if shard is None else (_memo_key(device), tuple(shard))
     if indices is None and key in memo:
         return memo[key]
-    rows = [int(i) for i in indices] if indices is not None else range(len(dataset))
+    cases = [int(i) for i in indices] if indices is not None else list(range(len(dataset)))
+    held = cache_sharding(len(cases), shard)
+    rows = [cases[r] for r in held]
     n = len(rows)
     images = labels = None
     window = 2 * max(1, num_workers)
@@ -92,7 +119,11 @@ def build_device_cache(
                 labels = torch.empty((n, *label.shape), dtype=torch.uint8, device=device)
             images[row].copy_(image)
             labels[row].copy_(label)
-    cache = {"images": images, "labels": labels}
+    if images is None:  # a process whose block is empty (more processes than cases) learns the shapes
+        sample = dataset.load_case(cases[0])
+        images = torch.empty((0, *sample["image"].shape), dtype=torch.bfloat16, device=device)
+        labels = torch.empty((0, *sample["label"].shape), dtype=torch.uint8, device=device)
+    cache = {"images": images, "labels": labels, "rows": held if shard is not None else None}
     uploads += 1
     if indices is None:
         try:
@@ -101,6 +132,30 @@ def build_device_cache(
         except AttributeError:
             pass
     return cache
+
+
+def gather_rows(images, labels, idx, held: Optional[range] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``idx`` of the stacks, on every process: from the stacks alone
+    in one process; when this process ``held`` only those rows of a
+    sharded cache, each process writes the rows it holds into a zeroed
+    global batch, which :func:`collectives.exchange` completes bitwise (one
+    all-reduce of the images' and labels' bytes)."""
+    idx = np.asarray(idx, np.int64)
+    if held is None:
+        rows = _on_device(idx, images.device)
+        return images.index_select(0, rows), labels.index_select(0, rows)
+    b, img_n, lab_n = len(idx), int(np.prod(images.shape[1:])), int(np.prod(labels.shape[1:]))
+    buf = torch.zeros(b * (2 * img_n + lab_n), dtype=torch.uint8, device=images.device)
+    out_img = buf[: 2 * b * img_n].view(torch.bfloat16).view(b, *images.shape[1:])
+    out_lab = buf[2 * b * img_n:].view(b, *labels.shape[1:])
+    mine = [i for i, r in enumerate(idx) if held.start <= r < held.stop]
+    if mine:
+        src = _on_device(idx[mine] - held.start, images.device)
+        dst = _on_device(np.asarray(mine, np.int64), images.device)
+        out_img.index_copy_(0, dst, images.index_select(0, src))
+        out_lab.index_copy_(0, dst, labels.index_select(0, src))
+    collectives.exchange(buf)
+    return out_img, out_lab
 
 
 # ---- host draws --------------------------------------------------------------
@@ -373,12 +428,11 @@ def device_random_crop(
     return torch.stack(out_img), torch.stack(out_lab)
 
 
-def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config):
-    """The batch of a cached train step: rows ``idx`` of the stacks, cropped
-    (``config.train_crop``), then augmented (``config.data_augmentation``),
-    on the stacks' device."""
-    rows = _on_device(np.asarray(idx, np.int64), images.device)
-    img, lab = images.index_select(0, rows), labels.index_select(0, rows)
+def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config, held: Optional[range] = None):
+    """The batch of a cached train step: rows ``idx`` of the stacks
+    (:func:`gather_rows`), cropped (``config.train_crop``), then augmented
+    (``config.data_augmentation``), on the stacks' device."""
+    img, lab = gather_rows(images, labels, idx, held)
     if config.train_crop is not None:
         img, lab = device_random_crop(
             img, lab, gen, config.train_crop,
@@ -399,29 +453,36 @@ def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config):
     return img, lab
 
 
-def make_cached_train_step(config, base_step: Callable) -> Callable:
+def _local(batch: dict, accum: int) -> dict:
+    """This process's rows (``parallel.sharding.shard_batch``) of a global batch."""
+    if not collectives.active():
+        return batch
+    return sharding.shard_batch(batch, sharding.Mesh(multihost.process_count()), accum=accum)
+
+
+def make_cached_train_step(config, base_step: Callable, held: Optional[range] = None) -> Callable:
     """(state, images, labels, idx, weights, gen) -> the metrics of
     ``base_step`` (the port's ``make_train_step``) on the batch that
-    :func:`cached_batch` gathers, crops and augments (``device_cache.py:584-621``)."""
+    :func:`cached_batch` gathers, crops and augments
+    (``device_cache.py:584-621``); in a data-parallel job, whose stacks hold
+    the rows ``held``, on this process's rows of it."""
 
     def step(state, images, labels, idx, weights, gen):
-        img, lab = cached_batch(images, labels, idx, gen, config)
-        return base_step(state, {"image": img, "label": lab, "weight": _on_device(weights, images.device)})
+        img, lab = cached_batch(images, labels, idx, gen, config, held)
+        batch = {"image": img, "label": lab, "weight": _on_device(weights, img.device)}
+        return base_step(state, _local(batch, config.accum_steps))
 
     return step
 
 
-def make_cached_eval_step(base_eval: Callable) -> Callable:
+def make_cached_eval_step(base_eval: Callable, held: Optional[range] = None) -> Callable:
     """(state, images, labels, idx, weights) -> the metrics of ``base_eval``
-    on rows ``idx`` of the stacks, not augmented (``device_cache.py:624-635``)."""
+    on rows ``idx`` of the stacks, not augmented (``device_cache.py:624-635``);
+    in a data-parallel job on this process's rows of them."""
 
     def step(state, images, labels, idx, weights):
-        rows = _on_device(np.asarray(idx, np.int64), images.device)
-        batch = {
-            "image": images.index_select(0, rows),
-            "label": labels.index_select(0, rows),
-            "weight": _on_device(weights, images.device),
-        }
-        return base_eval(state, batch)
+        img, lab = gather_rows(images, labels, idx, held)
+        batch = {"image": img, "label": lab, "weight": _on_device(weights, img.device)}
+        return base_eval(state, _local(batch, 1))
 
     return step

@@ -11,8 +11,11 @@ bf16 values. ``prefetch_to_device`` replaces
 pinned host memory and ``non_blocking`` copies on a side stream, ``size``
 batches ahead. ``RamCaseCache`` is the host-RAM memo of the partial device
 cache's streamed remainder (``loader.py:54-86``). There is no
-``drop_last`` and no multi-process sharding (``process_shard``): the port
-runs on one card.
+``drop_last``. ``process_shard=(index, count)`` makes a loader of one
+data-parallel process: it decodes and yields only that process's rows of
+every padded global batch (``loader.py:104-108, :190-195``), the rows
+``parallel.sharding.local_rows`` gives, so the weights of a ragged tail
+stay aligned across the processes however unevenly its real samples fall.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from pcmseg_tpu_torch.data.dataset import bf16_bits, bf16_round, from_bf16_bits
+from pcmseg_tpu_torch.parallel.sharding import local_rows
 
 
 def _padded_plan(idxs: List[int], pad_to: Optional[int]) -> Tuple[List[int], List[float]]:
@@ -87,7 +91,12 @@ class RamCaseCache:
 class DataLoader:
     """Iterates padded batches of a ``ProstateDataset`` (optionally
     index-restricted), decoding ``num_workers`` cases at a time ahead of the
-    consumer. Arguments as the JAX package's ``DataLoader``."""
+    consumer. Arguments as the JAX package's ``DataLoader``; with
+    ``process_shard=(index, count)``, only that process's rows of each
+    padded global batch, which ``count`` must divide, and with
+    ``accum_steps`` > 1 the rows of its microbatches in the layout of
+    ``parallel.sharding`` (a contiguous slice with ``accum_steps=1``, as
+    JAX's ``process_shard`` takes)."""
 
     def __init__(
         self,
@@ -99,6 +108,8 @@ class DataLoader:
         pad_to: Optional[int] = None,
         seed: int = 0,
         augmenter=None,
+        process_shard: Optional[Tuple[int, int]] = None,
+        accum_steps: int = 1,
     ):
         self.dataset = dataset
         self.augmenter = augmenter
@@ -113,10 +124,27 @@ class DataLoader:
         self.num_workers = max(1, int(num_workers))
         self.pad_to = pad_to
         self.seed = seed
+        self.process_shard = tuple(process_shard) if process_shard else None
+        self.accum_steps = max(1, int(accum_steps))
         self._epoch = 0
 
     def __len__(self) -> int:
         return (len(self.indices) + self.batch_size - 1) // self.batch_size
+
+    def plan(self, batch: List[int]) -> Tuple[List[int], List[float]]:
+        """(dataset indices, weights) of this process's rows of one batch,
+        padding included."""
+        picked, weights = _padded_plan(batch, self.pad_to)
+        if self.process_shard is None:
+            return picked, weights
+        index, count = self.process_shard
+        if len(picked) % count:
+            raise ValueError(
+                f"padded batch size {len(picked)} not divisible by process_count={count}; "
+                "set pad_to to a multiple"
+            )
+        rows = local_rows(len(picked), self.accum_steps, count, index)
+        return [picked[r] for r in rows], [weights[r] for r in rows]
 
     def set_epoch(self, epoch: int) -> None:
         """Align the epoch counter that seeds the shuffle and augmentation,
@@ -142,14 +170,17 @@ class DataLoader:
             return sample
 
         def realize(b: List[int]) -> dict:
-            picked, weights = _padded_plan(b, self.pad_to)
+            picked, weights = self.plan(b)
             memo: dict = {}  # a padded tail repeats indices: decode each once
             samples = []
             for i in picked:
                 if i not in memo:
                     memo[i] = load_one(i)
                 samples.append(memo[i])
-            return _collate(samples, weights)
+            out = _collate(samples, weights)
+            if self.process_shard is not None:
+                out["n_real"] = float(len(b))  # the global batch's real samples
+            return out
 
         if self.num_workers <= 1:
             for b in batches:

@@ -37,10 +37,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 
@@ -89,18 +91,35 @@ class _BatchNormTrain(torch.autograd.Function):
     Statistics in fp32 over (N, D, H, W): mean and E[x²] − mean² clamped at
     0 (``norm.py:58-66``); the normalization in x's dtype. The backward is
     the analytic one, in fp32, saving only x in its own dtype.
+
+    With ``sync`` (inside ``collectives.synchronized_batch``) the batch is
+    every data-parallel rank's part of it, as JAX's BatchNorm over a batch
+    sharded on 'data' is: the forward all-reduces (Σx, Σx²) before the mean
+    and variance, over the ranks times this rank's count (every rank holds
+    as many rows), and the backward all-reduces (Σdy, Σdy·(x − mean)) for
+    dx only. dγ and dβ stay this rank's sums: the gradient all-reduce sums
+    them once.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, sync=False):
         dims = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dims)
-        var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+        world = multihost.process_count() if sync else 1
+        if sync:
+            n = world * (x.numel() // x.shape[-1])
+            sums = torch.stack([xf.sum(dims), xf.square().sum(dims)])
+            dist.all_reduce(sums)
+            mean = sums[0] / n
+            var = (sums[1] / n - mean.square()).clamp_min(0.0)
+        else:
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
         r = torch.rsqrt(var + eps)
         mult = weight.to(mean.dtype) * r
         shift = bias.to(mean.dtype) - mean * mult
         ctx.save_for_backward(x, weight, mean, r, mult)
+        ctx.world, ctx.sync = world, sync
         ctx.mark_non_differentiable(mean, var)
         return x * mult.to(x.dtype) + shift.to(x.dtype), mean, var
 
@@ -108,15 +127,20 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, r, mult = ctx.saved_tensors
         dims = tuple(range(x.dim() - 1))
-        n = x.numel() // x.shape[-1]
+        n = ctx.world * (x.numel() // x.shape[-1])
         dyf = dy.to(mean.dtype)
         xc = x.to(mean.dtype) - mean
         ds = dyf.sum(dims)  # dL/dshift
         dxc = (dyf * xc).sum(dims)  # Σ dy·(x − mean)
+        ds_all, dxc_all = ds, dxc
+        if ctx.sync:
+            sums = torch.stack([ds, dxc])
+            dist.all_reduce(sums)
+            ds_all, dxc_all = sums[0], sums[1]
         # mult = γ·r, shift = β − mean·mult, r = (var + eps)^-½
-        dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc
-        dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds / n
-        return dx.to(x.dtype), r * dxc, ds, None
+        dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc_all
+        dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds_all / n
+        return dx.to(x.dtype), r * dxc, ds, None, None
 
 
 class BatchNorm(nn.BatchNorm3d):
@@ -133,23 +157,35 @@ class BatchNorm(nn.BatchNorm3d):
     """
 
     update_running_stats = True
+    # a list while a data-parallel step defers the running-statistics update
+    # (layout (b), train/steps.py): each forward appends its (mean, unbiased
+    # var) instead, and the step replays the global chain in microbatch order
+    stat_log = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+            sync = collectives.batch_synchronized()
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, sync)
             if self.update_running_stats:
-                n = x.numel() // x.shape[-1]
-                keep = 1.0 - self.momentum
-                with torch.no_grad():
-                    self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
-                    self.running_var.copy_(
-                        keep * self.running_var + self.momentum * (var * (n / max(n - 1, 1)))
-                    )
-                    self.num_batches_tracked.add_(1)
+                world = multihost.process_count() if sync else 1
+                n = world * (x.numel() // x.shape[-1])
+                unbiased = var * (n / max(n - 1, 1))
+                if self.stat_log is not None:
+                    self.stat_log.append((mean, unbiased))
+                else:
+                    self.momentum_update(mean, unbiased)
             return y
         mult = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * mult
         return x * mult.to(x.dtype) + shift.to(x.dtype)
+
+    @torch.no_grad()
+    def momentum_update(self, mean: torch.Tensor, unbiased_var: torch.Tensor) -> None:
+        """Move the running statistics by momentum 0.1 toward one batch's."""
+        keep = 1.0 - self.momentum
+        self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+        self.running_var.copy_(keep * self.running_var + self.momentum * unbiased_var)
+        self.num_batches_tracked.add_(1)
 
 
 def _group_view(t: torch.Tensor, groups: int) -> torch.Tensor:

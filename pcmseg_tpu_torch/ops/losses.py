@@ -4,7 +4,10 @@ Same formulas and reductions as the JAX package (``losses.py:24-361``):
 sigmoid (binary head) or softmax over the K channels (``n_classes >= 2``,
 integer (N, ..., 1) label maps of class ids 0..K−1) → global flatten over
 the whole batch → fp32 sums, whatever the logits' dtype (the sums run over
-up to 2 M voxels per sample). An optional (N,) 0/1 ``weight`` masks padded
+up to 2 M voxels per sample). Inside ``collectives.synchronized_batch`` every
+one of those sums runs over the global batch of all data-parallel ranks
+(``batch_sum``), as JAX's do over a batch sharded on 'data'; the result is
+then the same on every rank. An optional (N,) 0/1 ``weight`` masks padded
 samples out: for the overlap losses their probabilities and targets are
 zeroed before the sums, for the per-voxel losses the mean runs over the
 real samples only.
@@ -22,6 +25,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from pcmseg_tpu_torch.parallel.collectives import batch_sum, batch_synchronized
 
 Tensor = torch.Tensor
 
@@ -51,12 +56,16 @@ def _masked(logits: Tensor, targets: Tensor, weight: Optional[Tensor]):
 
 def _weighted_mean(per_elem: Tensor, weight: Optional[Tensor]) -> Tensor:
     if weight is None:
+        if batch_synchronized():
+            total, count = batch_sum(torch.stack([per_elem.sum(), per_elem.new_tensor(per_elem.numel())]))
+            return total / count
         return per_elem.mean()
     # samples all have the same voxel count, so the masked per-voxel mean is
     # the weighted mean of the per-sample means
     w = weight.to(per_elem.dtype)
     per_sample = per_elem.mean(dim=tuple(range(1, per_elem.dim())))
-    return (per_sample * w).sum() / w.sum().clamp_min(1.0)
+    num, den = batch_sum(torch.stack([(per_sample * w).sum(), w.sum()]))
+    return num / den.clamp_min(1.0)
 
 
 def _neg_log_pt(logits: Tensor, targets: Tensor):
@@ -69,8 +78,8 @@ def _neg_log_pt(logits: Tensor, targets: Tensor):
 def dice_loss(logits: Tensor, targets: Tensor, smooth: float = 1.0, weight=None) -> Tensor:
     """``1 − (2·∩ + smooth) / (Σp + Σt + smooth)`` over the global flatten."""
     probs, t = _masked(logits, targets, weight)
-    intersection = (probs * t).sum()
-    return 1.0 - (2.0 * intersection + smooth) / (probs.sum() + t.sum() + smooth)
+    intersection, psum, tsum = batch_sum(torch.stack([(probs * t).sum(), probs.sum(), t.sum()]))
+    return 1.0 - (2.0 * intersection + smooth) / (psum + tsum + smooth)
 
 
 def bce_loss(logits: Tensor, targets: Tensor, weight=None) -> Tensor:
@@ -101,9 +110,9 @@ def tversky_loss(
 ) -> Tensor:
     """``1 − (TP + s) / (TP + α·FP + β·FN + s)`` over the global flatten."""
     probs, t = _masked(logits, targets, weight)
-    tp = (probs * t).sum()
-    fp = probs.sum() - tp
-    fn = t.sum() - tp
+    tp, psum, tsum = batch_sum(torch.stack([(probs * t).sum(), probs.sum(), t.sum()]))
+    fp = psum - tp
+    fn = tsum - tp
     return 1.0 - (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
 
 
@@ -166,8 +175,8 @@ def softmax_dice_loss(
     the mean over classes 1..K−1 (class 0 too with ``include_background``)."""
     probs, t = _softmax_masked(logits, labels, weight)
     axes = tuple(range(probs.dim() - 1))
-    inter = (probs * t).sum(axes)
-    denom = probs.sum(axes) + t.sum(axes)
+    inter, psum, tsum = batch_sum(torch.stack([(probs * t).sum(axes), probs.sum(axes), t.sum(axes)]))
+    denom = psum + tsum
     return 1.0 - _class_mean((2.0 * inter + smooth) / (denom + smooth), include_background)
 
 
@@ -195,9 +204,9 @@ def mc_tversky_loss(
     :func:`softmax_dice_loss`."""
     probs, t = _softmax_masked(logits, labels, weight)
     axes = tuple(range(probs.dim() - 1))
-    tp = (probs * t).sum(axes)
-    fp = probs.sum(axes) - tp
-    fn = t.sum(axes) - tp
+    tp, psum, tsum = batch_sum(torch.stack([(probs * t).sum(axes), probs.sum(axes), t.sum(axes)]))
+    fp = psum - tp
+    fn = tsum - tp
     return 1.0 - _class_mean((tp + smooth) / (tp + alpha * fp + beta * fn + smooth), include_background)
 
 

@@ -1,0 +1,214 @@
+"""Multi-process runs on ``torch.distributed``, the port of
+``pcmseg_tpu/parallel/multihost.py``: one process per card, on one host or
+several.
+
+  * :func:`initialize` starts the process group once per process: with no
+    arguments from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``), the counterpart of
+    JAX's pod auto-detection; or from an explicit coordinator address,
+    process count and process id, as the CPU test clusters start it.
+  * :func:`process_local_indices`: a process's strided share of a case list,
+    computed alike on every process with no traffic.
+  * :func:`barrier` meets every process over the group's key-value store
+    (a ``TCPStore``), never through a device collective, as JAX's meets
+    over its coordination service. A thread of its own may call it while
+    the training thread is inside a gloo or NCCL collective: the
+    asynchronous checkpoint writer does.
+  * :func:`establish_collectives` runs one all-reduce while the processes
+    are aligned, so a backend's communicator is made before the first real
+    step.
+
+Without a process group every function gives the single-process answer.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import threading
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+TIMEOUT = datetime.timedelta(minutes=10)
+
+
+class _Coordinator:
+    """Where the job's store listens, and one client of it per thread for
+    the barriers (a store client serves one request at a time)."""
+
+    def __init__(self, host: str, port: int):
+        self.host, self.port = host, port
+        self._local = threading.local()
+
+    def store(self):
+        client = getattr(self._local, "store", None)
+        if client is None:
+            client = dist.TCPStore(self.host, self.port, is_master=False, timeout=TIMEOUT)
+            self._local.store = client
+        return client
+
+
+_coordinator: Optional[_Coordinator] = None
+
+
+def _local_rank(rank: int) -> int:
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return rank % max(1, torch.cuda.device_count()) if torch.cuda.is_available() else 0
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+) -> None:
+    """Join the job's process group (a no-op when this process already has one).
+
+    With no arguments the topology comes from torchrun's environment; else
+    ``coordinator_address`` is ``host:port`` (``tcp://`` optional), where
+    process 0 opens the store. ``backend`` defaults to ``nccl`` where CUDA
+    is available and ``gloo`` elsewhere; ``gloo`` on CUDA tensors is the
+    caller's explicit choice (two ranks sharing one card: NCCL refuses
+    that). An NCCL group selects the card ``LOCAL_RANK`` first (by default
+    the process id modulo the host's card count). A failed init raises:
+    no backend stands in for another."""
+    global _coordinator
+    if dist.is_initialized():
+        return
+    store = None
+    if coordinator_address is None:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                "initialize() without arguments reads torchrun's environment, and "
+                + ", ".join(missing) + " is not set: run under torchrun or pass the coordinator address, "
+                "the process count and the process id"
+            )
+        host, port = os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    else:
+        if num_processes is None or process_id is None:
+            raise ValueError("an explicit coordinator_address needs num_processes and process_id")
+        address = coordinator_address.split("://", 1)[-1]
+        host, _, port_s = address.rpartition(":")
+        host, port = host or "localhost", int(port_s)
+        world, rank = int(num_processes), int(process_id)
+        store = dist.TCPStore(host, port, world, is_master=rank == 0, timeout=TIMEOUT)
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(_local_rank(rank))
+    dist.init_process_group(
+        backend,
+        init_method=None if store is not None else "env://",
+        store=store,
+        world_size=world,
+        rank=rank,
+        timeout=TIMEOUT,
+    )
+    _coordinator = _Coordinator(host, port)
+
+
+def shutdown() -> None:
+    """Leave the process group (a no-op without one)."""
+    global _coordinator
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _coordinator = None
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+process_index = _rank  # this process's rank (0 without a group)
+process_count = _world  # the processes in the job (1 without a group)
+
+
+def is_multiprocess() -> bool:
+    return process_count() > 1
+
+
+def is_primary() -> bool:
+    """True on the process that writes checkpoints, logs and artifacts."""
+    return process_index() == 0
+
+
+def local_device() -> torch.device:
+    """This process's card: ``cuda:LOCAL_RANK`` under torchrun."""
+    return torch.device("cuda", _local_rank(process_index()))
+
+
+def process_local_indices(
+    indices: Sequence[int],
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+) -> list:
+    """Process ``i``'s strided share ``indices[i::P]`` of a case list. Every
+    process calls it with the same list, so the shares partition it with
+    no traffic; strided, so a sorted list does not give one process all its
+    large or early cases (``multihost.py:73-88``)."""
+    pi = _rank() if process_index is None else process_index
+    pc = _world() if process_count is None else process_count
+    return list(indices)[pi::pc]
+
+
+def _store():
+    if _coordinator is not None:
+        return _coordinator.store()
+    # a group that the caller made with init_process_group itself: its own store client
+    return dist.distributed_c10d._get_default_store()
+
+
+_tags: dict = {}
+
+
+def next_tag(prefix: str) -> str:
+    """``prefix`` made unique in this process by a count of its uses: the
+    same on every process that makes the same calls in the same order, as
+    barrier tags need."""
+    n = _tags[prefix] = _tags.get(prefix, -1) + 1
+    return f"{prefix}#{n}"
+
+
+def barrier(tag: str, timeout: datetime.timedelta = TIMEOUT, error: Optional[str] = None) -> None:
+    """Wait until every process has reached ``barrier(tag)``, over the store
+    (no device collective, safe from any thread). ``tag`` is unique per call
+    across the job and the same on every process. A process that failed at
+    what the barrier waits for still arrives, with ``error`` saying what
+    failed: every other process then raises ``RuntimeError`` with it when
+    the barrier opens, instead of waiting out ``timeout``. No-op without a
+    process group."""
+    if not dist.is_initialized():
+        return
+    store = _store()
+    key = f"pcmseg/barrier/{tag}"
+    if error is not None:
+        store.set(key + "/error", f"process {process_index()}: {error}")
+    if store.add(key, 1) == process_count():
+        store.set(key + "/open", "1")
+    store.wait([key + "/open"], timeout)
+    if error is None and store.check([key + "/error"]):
+        raise RuntimeError(f"barrier {tag!r}: {store.get(key + '/error').decode()}")
+
+
+def establish_collectives(tag: str = "pcmseg_warmup") -> None:
+    """One all-reduce over every process while they are aligned, checked,
+    then a barrier: the backend's communicator (gloo's context, NCCL's
+    clique) is made here and not at the first step. No-op without a
+    process group."""
+    if not dist.is_initialized():
+        return
+    device = local_device() if dist.get_backend() == "nccl" else torch.device("cpu")
+    x = torch.ones(1, device=device)
+    dist.all_reduce(x)
+    if float(x) != process_count():
+        raise RuntimeError(f"all-reduce of ones over {process_count()} processes gave {float(x)}")
+    barrier(tag)

@@ -403,7 +403,10 @@ class AsyncCheckpointWriter:
 
       * latest-wins collapse: a queued, not yet started task of the same
         ``kind`` is cancelled ('latest' onto 'latest', 'best' (best +
-        latest) onto 'best'); 'periodic' tasks never collapse;
+        latest) onto 'best'); 'periodic' tasks never collapse, and nothing
+        does with ``collapse=False`` (data-parallel processes: whether a
+        task is still queued depends on each process's timing, and every
+        process must run the same sequence of writes and barriers);
       * backpressure: at most ``max_outstanding`` snapshots are in flight;
         the caller waits for the oldest beyond that;
       * a writer failure is raised by the next ``submit``/``drain`` and by
@@ -415,8 +418,9 @@ class AsyncCheckpointWriter:
     seconds; ``snapshots.peak_pinned_bytes`` the pinned memory held.
     """
 
-    def __init__(self, device, max_outstanding: int = 2):
+    def __init__(self, device, max_outstanding: int = 2, collapse: bool = True):
         self.max_outstanding = max_outstanding
+        self.collapse = collapse
         self.snapshots = SnapshotPool(device, max_outstanding)
         self._pool: Optional[ThreadPoolExecutor] = None
         self._tasks: List[Tuple[str, Future, Snapshot]] = []
@@ -437,7 +441,7 @@ class AsyncCheckpointWriter:
 
     def submit(self, kind: str, state, write: Callable[[dict], Any]) -> None:
         t0 = time.perf_counter()
-        if kind != "periodic":
+        if kind != "periodic" and self.collapse:
             kept = []
             for k, f, snap in self._tasks:
                 if k == kind and f.cancel():

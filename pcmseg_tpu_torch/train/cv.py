@@ -9,6 +9,11 @@ reference-layout ``best_fold_{k}.pth`` that ``predict``, ``serve`` and
 ``validate`` take as a fold ensemble); per-fold ``fold_{k}_history.json``;
 an aggregate ``cv_results.json`` with the mean and the sample std
 (ddof=1) of the folds' best validation losses.
+
+Under a data-parallel process group every process runs every fold's
+Trainer in step (each fold data-parallel); the primary alone writes the
+JSON files, and every process meets it at a barrier after each, so a
+resumed run reads the same completed folds on every process.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pcmseg_tpu_torch.core.config import Config
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.kfold import kfold_indices
 from pcmseg_tpu_torch.infer.predict import resolve_device
+from pcmseg_tpu_torch.parallel import multihost
 from pcmseg_tpu_torch.train.trainer import Trainer
 from pcmseg_tpu_torch.utils.artifacts import write_json
 from pcmseg_tpu_torch.utils.logging import get_logger
@@ -44,6 +50,8 @@ class CrossValidationTrainer:
     def __init__(self, config: Config, dataset: Optional[ProstateDataset] = None, device=None):
         self.config = config
         self.log = get_logger("pcmseg.cv")
+        if not multihost.is_primary():
+            self.log.setLevel("WARNING")
         self.device = resolve_device(device)
         self.dataset = dataset if dataset is not None else ProstateDataset(
             data_dir=config.data_dir,
@@ -75,7 +83,7 @@ class CrossValidationTrainer:
             device=self.device,
         )
         history = trainer.train()
-        write_json(os.path.join(self.config.save_dir, f"fold_{fold_idx}_history.json"), history)
+        self._write_json(f"fold_{fold_idx}_history.json", history)
         result = _fold_result(fold_idx, history)
         self.fold_results.append(result)
         return result
@@ -132,9 +140,18 @@ class CrossValidationTrainer:
                 "total_folds": len(self.fold_results),
             },
         }
-        path = write_json(os.path.join(self.config.save_dir, "cv_results.json"), results)
+        path = self._write_json("cv_results.json", results)
         self.log.info("cross-validation results written to %s", path)
         return results
+
+    def _write_json(self, name: str, payload) -> str:
+        """``save_dir/name``, written by the primary process; every process
+        waits until it is there."""
+        path = os.path.join(self.config.save_dir, name)
+        if multihost.is_primary():
+            write_json(path, payload)
+        multihost.barrier(multihost.next_tag(f"cv/{name}"))
+        return path
 
     def print_summary(self) -> None:
         for r in self.fold_results:

@@ -26,6 +26,25 @@ L2, not AdamW). The learning rate lives in the param group.
 
 Metrics stay device tensors so the trainer can fetch a step's loss after
 the next step is queued.
+
+Data parallelism (``parallel/``): one path for every process, without a
+process group too (P = 1, no collective runs). In a group of P ranks (P = 1
+included, where every collective is an identity) each rank's step receives
+its rows of the padded global batch (``sharding.local_rows``) and leaves
+the same state on every rank. The layout follows the
+microbatching (``sharding.microbatch_layout``): (a) when P divides the
+microbatch, every microbatch is global: BatchNorm and the loss sum over
+every rank's rows (``collectives.synchronized_batch``), and each rank seeds
+its backward with 1/P of the replicated loss; (b) when P divides
+``accum_steps`` instead, each rank runs its own whole microbatches with no
+collective inside, records each BatchNorm forward's statistics instead of
+moving the running statistics, and after the last microbatch every rank
+replays the running-statistics chain of all microbatches in their global
+order (JAX's ``lax.scan`` carry, ``steps.py:264-275``), from the exchanged
+per-microbatch statistics. Then one all-reduce sums the gradients
+(``collectives.GradientAllReduce``), divided by ``accum_steps``; the norm,
+clip, Adam and EMA follow on identical values on every rank. The loss is
+the mean of the global microbatch losses, summed in microbatch order.
 """
 
 from __future__ import annotations
@@ -36,8 +55,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from pcmseg_tpu_torch.models.unet3d import BatchNorm
 from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
 from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
+from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
 
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
@@ -131,7 +152,7 @@ def align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def unported_training_options(config) -> List[str]:
     """The config's training options that this package has not ported."""
     refused = []
-    for name in ("data_parallel", "spatial_parallel", "tensor_parallel"):
+    for name in ("spatial_parallel", "tensor_parallel"):
         if getattr(config, name) > 1:
             refused.append(f"{name}={getattr(config, name)}")
     return refused
@@ -141,6 +162,27 @@ def refuse_unported_training(config) -> None:
     refused = unported_training_options(config)
     if refused:
         raise NotImplementedError("not ported to the PyTorch package yet: " + ", ".join(refused))
+
+
+def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[torch.Tensor],
+                          accum: int, owned: range) -> torch.Tensor:
+    """Layout (b): every rank's per-microbatch BatchNorm statistics and
+    losses, exchanged exactly, then the running statistics moved through
+    all ``accum`` microbatches in their global order, as one process moves
+    them. Returns the (accum,) microbatch losses in that order."""
+    local = torch.stack([
+        torch.cat([parts[i].reshape(1)] + [torch.cat(log[i]) for log in logs]) for i in range(len(owned))
+    ])
+    table = torch.zeros((accum, local.shape[1]), dtype=local.dtype, device=local.device)
+    table[owned.start: owned.stop] = local
+    collectives.exchange(table)
+    for j in range(accum):
+        offset = 1
+        for m in norms:
+            c = m.num_features
+            m.momentum_update(table[j, offset: offset + c], table[j, offset + c: offset + 2 * c])
+            offset += 2 * c
+    return table[:, 0]
 
 
 def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None) -> Callable:
@@ -153,13 +195,17 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
     in order, each forward updating the BN running statistics; the gradients
     are summed and divided by ``accum_steps`` and the loss is the mean of
     the microbatch losses (``steps.py:244-276``). ``grad_norm`` is the global
-    norm before clipping.
+    norm before clipping. In a data-parallel job ``batch`` is this rank's
+    rows of the global batch (module docstring).
     """
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     accum = max(1, int(config.accum_steps))
     ema_decay = float(config.ema_decay)
     clip = float(config.grad_clip_norm or 0.0)
+    world, rank = multihost.process_count(), multihost.process_index()
+    sync_grads = collectives.GradientAllReduce(list(model.parameters()))
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
 
     def objective(out, labels, weight):
         if not model.deep_supervision:
@@ -170,6 +216,42 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
             total = total + w * loss_fn(o, align_labels(o, labels), weight)
         return total
 
+    def data_parallel_loss(images, labels, weight) -> torch.Tensor:
+        """This rank's microbatches, forward and backward; the gradients
+        still this rank's own (without a process group: every microbatch,
+        layout (a) with one rank). Returns the mean of the global
+        microbatch losses."""
+        layout = sharding.microbatch_layout(images.shape[0] * world, accum, world)
+        n_micro = accum if layout == "a" else accum // world
+        micro = images.shape[0] // n_micro
+        if weight is None and accum > 1:
+            # as JAX's scan over microbatches (steps.py:259-263)
+            weight = torch.ones(images.shape[0], device=images.device)
+        parts = []
+        if layout == "b":
+            for m in norms:
+                m.stat_log = []
+        try:
+            with collectives.synchronized_batch(layout == "a"):
+                scale = collectives.backward_scale()
+                for i in range(n_micro):
+                    sl = slice(i * micro, (i + 1) * micro)
+                    w = None if weight is None else weight[sl]
+                    part = objective(model(images[sl]), labels[sl], w)
+                    (part * scale).backward()
+                    parts.append(part.detach())
+        finally:
+            logs = [m.stat_log for m in norms]
+            for m in norms:
+                m.stat_log = None
+        if layout == "b":
+            owned = sharding.owned_microbatches(accum, world, rank)
+            parts = list(_replay_running_stats(norms, logs, parts, accum, owned))
+        loss = torch.zeros((), device=images.device)
+        for part in parts:
+            loss = loss + part
+        return loss / accum
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         images = batch["image"]
         labels = align_labels(images[..., :1], batch["label"])
@@ -178,25 +260,9 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        if accum == 1:
-            loss = objective(model(images), labels, weight)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            if images.shape[0] % accum:
-                raise ValueError(
-                    f"batch size {images.shape[0]} not divisible by accum_steps={accum}"
-                )
-            micro = images.shape[0] // accum
-            if weight is None:
-                weight = torch.ones(images.shape[0], device=images.device)
-            loss = torch.zeros((), device=images.device)
-            for i in range(accum):
-                sl = slice(i * micro, (i + 1) * micro)
-                part = objective(model(images[sl]), labels[sl], weight[sl])
-                part.backward()
-                loss = loss + part.detach()
-            loss = loss / accum
+        loss = data_parallel_loss(images, labels, weight)
+        sync_grads()
+        if accum > 1:
             for p in params:
                 p.grad.div_(accum)
         norm = apply_gradients(state, clip)
@@ -223,7 +289,9 @@ def make_eval_step(
     ('dice_class', 'iou_class', (N, K−1)), 'dice' and 'iou' are the means
     over those classes, and 'pred' is the (N, D, H, W, 1) uint8 label map.
     With EMA on (and ``ema_eval``) the averaged parameters are scored;
-    ``state`` is read for its ``ema`` only."""
+    ``state`` is read for its ``ema`` only. In a data-parallel job the loss
+    and the three sums are over every rank's rows of the global batch, the
+    per-sample entries this rank's own."""
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     threshold = config.threshold
@@ -249,16 +317,11 @@ def make_eval_step(
             labels = align_labels(logits, batch["label"])
             pred = (torch.sigmoid(logits.float()) > threshold).float()
             dice, iou = per_sample_dice_iou(pred, labels)
-        loss = loss_fn(logits, labels, weight)
         w = weight.float() if weight is not None else torch.ones_like(dice)
-        out.update(
-            loss=loss,
-            dice=dice,
-            iou=iou,
-            dice_sum=(dice * w).sum(),
-            iou_sum=(iou * w).sum(),
-            weight_sum=w.sum(),
-        )
+        with collectives.synchronized_batch():
+            loss = loss_fn(logits, labels, weight)
+            sums = collectives.batch_sum(torch.stack([(dice * w).sum(), (iou * w).sum(), w.sum()]))
+        out.update(loss=loss, dice=dice, iou=iou, dice_sum=sums[0], iou_sum=sums[1], weight_sum=sums[2])
         if return_pred:
             out["pred"] = pred.to(torch.uint8)
         return out

@@ -1,4 +1,5 @@
-"""Single-split trainer on one GPU, the port of ``pcmseg_tpu/train/trainer.py``.
+"""Single-split trainer on one GPU or data-parallel over several, the port
+of ``pcmseg_tpu/train/trainer.py``.
 
 The streamed path of the JAX trainer:
 
@@ -6,8 +7,9 @@ The streamed path of the JAX trainer:
     ``default_rng(seed).permutation``, or the caller's ``train_indices`` /
     ``val_indices`` over a shared ``dataset`` (a cross-validation fold;
     ``val_indices`` alone trains on the rest) (``trainer.py:58-106``);
-  * every batch, the ragged tail included, padded to ``batch_size``
-    rounded up to ``accum_steps`` (``trainer.py:127-136`` at one device);
+  * every batch, the ragged tail included, padded to the smallest multiple
+    of lcm(data-parallel ranks, processes, ``accum_steps``) that holds
+    ``batch_size`` (``trainer.py:127-136``);
   * ``train_epoch``: batches decoded by the loader's threads, prefetched to
     the card from pinned memory, each step's loss fetched after the next
     step is queued, and a non-finite loss aborts the epoch
@@ -42,9 +44,23 @@ The streamed path of the JAX trainer:
     ``profile_steps`` steps from the second step on, one window, closed at
     the epoch's end if the epoch ends first (``utils/profiling.py``).
 
-The parallel options of the JAX trainer (data, spatial and tensor
-parallelism) are not ported and raise ``NotImplementedError`` naming the
-option.
+Data parallelism (``trainer.py:108-145, :221-291, :515-544``): in a job
+of several processes (``parallel.multihost.initialize``, one card each)
+the mesh's data axis spans them and must equal the process count; each
+process loads only its rows of every padded global batch (the loaders'
+``process_shard``) or, from the device cache, holds a block of the cases
+and receives its rows of each gathered batch; the step makes BatchNorm,
+the loss and the gradients global (``train/steps.py``). Every process
+builds the parameters from the seed, and one all-reduce of a checksum at
+start shows that they match. Losses, the schedule and early stopping are
+then the same on every process; the primary alone logs and writes
+checkpoints, and every process meets it at a barrier over the store after
+each write (from the writer thread under ``async_checkpoint``, where the
+latest-wins collapse is off so that every process writes the same
+sequence). vol/s counts the global batch's samples. In one process a
+mesh the host cannot hold warns and runs 1×1×1, as JAX's does. Spatial and
+tensor parallelism are not ported and raise ``NotImplementedError``
+naming the option.
 """
 
 from __future__ import annotations
@@ -63,6 +79,8 @@ from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan, prefetch_to_device
 from pcmseg_tpu_torch.infer.predict import resolve_device
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.parallel import collectives, multihost
+from pcmseg_tpu_torch.parallel.sharding import Mesh, make_mesh, microbatch_layout, padded_batch_size, shard_state
 from pcmseg_tpu_torch.train.checkpoints import (
     AsyncCheckpointWriter,
     copy_train_checkpoint,
@@ -145,9 +163,31 @@ class Trainer:
         self.train_indices: List[int] = list(train_indices)
         self.val_indices: Optional[List[int]] = list(val_indices) if val_indices is not None else None
 
-        # every batch pads to one size, divisible by the accumulation steps
+        # -- mesh (before the loaders: batches pad to a multiple of the ranks) --
+        self.process_count = multihost.process_count()
+        self.process_index = multihost.process_index()
+        self.is_primary = self.process_index == 0
+        try:
+            self.mesh = make_mesh(config.data_parallel, config.spatial_parallel, config.tensor_parallel)
+        except ValueError as e:
+            if self.process_count > 1:
+                raise
+            self.log.warning("mesh config infeasible on this host (%s); using 1x1x1", e)
+            self.mesh = Mesh()
+        if self.mesh.size != self.process_count:
+            raise ValueError(
+                f"mesh {self.mesh.data}x{self.mesh.spatial}x{self.mesh.model} over {self.process_count} "
+                "processes: a data-parallel job runs one process per rank of the mesh"
+            )
+        if not self.is_primary:
+            self.log.setLevel("WARNING")
+        # every batch pads to one size, divisible by the data-parallel ranks,
+        # the processes and the accumulation steps
         accum = max(1, int(config.accum_steps))
-        self._pad_to = -(-config.batch_size // accum) * accum
+        self._pad_to = padded_batch_size(config.batch_size, self.mesh.data, self.process_count, accum)
+        microbatch_layout(self._pad_to, accum, self.process_count)  # raises on a layout the step cannot run
+        # in a process group (of one rank too) the loaders and the cache shard
+        self._shard = (self.process_index, self.process_count) if collectives.active() else None
 
         augmenter = None
         if config.data_augmentation or config.train_crop:
@@ -171,12 +211,12 @@ class Trainer:
         self.train_loader = DataLoader(
             self.dataset, batch_size=config.batch_size, shuffle=True,
             indices=self.train_indices, seed=config.seed, augmenter=augmenter,
-            pad_to=self._pad_to,
+            pad_to=self._pad_to, process_shard=self._shard, accum_steps=accum,
         )
         self.val_loader = (
             DataLoader(
                 self.dataset, batch_size=config.batch_size, shuffle=False,
-                indices=self.val_indices, pad_to=self._pad_to,
+                indices=self.val_indices, pad_to=self._pad_to, process_shard=self._shard,
             )
             if self.val_indices
             else None
@@ -188,6 +228,7 @@ class Trainer:
             generator=torch.Generator().manual_seed(config.seed),
         )
         self.state = create_train_state(model.to(self.device), config)
+        shard_state(model, self.mesh)  # the same parameters on every rank, or raise
         self._train_step = make_train_step(model, config)
         self._eval_step = make_eval_step(model, config)
         self._setup_device_cache(augmenter)
@@ -200,12 +241,15 @@ class Trainer:
         self.start_epoch = 0
         self.timer = StepTimer(warmup_steps=1)
         self.tracer = StepTraceController(config.profile_dir, self.device, n_steps=config.profile_steps)
-        self.writer = AsyncCheckpointWriter(self.device) if config.async_checkpoint else None
+        self.writer = (
+            AsyncCheckpointWriter(self.device, collapse=not collectives.active()) if config.async_checkpoint else None
+        )
         if config.resume:
             self._try_resume()
 
     def _setup_device_cache(self, augmenter) -> None:
-        """Full cache, partial cache or streaming, by the budget at one device
+        """Full cache, partial cache or streaming, by the budget of one card
+        times the data-parallel ranks, which split the stacks
         (``trainer.py:225-337``)."""
         config = self.config
         self._dcache = None
@@ -216,7 +260,8 @@ class Trainer:
         if config.device_data_cache_gb <= 0:
             self.log.info("device data cache off (device_data_cache_gb=0): every epoch streams from the host")
             return
-        n_fit = int(config.device_data_cache_gb * 1e9 // per_case)
+        shards = self.mesh.data * self.mesh.spatial
+        n_fit = int(config.device_data_cache_gb * 1e9 * shards // per_case)
         resident = None
         if n_fit >= n_cases:
             resident = list(range(n_cases))
@@ -234,15 +279,16 @@ class Trainer:
             )
             return
         self.log.info(
-            "device data cache: %d/%d cases resident on %s (%.3g GB)%s",
-            len(resident), n_cases, self.device, len(resident) * per_case / 1e9,
+            "device data cache: %d/%d cases resident on %s (%.3g GB a card over %d shard(s))%s",
+            len(resident), n_cases, self.device, len(resident) * per_case / shards / 1e9, shards,
             " - remainder streams (partial cache)" if self._dcache_partial else "",
         )
         self._dcache = device_cache.build_device_cache(
-            self.dataset, self.device, indices=resident if self._dcache_partial else None
+            self.dataset, self.device, indices=resident if self._dcache_partial else None, shard=self._shard,
         )
-        self._cached_train_step = device_cache.make_cached_train_step(config, self._train_step)
-        self._cached_eval_step = device_cache.make_cached_eval_step(self._eval_step)
+        held = self._dcache["rows"]
+        self._cached_train_step = device_cache.make_cached_train_step(config, self._train_step, held)
+        self._cached_eval_step = device_cache.make_cached_eval_step(self._eval_step, held)
         if not self._dcache_partial:
             return
         # case index -> stack row, and the train/val sets split into their
@@ -261,12 +307,13 @@ class Trainer:
         if self._str_train:
             self._stream_train_loader = DataLoader(
                 stream_ds, batch_size=config.batch_size, shuffle=True, indices=self._str_train,
-                seed=config.seed, augmenter=augmenter, pad_to=self._pad_to,
+                seed=config.seed, augmenter=augmenter, pad_to=self._pad_to, process_shard=self._shard,
+                accum_steps=config.accum_steps,
             )
         if self._str_val:
             self._stream_val_loader = DataLoader(
                 stream_ds, batch_size=config.batch_size, shuffle=False, indices=self._str_val,
-                pad_to=self._pad_to,
+                pad_to=self._pad_to, process_shard=self._shard,
             )
 
     # -- checkpoints -------------------------------------------------------------
@@ -298,15 +345,25 @@ class Trainer:
         latest, best = self._ckpt_name("latest"), self._ckpt_name("best")
         periodic = bool(cfg.save_frequency) and (epoch + 1) % cfg.save_frequency == 0
 
+        # the same on every process: its saves come in the same order
+        done_tag = multihost.next_tag(f"ckpt/{self.tag or 'run'}/{epoch}")
+
         def write(payload: dict) -> None:
-            write_train_checkpoint(cfg.save_dir, latest, payload, meta)
-            if is_best:
-                copy_train_checkpoint(cfg.save_dir, latest, best)
-                weights = serving_state_dict(payload["model"], payload["ema"], cfg.ema_eval)
-                save_pth(os.path.join(cfg.save_dir, best + ".pth"), weights, cfg.to_dict())
-            if periodic:
-                copy_train_checkpoint(cfg.save_dir, latest, self._ckpt_name(f"epoch_{epoch + 1}"))
-                prune_periodic(cfg.save_dir, cfg.keep_checkpoints, self.tag)
+            try:
+                if self.is_primary:
+                    write_train_checkpoint(cfg.save_dir, latest, payload, meta)
+                    if is_best:
+                        copy_train_checkpoint(cfg.save_dir, latest, best)
+                        weights = serving_state_dict(payload["model"], payload["ema"], cfg.ema_eval)
+                        save_pth(os.path.join(cfg.save_dir, best + ".pth"), weights, cfg.to_dict())
+                    if periodic:
+                        copy_train_checkpoint(cfg.save_dir, latest, self._ckpt_name(f"epoch_{epoch + 1}"))
+                        prune_periodic(cfg.save_dir, cfg.keep_checkpoints, self.tag)
+            except Exception as e:
+                # arrive all the same, so the other processes fail now, not at the timeout
+                multihost.barrier(done_tag, error=f"checkpoint write failed: {type(e).__name__}: {e}")
+                raise
+            multihost.barrier(done_tag)  # the store's barrier: safe on the writer thread
 
         if self.writer is None:
             write(train_payload(self.state))
@@ -349,7 +406,8 @@ class Trainer:
 
         def host_batches():
             for batch in loader:
-                batch["n_real"] = float(np.sum(batch["weight"]))  # unpadded samples
+                # the global batch's unpadded samples (a process's rows hold a share)
+                batch.setdefault("n_real", float(np.sum(batch["weight"])))
                 yield batch
 
         return prefetch_to_device(host_batches(), self.device, self.dtype, size=self.config.prefetch)
@@ -489,9 +547,9 @@ class Trainer:
     def _train(self) -> Dict[str, List[float]]:
         cfg = self.config
         self.log.info(
-            "training %d cases (val: %s) for %d epochs, batch %d on %s",
+            "training %d cases (val: %s) for %d epochs, batch %d on %s, mesh %s",
             len(self.train_indices), len(self.val_indices) if self.val_indices else 0,
-            cfg.num_epochs, cfg.batch_size, self.device,
+            cfg.num_epochs, cfg.batch_size, self.device, self.mesh.shape,
         )
         # the schedule's current rate, not config.learning_rate: under warmup
         # (or a resume mid-decay) the first epoch's LR differs

@@ -3,8 +3,9 @@ imports, a tiny Predictor segments a volume, a train step runs, one
 cross-validation fold trains, a Validator scores a two-checkpoint ensemble
 with TTA, and a deep-supervision model trains a cached epoch cropped and
 augmented on the device, on the CPU, with pcmseg_tpu, jax, flax, optax,
-orbax and ml_dtypes blocked in sys.modules of a fresh interpreter; and no
-module of the port or ``chip_smoke.py`` imports pcmseg_tpu."""
+orbax and ml_dtypes blocked in sys.modules of a fresh interpreter (every
+module imports, ``parallel/`` included); and no module of the port or
+``chip_smoke.py`` imports pcmseg_tpu or JAX."""
 
 import ast
 import os
@@ -29,6 +30,7 @@ SCRIPT = textwrap.dedent(
     modules = [m.name for m in pkgutil.walk_packages(pcmseg_tpu_torch.__path__, "pcmseg_tpu_torch.")]
     for name in modules:
         importlib.import_module(name)
+    assert {"pcmseg_tpu_torch.parallel." + m for m in ("multihost", "sharding", "collectives")} <= set(modules)
 
     from pcmseg_tpu_torch.cli.main import main
     from pcmseg_tpu_torch.core.config import get_config
@@ -132,6 +134,9 @@ def _imported_modules(path):
 
 
 def test_no_module_of_the_port_imports_the_jax_package():
+    """Nor JAX or its libraries: the port's modules (``parallel/`` among
+    them) and ``chip_smoke.py`` import none of pcmseg_tpu, jax, flax, optax
+    and orbax."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pcmseg_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -140,6 +145,6 @@ def test_no_module_of_the_port_imports_the_jax_package():
         f"{os.path.relpath(path, REPO)}: {name}"
         for path in files
         for name in _imported_modules(path)
-        if name == "pcmseg_tpu" or name.startswith("pcmseg_tpu.")
+        if name.split(".")[0] in ("pcmseg_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
     ]
     assert offenders == []

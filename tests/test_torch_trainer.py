@@ -3,6 +3,7 @@ the loss history against the JAX ``Trainer`` from the same weights, kill
 and resume, the checkpoints and ``.pth`` that ``predict`` serves, and the
 options the port refuses."""
 
+import logging
 import os
 
 import jax
@@ -118,13 +119,26 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
      dict(profile_dir="prof"), dict(n_classes=3), dict(deep_supervision=True), dict(norm_layer="group")],
     ids=lambda o: next(iter(o)),
 )
-def test_unported_options_are_refused_by_name(tree, tmp_path, option):
-    """Each option the port has not ported (the parallel ones) is refused by
-    name; deep supervision, K-class heads, GroupNorm, asynchronous
-    checkpoints and profiling, ported since, build a trainer that has them
-    (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
-    tests/test_torch_groupnorm.py, tests/test_torch_async_checkpoint.py and
-    tests/test_torch_profiling.py hold them against JAX)."""
+def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
+    """Each option the port has not ported (spatial and tensor parallelism)
+    is refused by name; deep supervision, K-class heads, GroupNorm,
+    asynchronous checkpoints, profiling and data parallelism, ported since,
+    build a trainer that has them (tests/test_torch_deep_supervision.py,
+    tests/test_torch_kclass.py, tests/test_torch_groupnorm.py,
+    tests/test_torch_async_checkpoint.py, tests/test_torch_profiling.py and
+    tests/test_torch_multihost.py hold them against JAX). ``data_parallel=2``
+    in one process is a mesh the host cannot hold: it warns and runs 1x1x1,
+    as JAX's trainer does."""
+    if "data_parallel" in option:
+        logger = logging.getLogger("pcmseg.trainer")
+        logger.addHandler(caplog.handler)
+        try:
+            trainer = Trainer(_config(tree, tmp_path, **option), device="cpu")
+        finally:
+            logger.removeHandler(caplog.handler)
+        assert trainer.mesh.shape == {"data": 1, "spatial": 1, "model": 1}
+        assert "mesh config infeasible" in caplog.text
+        return
     if "async_checkpoint" in option:
         trainer = Trainer(_config(tree, tmp_path, **option), device="cpu")
         assert trainer.writer is not None and trainer.writer.snapshots.device == torch.device("cpu")
