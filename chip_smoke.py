@@ -167,6 +167,28 @@ kernel on them:
      latest and best.pth, the history bitwise equal to the same run without
      a group. ``python3 chip_smoke.py --only dp`` runs the kernel
      checks and this phase alone.
+ 18. sp: spatial parallelism, the volume's D axis split over SP_RANKS
+     D-slabs, on the one card. B1 (forward and dx) and B2 at the shapes of
+     one 128³ D-slab with its two halo slices, against their plain
+     versions, timed; (a) the folded flagship model served with
+     ``spatial_parallel`` 2 on shards ["cuda", "cuda"] (and across cards
+     where the host has them): a 128³ case and a 256×128² one (whole when
+     sharded, tiled unsharded) against an unsharded whole-volume forward,
+     in fp32 through the plain conv within SP_FP32_BOUND, the bf16 kernel
+     path as close to fp32 as the unsharded one (check_probs' rule), 18 B1
+     a shard-forward each on a halo-extended slab, the device path's time;
+     (b) two gloo ranks (``chip_smoke.py --sp-rank R 2 PORT WORK gloo``)
+     on a data 1 × spatial 2 mesh, 3 flagship steps each on its 64×128²
+     slabs of all 4 microbatches, against dp (a)'s one-process steps:
+     ranks bitwise equal, step 1 in float64 through the plain conv against
+     one process's within SP_EXACT_RTOL / SP_EXACT_SHARE, the bf16 step's
+     loss within SP_LOSS1_RTOL and its gradients as close to float64 as one
+     process's, 140 B1 / 72 B2 a rank-step, each rank's step, halo and
+     all-reduce times, halo bytes and peak memory; (c) a 2-rank spatial
+     Trainer (``--sp-trainer``) for 1 epoch with validation from the
+     device cache on the 12 cases: histories equal, the primary's one
+     checkpoint set, exact launches. ``python3 chip_smoke.py --only sp``
+     runs the kernel checks and this phase alone.
 
 Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
@@ -175,7 +197,9 @@ kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
 ``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt``, ``ingest``,
-``dp_a`` (both ranks) and ``dp_b`` those of the phases of those names),
+``dp_a`` (both ranks), ``dp_b``, ``sp_serve``, ``sp_train`` (both ranks)
+and ``sp_trainer`` (both ranks) those of the phases of those names;
+``slab_*`` the times at one D-slab's shapes),
 the nvidia-smi line, and the device JSON.
 """
 
@@ -217,6 +241,9 @@ PROFILE_FORWARDS = 5
 # rate and HBM3 bandwidth, for the least time a conv could take
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the sp phase's spatial group: every rank holds one D-slab of its rows
+SP_RANKS = 2
+SLAB_NOTE = {False: "", True: f", one of {SP_RANKS} D-slabs with its halo"}
 
 
 def log(msg: str) -> None:
@@ -231,15 +258,16 @@ def card_label() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False):
+def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False, depth: int = 0):
     """(least ms, FLOP, whether the operations and not the bytes bound it)
-    of one 3³ conv at these shapes on one H100: the larger of its FLOP at
-    PEAK_FLOPS and its bytes at PEAK_BYTES, each input read once and each
-    output written once. Forward and dx read x (or dy) and the bf16 weight
-    and write y (or dx), plus the fp32 bias; dW reads x and dy and writes
-    the fp32 (27, Ci, Co) gradient. Ci is the real channel count (5 at the
-    input conv, not the 8 the kernel reads)."""
-    vox = n * size**3
+    of one 3³ conv at these shapes (D = ``depth`` where given, else
+    ``size``) on one H100: the larger of its FLOP at PEAK_FLOPS and its
+    bytes at PEAK_BYTES, each input read once and each output written
+    once. Forward and dx read x (or dy) and the bf16 weight and write y (or
+    dx), plus the fp32 bias; dW reads x and dy and writes the fp32 (27, Ci,
+    Co) gradient. Ci is the real channel count (5 at the input conv, not
+    the 8 the kernel reads)."""
+    vox = n * (depth or size) * size**2
     flop = 2 * 27 * ci * co * vox
     moved = 2 * vox * (ci + co) + (4 * 27 * ci * co if dw else 2 * 27 * ci * co + 4 * co)
     ops_s, bytes_s = flop / PEAK_FLOPS, moved / PEAK_BYTES
@@ -277,9 +305,16 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def check_kernels(device, card: str, batches) -> dict:
+def slab_depth(size: int, slab: bool) -> int:
+    """D of a conv's input at a level ``size`` deep: with ``slab``, one of
+    SP_RANKS D-slabs with its two halo slices."""
+    return size // SP_RANKS + 2 if slab else size
+
+
+def check_kernels(device, card: str, batches, slab: bool = False) -> dict:
     """Kernel vs plain version at each shape and each batch size in
-    ``batches``, timed at the first; returns the JSON record's numbers."""
+    ``batches``, timed at the first; returns the JSON record's numbers.
+    With ``slab``, at a D-slab's shape (``slab_depth``)."""
     import torch
     import torch.nn.functional as F
 
@@ -288,12 +323,13 @@ def check_kernels(device, card: str, batches) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(0)
     for ci, co, s, layers in CONV_SHAPES:
+        d = slab_depth(s, slab)
         w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
         b = torch.randn((co,), generator=g, device=device) * 0.1
         packed = conv3d.pack_weight(w, torch.bfloat16)
         shape_err = 0.0
         for n in reversed(batches):  # the last x made is the timed one
-            x = torch.randn((n, s, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+            x = torch.randn((n, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
             for relu in (True, False):
                 got = conv3d.conv3x3x3(x, packed, b, relu)
                 torch.cuda.synchronize()
@@ -302,7 +338,7 @@ def check_kernels(device, card: str, batches) -> dict:
                 bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
                 if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
                     raise AssertionError(
-                        f"conv {ci}->{co} @{s}^3 N={n} relu={relu}: kernel disagrees with the "
+                        f"conv {ci}->{co} @{d}x{s}^2 N={n} relu={relu}: kernel disagrees with the "
                         f"plain version (max err {err.max().item():.4g}, worst err/bound "
                         f"{(err / bound).max().item():.3g})"
                     )
@@ -314,14 +350,15 @@ def check_kernels(device, card: str, batches) -> dict:
         w5 = conv3d.unpack_weight(packed, ci).contiguous(memory_format=torch.channels_last_3d)
         xc = x.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: F.conv3d(xc, w5, padding=1))
-        bound, flop, ops = conv_bound(ci, co, s, batches[0])
-        log(f"conv {ci}->{co} @{s}^3 x{layers}: ok at N={'/'.join(map(str, batches))}, "
+        bound, flop, ops = conv_bound(ci, co, s, batches[0], depth=d)
+        log(f"conv {ci}->{co} @{d}x{s}^2 x{layers}: ok at N={'/'.join(map(str, batches))}, "
             f"max_abs_err {shape_err:.4g}; N={batches[0]}: {shape_line(k_ms, bound, flop)}, "
             f"plain {p_ms:.4f} ms, cudnn conv alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, w, b, packed
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"forward, 18 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+    log(f"forward, 18 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn conv alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
 
@@ -634,10 +671,12 @@ TIME_STEPS = 5
 GRAD_SLACK = 1e-3
 
 
-def check_dw_kernels(device, card: str) -> dict:
+def check_dw_kernels(device, card: str, slab: bool = False) -> dict:
     """B2 against its plain version at the 14 shapes (N=1, bf16 inputs, fp32
     reference with TF32 off), two launches bitwise equal; median times of
-    the kernel, the plain version and cuDNN's weight gradient alone."""
+    the kernel, the plain version and cuDNN's weight gradient alone. With
+    ``slab``, at a D-slab's shape with its halo, dy zero on the halo slices
+    as the sharded conv's backward gives it."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
@@ -645,8 +684,11 @@ def check_dw_kernels(device, card: str) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(1)
     for ci, co, s, layers in CONV_SHAPES:
-        x = torch.randn((1, s, s, s, ci), generator=g, device=device).to(torch.bfloat16)
-        dy = torch.randn((1, s, s, s, co), generator=g, device=device).to(torch.bfloat16)
+        d = slab_depth(s, slab)
+        x = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+        dy = torch.randn((1, d, s, s, co), generator=g, device=device).to(torch.bfloat16)
+        if slab:
+            dy[:, 0] = dy[:, -1] = 0
         got = conv3d_grad.conv3x3_dw(x, dy)
         again = conv3d_grad.conv3x3_dw(x, dy)
         torch.cuda.synchronize()
@@ -654,31 +696,33 @@ def check_dw_kernels(device, card: str) -> dict:
         err = (got - ref).abs().max().item()
         bound = DW_BOUND * ref.abs().max().item()
         if not bool(torch.isfinite(got).all()) or err > bound:
-            raise AssertionError(f"dW {ci}->{co} @{s}^3: kernel disagrees with the plain version "
+            raise AssertionError(f"dW {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
                                  f"(max err {err:.4g}, bound {bound:.4g})")
         if not torch.equal(got, again):
-            raise AssertionError(f"dW {ci}->{co} @{s}^3: two launches differ")
+            raise AssertionError(f"dW {ci}->{co} @{d}x{s}^2: two launches differ")
         max_err = max(max_err, err)
         del got, again, ref
         k_ms = median_ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
         p_ms = median_ms(lambda: conv3d_grad.conv3x3_dw_reference(x, dy))
         xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), dyc, padding=1))
-        least, flop, ops = conv_bound(ci, co, s, dw=True)
-        log(f"dW {ci}->{co} @{s}^3 x{layers}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise "
+        least, flop, ops = conv_bound(ci, co, s, dw=True, depth=d)
+        log(f"dW {ci}->{co} @{d}x{s}^2 x{layers}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise "
             f"repeat; {shape_line(k_ms, least, flop)}, plain {p_ms:.4f} ms, cudnn wgrad alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, least, least if ops else 0.0))
         del x, dy
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dW, 18 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+    log(f"dW, 18 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn wgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
 
 
-def check_dx_kernels(device, card: str) -> dict:
+def check_dx_kernels(device, card: str, slab: bool = False) -> dict:
     """B1 as dx (relu off, no bias) at the 17 transposed shapes, N=1, against
     its plain version, with B1's bound; median times of the kernel, the
-    plain version and cuDNN's data gradient alone."""
+    plain version and cuDNN's data gradient alone. With ``slab``, at a
+    D-slab's shape with its halo, dy zero on the halo slices."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
@@ -686,7 +730,10 @@ def check_dx_kernels(device, card: str) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(2)
     for ci, co, s, layers in DX_SHAPES:
-        dy = torch.randn((1, s, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+        d = slab_depth(s, slab)
+        dy = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+        if slab:
+            dy[:, 0] = dy[:, -1] = 0
         w = torch.randn((ci, co, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
         packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16)
         got = conv3d.conv3x3x3(dy, packed, None, False)
@@ -695,7 +742,7 @@ def check_dx_kernels(device, card: str) -> dict:
         err = (got.float() - ref).abs()
         bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
         if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-            raise AssertionError(f"dx {ci}->{co} @{s}^3: kernel disagrees with the plain version "
+            raise AssertionError(f"dx {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
                                  f"(max err {err.max().item():.4g})")
         max_err = max(max_err, err.max().item())
         del got, ref, err, bound
@@ -705,16 +752,17 @@ def check_dx_kernels(device, card: str) -> dict:
         # calls it: the layer's own weight and a real channels-last input
         w_bf = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
         dyc = dy.permute(0, 4, 1, 2, 3)
-        xc = torch.empty((1, s, s, s, co), dtype=torch.bfloat16, device=device).permute(0, 4, 1, 2, 3)
+        xc = torch.empty((1, d, s, s, co), dtype=torch.bfloat16, device=device).permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: torch.ops.aten.convolution_backward(
             dyc, xc, w_bf, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)))
-        bound, flop, ops = conv_bound(ci, co, s)
-        log(f"dx {ci}->{co} @{s}^3 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
+        bound, flop, ops = conv_bound(ci, co, s, depth=d)
+        log(f"dx {ci}->{co} @{d}x{s}^2 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
             f"cudnn dgrad alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del dy, w, packed, w_bf, dyc, xc
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dx, 17 layers of one 128^3 microbatch: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+    log(f"dx, 17 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
 
@@ -2527,31 +2575,59 @@ def dp_trainer(rank: int, world: int, port: int, work: str, backend: str, name: 
     return run
 
 
+@contextlib.contextmanager
+def first_gradients(model, sink: dict):
+    """Inside, the first train step's summed gradients (before the clip and
+    Adam) are copied to the host into ``sink``, by name."""
+    from pcmseg_tpu_torch.train import steps
+
+    real = steps.apply_gradients
+
+    def apply_gradients(state, max_norm):
+        if not sink:
+            sink.update({k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()})
+        return real(state, max_norm)
+
+    steps.apply_gradients = apply_gradients
+    try:
+        yield
+    finally:
+        steps.apply_gradients = real
+
+
 def dp_reference(device):
     """The dp steps in this process without a group: losses, grad norms,
     step seconds and the states after the first and the last step (on the
-    host)."""
+    host); step 1's gradients before the clip and Adam, and the peak device
+    memory of the warm steps above what the process held before (the sp
+    phase's reference too: in the whole script, earlier phases still hold
+    some memory)."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
 
+    held = torch.cuda.memory_allocated(device)
     config = get_config(base_features=BASE_FEATURES, **TRAIN)
     model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
     state, step = create_train_state(model, config), make_train_step(model, config)
-    ref = {"loss": [], "grad_norm": [], "step_s": []}
-    for batch in dp_batches(device):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        metrics = step(state, batch)
-        ref["loss"].append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        ref["step_s"].append(time.perf_counter() - t)
-        ref["grad_norm"].append(float(metrics["grad_norm"]))
-        if len(ref["loss"]) in (1, DP_STEPS):
-            ref["1" if len(ref["loss"]) == 1 else "final"] = {k: v.detach().cpu().clone()
-                                                              for k, v in model.state_dict().items()}
+    ref = {"loss": [], "grad_norm": [], "step_s": [], "grads": {}}
+    with first_gradients(model, ref["grads"]):
+        for batch in dp_batches(device):
+            torch.cuda.synchronize()
+            if len(ref["loss"]) == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            t = time.perf_counter()
+            metrics = step(state, batch)
+            ref["loss"].append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ref["step_s"].append(time.perf_counter() - t)
+            ref["grad_norm"].append(float(metrics["grad_norm"]))
+            if len(ref["loss"]) in (1, DP_STEPS):
+                ref["1" if len(ref["loss"]) == 1 else "final"] = {k: v.detach().cpu().clone()
+                                                                  for k, v in model.state_dict().items()}
+    ref["peak_gib"] = (torch.cuda.max_memory_allocated(device) - held) / 2**30
     del model, state, step
     torch.cuda.empty_cache()
     return ref
@@ -2688,16 +2764,521 @@ def dp_trainers(work: str, world: int, backend: str, card: str, what: str) -> li
     return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
 
 
-def dp_phase(work: str, device, card: str):
+def dp_phase(work: str, device, card: str, ref: dict):
     """Data parallelism across processes on the one card: (a) DP_RANKS
     processes in a gloo group on CUDA tensors (NCCL refuses two ranks on
     one device) through ``dp_steps`` (gloo's all-reduce goes through the
-    host: its times on a shared card are not NCCL's); (b) a one-rank NCCL
-    group through ``dp_trainers``. Returns the (B1, B2) launches of (a)'s
-    ranks and of (b)."""
-    ref = dp_reference(device)
+    host: its times on a shared card are not NCCL's) against ``ref``
+    (dp_reference); (b) a one-rank NCCL group through ``dp_trainers``.
+    Returns the (B1, B2) launches of (a)'s ranks and of (b)."""
     launches_a = dp_steps(work, ref, DP_RANKS, "gloo", card, "dp (a)")
     return launches_a, dp_trainers(work, 1, "nccl", card, "dp (b)")
+
+
+# ---- spatial parallelism (slice 9) ------------------------------------------------
+
+# (a) serving: a 128^3 case and one twice the window deep, which the sharded
+# Predictor serves whole and the unsharded one tiles
+SP_LONG = 2 * SIZE
+# (a) the sharded fp32 forward (plain conv, TF32 off) against the unsharded
+# one: the same sums in another order only
+SP_FP32_BOUND = 1e-4
+# (b) the sharded steps against the one-process steps (dp_reference: the same
+# weights and batches). Each rank's bf16 forward differs from one process's
+# in rounding only: BatchNorm sums its slabs' statistics, and B1 splits K
+# otherwise at a slab's shape for one conv (dx: two), so some bf16
+# activations round the other way, and this random-init network carries
+# such differences far (the gradient phase's bf16-vs-fp32 distance, ~0.69);
+# in fp32 through the plain conv the same sums in another order still moved
+# one conv's weight gradient by 9% of its largest entry (on an H100, 700 W).
+# So the sharding is held where rounding cannot hide a fault: step 1 again
+# in float64 through the plain conv (the logits and the loss in fp32, as the
+# model returns them), sharded against one process, the loss and grad norm
+# within SP_EXACT_RTOL and each gradient tensor within SP_EXACT_SHARE of its
+# largest entry. The bf16 kernel step is held as the gradient phase holds a
+# bf16 gradient: its loss within SP_LOSS1_RTOL of one process's, and its
+# grad norm and each gradient tensor no further from the float64 step's than
+# BF16_MARGIN times one process's bf16 step is, plus GRAD_SLACK of the
+# float64 value. The biases of the BN-preceded convs are left out of the
+# shares: their true gradient is 0, and what remains is rounding. The float64
+# step's gradients still meet one fp32 rounding: the gradient all-reduce sums
+# each rank's partial in an fp32 buffer, and where a tensor's partials cancel
+# that rounding is a larger share of its sum (2.5e-7 at base 4, 32^3 on the
+# CPU), so SP_EXACT_SHARE sits above it, far below a fault's (a missing halo
+# moves the gradients of every conv by the share of voxels at the seams).
+# Steps 2-3: the losses within SP_LOSS_RTOL.
+SP_EXACT_RTOL = 1e-9
+SP_EXACT_SHARE = 1e-4
+SP_LOSS1_RTOL = 1e-5
+SP_LOSS_RTOL = 1e-4
+SP_EPOCHS = 1
+
+
+def halo_bytes(model, size: int, shards: int) -> int:
+    """Bytes of the halo slices that cross between ``shards`` D-slabs in one
+    forward of ``model`` at ``size`` (H = W): every 3³ conv's input, one bf16
+    slice of its level each way across each of the shards - 1 seams."""
+    from pcmseg_tpu_torch.models.unet3d import Conv3x3
+
+    return sum(2 * (shards - 1) * (size >> m.level) ** 2 * m.weight.shape[1] * 2
+               for m in model.modules() if isinstance(m, Conv3x3))
+
+
+def split_plans(model, depth: int, size: int, shards: int, device) -> list:
+    """Per 3³ conv of a forward at (depth, size, size): (B1's split-K count for
+    the whole volume, for one of ``shards`` halo-extended D-slabs)."""
+    from pcmseg_tpu_torch.models.unet3d import Conv3x3
+    from pcmseg_tpu_torch.ops.kernels.build import load_library
+    from pcmseg_tpu_torch.ops.kernels.conv3d import ci_pad
+
+    lib, dev = load_library(), torch_device_index(device)
+
+    def splits(d, s, ci, co):
+        ws = lib.pcmseg_conv3x3x3_workspace_bytes(1, d, s, s, ci_pad(ci), co, dev)
+        return max(1, ws // (d * s * s * co * 4))
+
+    out = []
+    for m in model.modules():
+        if isinstance(m, Conv3x3):
+            co, ci = m.weight.shape[:2]
+            d, s = depth >> m.level, size >> m.level
+            out.append((splits(d, s, ci, co), splits(d // shards + 2, s, ci, co)))
+    return out
+
+
+def torch_device_index(device) -> int:
+    import torch
+
+    return torch.device(device).index if torch.device(device).index is not None else torch.cuda.current_device()
+
+
+def sp_serving(work: str, device, card: str) -> int:
+    """(a) The folded flagship model served with spatial_parallel = SP_RANKS
+    on shards ["cuda:0"] * SP_RANKS (and across cards where the host has
+    them): a 128^3 case, and the case continued to SP_LONG deep (its
+    mirror image below it), which the sharded Predictor serves whole and
+    the unsharded one tiles, each against an unsharded whole-volume
+    forward. The sharding is held in fp32 (the plain conv on both sides,
+    within SP_FP32_BOUND); the kernel's bf16 probabilities bitwise equal to
+    the unsharded ones where B1 splits K alike for every slab and volume,
+    else as check_probs holds a bf16 forward: no further from fp32 than
+    BF16_MARGIN times the unsharded kernel's distance, and its mask no
+    further from fp32's than BF16_MARGIN times that one's; exactly 18 B1 a
+    shard-forward, every one on a halo-extended slab. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.models import unet3d
+    from pcmseg_tpu_torch.ops.kernels import conv3d
+
+    config = get_config(base_features=BASE_FEATURES, norm_layer="batch")
+    inbox, pth = os.path.join(work, "inbox"), os.path.join(work, "model.pth")
+    if not os.path.isfile(pth):  # the phase alone (--only sp)
+        write_cases(inbox, config.modalities)
+        make_checkpoint(pth, config, os.path.join(inbox, sorted(CASES)[0]), device)
+    plain = Predictor(config, pth, device=device)
+    sp_config = config.replace(spatial_parallel=SP_RANKS)
+    arms = [(f"{SP_RANKS} shards on {device}", Predictor(sp_config, pth, device=device,
+                                                          shard_devices=[str(device)] * SP_RANKS))]
+    if torch.cuda.device_count() >= SP_RANKS:
+        arms.append((f"{SP_RANKS} cards", Predictor(sp_config, pth, device=device)))
+    else:
+        log(f"sp (a): {torch.cuda.device_count()} card(s): the sharded forward across cards is not run")
+    image = plain.load_case(os.path.join(inbox, "case_a"))[0]
+    if image.shape[:3] != (SIZE,) * 3:
+        raise AssertionError(f"case_a is {image.shape}")
+    cases = {f"{SIZE}^3": image, f"{SP_LONG}x{SIZE}^2": np.concatenate([image, image[::-1]], axis=0)}
+    real_conv, depths = unet3d.conv3x3x3, []
+
+    def recording(x, *args, **kwargs):  # the D of every B1 input, from every shard's thread
+        depths.append(x.shape[1])
+        return real_conv(x, *args, **kwargs)
+
+    def whole(img):  # the unsharded Predictor's forward of the whole volume, untiled
+        with torch.inference_mode():
+            return plain._apply(plain._upload(img)[None])[0].float().cpu().numpy()
+
+    def flips(p, ref):
+        return int(((p[..., 0] > 0.5) != (ref[..., 0] > 0.5)).sum())
+
+    total = 0
+    for name, img in cases.items():
+        want = whole(img)
+        with plain_conv(plain.models, torch.float32):
+            exact = whole(img)
+        tiled_plain = plain.predict_probs(img)
+        if bool(plain._sw_fns) != (img.shape[0] > config.window_size[0]):
+            raise AssertionError(f"{name}: the unsharded Predictor tiled {bool(plain._sw_fns)}")
+        plans = split_plans(plain.models[0], img.shape[0], SIZE, SP_RANKS, device)
+        same_splits = all(a == b for a, b in plans)
+        err_un = np.abs(want - exact)
+        for arm, sp in arms:
+            sp._sw_fns.clear()
+            conv3d.launches, depths[:] = 0, []
+            unet3d.conv3x3x3 = recording
+            try:
+                got = sp.predict_probs(img)
+            finally:
+                unet3d.conv3x3x3 = real_conv
+            launches, seen = conv3d.launches, sorted(set(depths))
+            total += launches
+            slabs = sorted({(img.shape[0] >> level) // SP_RANKS + 2 for level in range(5)})
+            if sp._sw_fns or launches != 18 * SP_RANKS or seen != slabs or len(depths) != 18 * SP_RANKS:
+                raise AssertionError(f"sp (a) {name} {arm}: tiled {bool(sp._sw_fns)}, {launches} B1 launches "
+                                     f"(expected {18 * SP_RANKS}), input depths {seen} (expected {slabs})")
+            with plain_conv([m for members in sp.replicas.values() for m in members], torch.float32):
+                got_exact = sp.predict_probs(img)
+            sp._sw_fns.clear()
+            d, d32, err_sp = np.abs(got - want), np.abs(got_exact - exact), np.abs(got - exact)
+            mask_s = min(timed_s(lambda: sp.predict_mask(img)) for _ in range(3))
+            plain_s = min(timed_s(lambda: plain.predict_mask(img)) for _ in range(3))
+            log(f"sp (a) {name} served by {arm}: whole (no tiles), {launches} B1 launches = 18 a shard-forward, "
+                f"every conv on a halo-extended slab (input D {seen}); fp32 plain conv sharded against "
+                f"unsharded: max|dp| {d32.max():.3g} (bound {SP_FP32_BOUND}); B1 splits K alike for slab and "
+                f"volume at {sum(a == b for a, b in plans)} of 18 convs; bf16 kernel sharded against unsharded: "
+                f"bitwise equal {bool(np.array_equal(got, want))}, max|dp| {d.max():.4g}, mean|dp| {d.mean():.3g}, "
+                f"mask voxels differing {flips(got, want)} of {img[..., 0].size}; against fp32: sharded max|dp| "
+                f"{err_sp.max():.4g} mean {err_sp.mean():.3g}, {flips(got, exact)} mask voxels off, unsharded "
+                f"max|dp| {err_un.max():.4g} mean {err_un.mean():.3g}, {flips(want, exact)} off (bound "
+                f"{BF16_MARGIN}x); the unsharded Predictor {'tiled' if plain._sw_fns else 'whole'}, "
+                f"{np.abs(tiled_plain - want).max():.4g} from the whole forward; device path (H2D, forward, "
+                f"threshold, D2H) sharded {mask_s * 1e3:.1f} ms, unsharded {plain_s * 1e3:.1f} ms"
+                f"{' (tiled)' if plain._sw_fns else ''}; halo {halo_bytes(plain.models[0], SIZE, SP_RANKS) / 1e6:.1f}"
+                f" MB across the seam a forward [{card}]")
+            if not (np.isfinite(got).all() and d32.max() <= SP_FP32_BOUND):
+                raise AssertionError(f"sp (a) {name} {arm}: the fp32 sharded forward {d32.max()} from the unsharded")
+            if same_splits and not np.array_equal(got, want):
+                raise AssertionError(f"sp (a) {name} {arm}: not bitwise equal where every split matches")
+            if (err_sp.max() > BF16_MARGIN * err_un.max() + 1e-3 or err_sp.mean() > BF16_MARGIN * err_un.mean() + 1e-4
+                    or flips(got, exact) > BF16_MARGIN * flips(want, exact) + 1e-5 * err_sp[..., 0].size):
+                raise AssertionError(f"sp (a) {name} {arm}: the sharded bf16 forward is further from fp32 than "
+                                     f"{BF16_MARGIN}x the unsharded one")
+    del plain, arms
+    torch.cuda.empty_cache()
+    return total
+
+
+def timed_s(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def timed_halos(device, tally: dict):
+    """Inside, every halo exchange (forward and backward) is synchronised and
+    timed into ``tally``, with the bytes of the neighbours' slices a rank
+    receives."""
+    import torch
+
+    from pcmseg_tpu_torch.parallel import collectives
+
+    fn = collectives._HaloExchange
+    saved = fn.forward, fn.backward
+
+    def timed(real):
+        def run(ctx, t, *args):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = real(ctx, t, *args)
+            torch.cuda.synchronize(device)
+            tally["s"] += time.perf_counter() - t0
+            tally["bytes"] += 2 * (ctx.comm.size - 1) * t[:, :1].numel() * t.element_size()
+            tally["calls"] += 1
+            return out
+        return staticmethod(run)
+
+    fn.forward, fn.backward = timed(saved[0]), timed(saved[1])
+    try:
+        yield
+    finally:
+        fn.forward, fn.backward = staticmethod(saved[0]), staticmethod(saved[1])
+
+
+def sp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
+    """One rank of a spatial group (``chip_smoke.py --sp-rank RANK WORLD PORT
+    WORK BACKEND``): the flagship model from the seed on a data 1 x spatial
+    WORLD mesh, DP_STEPS steps of dp_batches, each rank on its D-slab of
+    all 4 microbatches; each step timed and its launches counted, the
+    gradient all-reduce timed inside it, the peak memory of the warm steps;
+    then one more step with every halo exchange timed. Writes the state
+    after step 1 and after the last to WORK/sp_rank{RANK}_{1,final}.pt and
+    step 1's gradients (rank 0) to WORK/sp_grads.pt."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import collectives, multihost
+    from pcmseg_tpu_torch.parallel.sharding import Mesh, shard_batch, shard_state
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+    device = multihost.local_device() if backend == "nccl" else torch.device("cuda", 0)
+    multihost.establish_collectives()
+    config = get_config(base_features=BASE_FEATURES, spatial_parallel=world, **TRAIN)
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    mesh = Mesh(1, world)
+    shard_state(model, mesh)
+    state = create_train_state(model, config)
+    step = make_train_step(model, config, mesh=mesh)
+    reduce_s, real_reduce = [], collectives.GradientAllReduce.__call__
+
+    def timed_reduce(self):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        real_reduce(self)
+        torch.cuda.synchronize(device)
+        reduce_s.append(time.perf_counter() - t)
+
+    collectives.GradientAllReduce.__call__ = timed_reduce
+    out = {"rank": rank, "device": str(device), "loss": [], "grad_norm": [], "step_s": [], "launches": []}
+    grads = {}
+    batches = dp_batches(device)
+    with first_gradients(model, grads):
+        for batch in batches:
+            local = shard_batch(batch, mesh, rank=rank, accum=config.accum_steps)
+            torch.cuda.synchronize(device)
+            if len(out["loss"]) == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            conv3d.launches = conv3d_grad.launches = 0
+            t = time.perf_counter()
+            metrics = step(state, local)
+            out["loss"].append(float(metrics["loss"]))
+            torch.cuda.synchronize(device)
+            out["step_s"].append(time.perf_counter() - t)
+            out["launches"].append([conv3d.launches, conv3d_grad.launches])
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+            if len(out["loss"]) in (1, DP_STEPS):
+                name = "1" if len(out["loss"]) == 1 else "final"
+                torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           os.path.join(work, f"sp_rank{rank}_{name}.pt"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "sp_grads.pt"))
+    halo = {"s": 0.0, "bytes": 0, "calls": 0}
+    with timed_halos(device, halo):
+        local = shard_batch(batches[0], mesh, rank=rank, accum=config.accum_steps)
+        t = time.perf_counter()
+        float(step(state, local)["loss"])
+        torch.cuda.synchronize(device)
+        halo["step_s"] = time.perf_counter() - t
+    out.update(reduce_s=reduce_s, rows=len(local["image"]), slab=list(local["d_slab"]), halo=halo,
+               reduce_bytes=4 * sum(p.numel() for p in model.parameters() if p.requires_grad))
+    del model, state, step
+    out["exact"] = exact_first_step(config, batches[0], device, mesh, rank, os.path.join(work, "sp_grads64.pt"))
+    multihost.shutdown()
+    return out
+
+
+def exact_first_step(config, batch, device, mesh=None, rank=0, path=None) -> dict:
+    """Step 1 of the flagship model from the seed in float64 through the
+    plain conv: on ``mesh`` (this rank's part of ``batch``), or in one
+    process. Returns the loss and grad norm, and its gradients before the
+    clip and Adam (written to ``path`` on rank 0 where given)."""
+    import torch
+
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.parallel.sharding import shard_batch
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config, mesh=mesh)
+    grads = {}
+    if mesh is not None:
+        batch = shard_batch(batch, mesh, rank=rank, accum=config.accum_steps)
+    with plain_train_conv(model, torch.float64), first_gradients(model, grads):
+        metrics = step(state, batch)
+        out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    if path is None:
+        out["grads"] = grads
+    elif rank == 0:
+        torch.save(grads, path)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_steps(work: str, ref: dict, card: str) -> list:
+    """(b) SP_RANKS gloo ranks sharing the card through sp_rank, held against
+    each other and against ``ref`` (dp_reference). Returns the (B1, B2)
+    launches of all ranks."""
+    import re
+
+    import torch
+
+    port, t0 = free_port(), time.perf_counter()
+    ranks = spawn_ranks(lambda r: ["--sp-rank", str(r), str(SP_RANKS), str(port), work, "gloo"], SP_RANKS)
+    wall = time.perf_counter() - t0
+    micro = TRAIN["accum_steps"]
+    per_step = [micro * 35, micro * 18]
+    bitwise = {}
+    for when in ("1", "final"):
+        states = [torch.load(os.path.join(work, f"sp_rank{r}_{when}.pt"), weights_only=True) for r in range(SP_RANKS)]
+        bitwise[when] = all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in states[0])
+    from pcmseg_tpu_torch.core.config import get_config
+
+    exact = exact_first_step(get_config(base_features=BASE_FEATURES, **TRAIN), dp_batches(torch.device("cuda"))[0],
+                             torch.device("cuda"))
+    sharded = torch.load(os.path.join(work, "sp_grads.pt"), weights_only=True)
+    sharded64 = torch.load(os.path.join(work, "sp_grads64.pt"), weights_only=True)
+
+    def share(a, b):
+        """max|a - b| / max|b| per tensor, the BN-preceded conv biases (true gradient 0) apart"""
+        out = {k: float((a[k] - w).abs().max() / w.abs().max().clamp_min(1e-30)) for k, w in b.items()}
+        return ({k: v for k, v in out.items() if not re.search(r"conv\.[03]\.bias$", k)},
+                max(v for k, v in out.items() if re.search(r"conv\.[03]\.bias$", k)))
+
+    s64, b64 = share(sharded64, exact["grads"])
+    s_sp, _ = share(sharded, exact["grads"])
+    s_un, _ = share(ref["grads"], exact["grads"])
+    s_pair, b_pair = share(sharded, ref["grads"])
+    r0 = ranks[0]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    worst64 = max(s64, key=s64.get)
+    beyond = sorted(k for k in s_sp if s_sp[k] > BF16_MARGIN * s_un[k] + GRAD_SLACK)
+    worst_pair = max(s_pair, key=s_pair.get)
+    norm64 = exact["grad_norm"]
+    for r in ranks:
+        h = r["halo"]
+        log(f"sp (b) rank {r['rank']} of {SP_RANKS} (gloo on {r['device']}, {r['rows']} rows, D-slab {r['slab']}, "
+            f"all {micro} microbatches a step): losses {r['loss']}, grad norms {r['grad_norm']}; step "
+            f"{', '.join(f'{s * 1e3:.1f}' for s in r['step_s'])} ms (the first cold); gradient all-reduce of "
+            f"{r['reduce_bytes'] / 1e6:.1f} MB fp32 {', '.join(f'{s * 1e3:.1f}' for s in r['reduce_s'])} ms; "
+            f"halo exchanges of one more step, each synchronised: {h['calls']} calls, {h['s'] * 1e3:.1f} ms, "
+            f"{h['bytes'] / 1e6:.1f} MB received, that step {h['step_s'] * 1e3:.1f} ms; peak device memory of "
+            f"the warm steps {r['peak_gib']:.2f} GiB (one process {ref['peak_gib']:.2f}); launches per step "
+            f"{r['launches']} (expected {per_step}) [{card}; gloo through the host on one shared card, not NCCL]")
+    loss1, norm1 = rel(r0["loss"][0], ref["loss"][0]), rel(r0["grad_norm"][0], ref["grad_norm"][0])
+    later = max(rel(a, b) for a, b in zip(r0["loss"][1:], ref["loss"][1:]))
+    loss64, normrel64 = rel(r0["exact"]["loss"], exact["loss"]), rel(r0["exact"]["grad_norm"], norm64)
+    norm_ok = abs(r0["grad_norm"][0] - norm64) <= BF16_MARGIN * abs(ref["grad_norm"][0] - norm64) + GRAD_SLACK * norm64
+    log(f"sp (b) float64 step 1 through the plain conv, sharded against one process: loss rel {loss64:.3g}, grad "
+        f"norm rel {normrel64:.3g} (bound {SP_EXACT_RTOL}), the largest gradient difference over its tensor's "
+        f"max|g| {s64[worst64]:.3g} at {worst64} (bound {SP_EXACT_SHARE}; the BN-preceded biases, reported: "
+        f"{b64:.3g}) [{card}]")
+    log(f"sp (b) bf16 kernel steps against one process ({', '.join(f'{s * 1e3:.1f}' for s in ref['step_s'])} ms a "
+        f"step): ranks' states bitwise equal after step 1 {bitwise['1']} and step {DP_STEPS} {bitwise['final']}; "
+        f"step 1 loss rel {loss1:.3g} (bound {SP_LOSS1_RTOL}), grad norm rel {norm1:.3g} (reported), the largest "
+        f"gradient difference over its tensor's max|g| {s_pair[worst_pair]:.3g} at {worst_pair} (reported; the "
+        f"BN-preceded biases {b_pair:.3g}); against the float64 step: grad norm {r0['grad_norm'][0]!r} sharded, "
+        f"{ref['grad_norm'][0]!r} one process, {norm64!r} float64 (bound {BF16_MARGIN}x one process's distance + "
+        f"{GRAD_SLACK}), the largest share sharded {max(s_sp.values()):.3g}, one process {max(s_un.values()):.3g}, "
+        f"{len(beyond)} of {len(s_sp)} tensors beyond {BF16_MARGIN}x one process's + {GRAD_SLACK} {beyond[:3]}; "
+        f"later losses rel {later:.3g} (bound {SP_LOSS_RTOL}); the ranks in {wall:.1f} s of processes [{card}]")
+    if any(r["launches"] != [per_step] * DP_STEPS for r in ranks):
+        raise AssertionError(f"sp ranks launched {[r['launches'] for r in ranks]}, expected {per_step} a step")
+    if any(r["loss"] != r0["loss"] or r["grad_norm"] != r0["grad_norm"] or r["exact"] != r0["exact"] for r in ranks) \
+            or not all(bitwise.values()):
+        raise AssertionError("the sp ranks differ")
+    if not (loss64 <= SP_EXACT_RTOL and normrel64 <= SP_EXACT_RTOL and s64[worst64] <= SP_EXACT_SHARE):
+        raise AssertionError(f"sp float64 step against one process: loss {loss64}, grad norm {normrel64}, "
+                             f"gradient share {s64[worst64]} ({worst64})")
+    if not (loss1 <= SP_LOSS1_RTOL and norm_ok and not beyond and later <= SP_LOSS_RTOL):
+        raise AssertionError(f"sp bf16 steps: loss {loss1}, grad norm {r0['grad_norm'][0]} against one process's "
+                             f"{ref['grad_norm'][0]} and float64's {norm64}, tensors beyond the bound {beyond}, "
+                             f"later losses {later}")
+    return [sum(sum(s[i] for s in r["launches"]) for r in ranks) for i in (0, 1)]
+
+
+def sp_trainer(rank: int, world: int, port: int, work: str, backend: str, name: str) -> dict:
+    """A flagship Trainer on a data 1 x spatial WORLD mesh over the cache
+    phase's 12 cases for SP_EPOCHS epoch with validation, from the device
+    cache (``chip_smoke.py --sp-trainer ...``); with ``world`` 0 the same
+    config in one process without a group (a mesh it cannot hold: 1x1x1).
+    Returns its history, launches and the checkpoint writes it made."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import multihost
+    from pcmseg_tpu_torch.train import trainer as trainer_module
+
+    if world:
+        multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+        multihost.establish_collectives()
+    writes, real_write = [], trainer_module.write_train_checkpoint
+
+    def counted_write(*args, **kwargs):
+        writes.append(args[1])
+        return real_write(*args, **kwargs)
+
+    trainer_module.write_train_checkpoint = counted_write
+    save_dir = os.path.join(work, f"sp_{name}")
+    config = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "cache_data"),
+                        cache_dir=os.path.join(work, "preproc"), seed=0, save_dir=save_dir,
+                        spatial_parallel=SP_RANKS, **{**TRAIN, "num_epochs": SP_EPOCHS})
+    trainer = trainer_module.Trainer(config, device=torch.device("cuda", 0))
+    steps = math.ceil(len(trainer.train_indices) / config.batch_size)
+    val_batches = math.ceil(len(trainer.val_indices) / config.batch_size)
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    run = {"rank": rank, "history": history, "wall_s": time.perf_counter() - t0, "mesh": trainer.mesh.shape,
+           "cached": trainer._dcache is not None, "launches": [conv3d.launches, conv3d_grad.launches],
+           "want": [SP_EPOCHS * (steps * config.accum_steps * 35 + val_batches * 18),
+                    SP_EPOCHS * steps * config.accum_steps * 18],
+           "writes": writes, "files": sorted(os.listdir(save_dir)) if os.path.isdir(save_dir) else []}
+    if world:
+        multihost.shutdown()
+    return run
+
+
+def sp_trainers(work: str, card: str) -> list:
+    """(c) sp_trainer as SP_RANKS gloo ranks sharing the card, then in one
+    process without a group: the ranks' histories equal, one checkpoint set
+    written (by the primary alone), exact launch counts. Returns the
+    (B1, B2) launches of all ranks."""
+    if not os.path.isdir(os.path.join(work, "cache_data")):
+        from pcmseg_tpu_torch.core.config import get_config
+
+        write_train_tree(os.path.join(work, "cache_data"), get_config().modalities, CACHE_CASES, ext=".nii")
+    port, t0 = free_port(), time.perf_counter()
+    runs = spawn_ranks(lambda r: ["--sp-trainer", str(r), str(SP_RANKS), str(port), work, "gloo", "g"], SP_RANKS)
+    wall = time.perf_counter() - t0
+    alone = spawn_ranks(lambda r: ["--sp-trainer", "0", "0", "0", work, "gloo", "alone"], 1)[0]
+    rel = max(abs(a - b) / abs(b) for k in ("train_loss", "val_loss")
+              for a, b in zip(runs[0]["history"][k], alone["history"][k]))
+    log(f"sp (c) {SP_RANKS}-rank gloo Trainer, mesh {runs[0]['mesh']}, {CACHE_CASES} cases x {SP_EPOCHS} epoch with "
+        f"validation, device cache {runs[0]['cached']}: history {json.dumps(runs[0]['history'])}, train() "
+        f"{', '.join(f'{r['wall_s']:.1f}' for r in runs)} s; launches {[r['launches'] for r in runs]} (expected "
+        f"{runs[0]['want']} a rank); checkpoint writes by rank {[r['writes'] for r in runs]}, files "
+        f"{runs[0]['files']}; one process without a group (mesh {alone['mesh']}): "
+        f"{json.dumps(alone['history'])}, {alone['wall_s']:.1f} s, losses max rel diff {rel:.3g} (reported); "
+        f"processes {wall:.1f} s [{card}]")
+    if any(r["history"] != runs[0]["history"] for r in runs):
+        raise AssertionError("the sp trainer's ranks differ")
+    want_files = sorted(["latest.pt", "best.pt", "best.pth"])
+    if (runs[0]["writes"] != ["latest"] * SP_EPOCHS or any(r["writes"] for r in runs[1:])
+            or runs[0]["files"] != want_files or alone["files"] != want_files):
+        raise AssertionError(f"sp trainer checkpoints: writes {[r['writes'] for r in runs]}, "
+                             f"files {runs[0]['files']} (expected {want_files})")
+    for r in runs:
+        if r["launches"] != r["want"] or not r["cached"] or r["mesh"] != {"data": 1, "spatial": SP_RANKS, "model": 1}:
+            raise AssertionError(f"sp trainer: {r}")
+        if not all(math.isfinite(v) for vals in r["history"].values() for v in vals):
+            raise AssertionError(f"non-finite history {r['history']}")
+    return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
+
+
+def sp_phase(work: str, device, card: str, ref: dict) -> dict:
+    """Spatial parallelism on the one card: the kernels at a D-slab's shapes
+    against their plain versions, then (a) sharded serving, (b) the sharded
+    steps, (c) the sharded Trainer. Returns the launches of each path and
+    the slab-shape kernel records."""
+    slab = {"fwd": check_kernels(device, card, (1,), slab=True), "dx": check_dx_kernels(device, card, slab=True),
+            "dw": check_dw_kernels(device, card, slab=True)}
+    serve_launches = sp_serving(work, device, card)
+    return {"serve": serve_launches, "train": sp_steps(work, ref, card), "trainer": sp_trainers(work, card),
+            "slab": slab}
 
 
 def free_port() -> int:
@@ -2720,6 +3301,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    # fp32 means fp32 in every process of the script, its ranks' too
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:2] == ["--profiled"]:  # the profiling phase's own process
         print(json.dumps(profiled_runs(sys.argv[2], torch.device("cuda"))))
         return 0
@@ -2731,13 +3315,19 @@ def main() -> int:
         rank, world, port, work, backend, name = sys.argv[2:8]
         print(json.dumps(dp_trainer(int(rank), int(world), int(port), work, backend, name)))
         return 0
+    if sys.argv[1:2] == ["--sp-rank"]:  # a rank of the sp phase's steps
+        rank, world, port, work, backend = sys.argv[2:7]
+        print(json.dumps(sp_rank(int(rank), int(world), int(port), work, backend)))
+        return 0
+    if sys.argv[1:2] == ["--sp-trainer"]:  # a rank of the sp phase's Trainer
+        rank, world, port, work, backend, name = sys.argv[2:8]
+        print(json.dumps(sp_trainer(int(rank), int(world), int(port), work, backend, name)))
+        return 0
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.data.native import get_native_lib
     from pcmseg_tpu_torch.ops.kernels import build
 
     device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_label()
     log(f"device: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}); nvidia-smi: {card}")
@@ -2755,8 +3345,9 @@ def main() -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    if sys.argv[1:] == ["--only", "dp"]:  # the dp phase alone, after the kernels' checks
-        dp_phase(work, device, card)
+    if sys.argv[1:] in (["--only", "dp"], ["--only", "sp"]):  # one phase alone, after the kernels' checks
+        ref = dp_reference(device)
+        (dp_phase if sys.argv[2] == "dp" else sp_phase)(work, device, card, ref)
         shutil.rmtree(work, ignore_errors=True)
         print(card)
         return 0
@@ -2778,7 +3369,9 @@ def main() -> int:
     ingest_launches = ingest(work, server, device, card)
     del server
     torch.cuda.empty_cache()
-    dp_launches = dp_phase(work, device, card)
+    ref = dp_reference(device)
+    dp_launches = dp_phase(work, device, card, ref)
+    sp = sp_phase(work, device, card, ref)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
@@ -2793,11 +3386,16 @@ def main() -> int:
                                  **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0],
                                  "kclass": kclass_launches[0], "profiling": profiling_launches[0],
                                  "async_ckpt": async_launches[0], "ingest": ingest_launches,
-                                 "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0]},
-            "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"]),
+                                 "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0], "sp_serve": sp["serve"],
+                                 "sp_train": sp["train"][0], "sp_trainer": sp["trainer"][0]},
+            "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"], sp["slab"]["fwd"]["max_abs_err"],
+                               sp["slab"]["dx"]["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{f"dx_{k}": dx[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            # the same at one of SP_RANKS D-slabs of a 128^3 microbatch with its halo
+            **{f"slab_{k}": sp["slab"]["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{f"slab_dx_{k}": sp["slab"]["dx"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
         {
             "name": "conv3x3_dw",
@@ -2809,8 +3407,11 @@ def main() -> int:
                                  **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1],
                                  "kclass": kclass_launches[1], "profiling": profiling_launches[1],
                                  "async_ckpt": async_launches[1], "dp_a": dp_launches[0][1],
-                                 "dp_b": dp_launches[1][1]},
+                                 "dp_b": dp_launches[1][1], "sp_train": sp["train"][1],
+                                 "sp_trainer": sp["trainer"][1]},
             **dw,
+            "max_abs_err": max(dw["max_abs_err"], sp["slab"]["dw"]["max_abs_err"]),
+            **{f"slab_{k}": sp["slab"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
     ]}))
     print(card)

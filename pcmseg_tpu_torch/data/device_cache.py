@@ -36,7 +36,12 @@ row indices for a step; the owners of the rows write them into a zeroed
 global batch, which one all-reduce of its bytes makes whole and bitwise
 on every process (``collectives.exchange``); every process then crops and
 augments the global batch from the same generator, as one process would,
-and keeps its own rows (``parallel.sharding.local_rows``).
+and keeps its own rows (``parallel.sharding.local_rows``). On a data ×
+spatial mesh the blocks go by the data coordinate (the ranks of one
+spatial group hold the same block), the exchange runs over the data ranks
+(the ranks that hold the other blocks), and each rank keeps the D-slab of
+its rows after the crop and the augmentation of the whole rows
+(``sharding.shard_batch``).
 """
 
 from __future__ import annotations
@@ -134,12 +139,13 @@ def build_device_cache(
     return cache
 
 
-def gather_rows(images, labels, idx, held: Optional[range] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def gather_rows(images, labels, idx, held: Optional[range] = None, comm=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rows ``idx`` of the stacks, on every process: from the stacks alone
     in one process; when this process ``held`` only those rows of a
     sharded cache, each process writes the rows it holds into a zeroed
-    global batch, which :func:`collectives.exchange` completes bitwise (one
-    all-reduce of the images' and labels' bytes)."""
+    global batch, which :func:`collectives.exchange` over ``comm`` (default:
+    every process; the processes that hold the other blocks) completes
+    bitwise (one all-reduce of the images' and labels' bytes)."""
     idx = np.asarray(idx, np.int64)
     if held is None:
         rows = _on_device(idx, images.device)
@@ -154,7 +160,7 @@ def gather_rows(images, labels, idx, held: Optional[range] = None) -> Tuple[torc
         dst = _on_device(np.asarray(mine, np.int64), images.device)
         out_img.index_copy_(0, dst, images.index_select(0, src))
         out_lab.index_copy_(0, dst, labels.index_select(0, src))
-    collectives.exchange(buf)
+    collectives.exchange(buf, comm)
     return out_img, out_lab
 
 
@@ -428,11 +434,12 @@ def device_random_crop(
     return torch.stack(out_img), torch.stack(out_lab)
 
 
-def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config, held: Optional[range] = None):
+def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config, held: Optional[range] = None,
+                 comm=None):
     """The batch of a cached train step: rows ``idx`` of the stacks
     (:func:`gather_rows`), cropped (``config.train_crop``), then augmented
     (``config.data_augmentation``), on the stacks' device."""
-    img, lab = gather_rows(images, labels, idx, held)
+    img, lab = gather_rows(images, labels, idx, held, comm)
     if config.train_crop is not None:
         img, lab = device_random_crop(
             img, lab, gen, config.train_crop,
@@ -453,36 +460,48 @@ def cached_batch(images, labels, idx, gen: Optional[torch.Generator], config, he
     return img, lab
 
 
-def _local(batch: dict, accum: int) -> dict:
-    """This process's rows (``parallel.sharding.shard_batch``) of a global batch."""
+def _sharded(mesh: Optional[sharding.Mesh]):
+    """(a batch → this process's part of it, the communicator of the
+    exchange) on ``mesh`` (default: every process on 'data')."""
     if not collectives.active():
-        return batch
-    return sharding.shard_batch(batch, sharding.Mesh(multihost.process_count()), accum=accum)
+        return (lambda batch, accum: batch), None
+    mesh = mesh or sharding.Mesh(multihost.process_count())
+    comm = collectives.mesh_comms(mesh).data
+
+    def local(batch: dict, accum: int) -> dict:
+        """This process's rows and D-slab (``parallel.sharding.shard_batch``) of a global batch."""
+        return sharding.shard_batch(batch, mesh, accum=accum)
+
+    return local, comm
 
 
-def make_cached_train_step(config, base_step: Callable, held: Optional[range] = None) -> Callable:
+def make_cached_train_step(config, base_step: Callable, held: Optional[range] = None,
+                           mesh: Optional[sharding.Mesh] = None) -> Callable:
     """(state, images, labels, idx, weights, gen) -> the metrics of
     ``base_step`` (the port's ``make_train_step``) on the batch that
     :func:`cached_batch` gathers, crops and augments
-    (``device_cache.py:584-621``); in a data-parallel job, whose stacks hold
-    the rows ``held``, on this process's rows of it."""
+    (``device_cache.py:584-621``); in a multi-process job, whose stacks
+    hold the rows ``held``, on this process's part of it on ``mesh``."""
+    local, comm = _sharded(mesh)
 
     def step(state, images, labels, idx, weights, gen):
-        img, lab = cached_batch(images, labels, idx, gen, config, held)
+        img, lab = cached_batch(images, labels, idx, gen, config, held, comm)
         batch = {"image": img, "label": lab, "weight": _on_device(weights, img.device)}
-        return base_step(state, _local(batch, config.accum_steps))
+        return base_step(state, local(batch, config.accum_steps))
 
     return step
 
 
-def make_cached_eval_step(base_eval: Callable, held: Optional[range] = None) -> Callable:
+def make_cached_eval_step(base_eval: Callable, held: Optional[range] = None,
+                          mesh: Optional[sharding.Mesh] = None) -> Callable:
     """(state, images, labels, idx, weights) -> the metrics of ``base_eval``
     on rows ``idx`` of the stacks, not augmented (``device_cache.py:624-635``);
-    in a data-parallel job on this process's rows of them."""
+    in a multi-process job on this process's part of them on ``mesh``."""
+    local, comm = _sharded(mesh)
 
     def step(state, images, labels, idx, weights):
-        img, lab = gather_rows(images, labels, idx, held)
+        img, lab = gather_rows(images, labels, idx, held, comm)
         batch = {"image": img, "label": lab, "weight": _on_device(weights, img.device)}
-        return base_eval(state, _local(batch, 1))
+        return base_eval(state, local(batch, 1))
 
     return step

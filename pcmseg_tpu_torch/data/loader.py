@@ -16,6 +16,10 @@ data-parallel process: it decodes and yields only that process's rows of
 every padded global batch (``loader.py:104-108, :190-195``), the rows
 ``parallel.sharding.local_rows`` gives, so the weights of a ragged tail
 stay aligned across the processes however unevenly its real samples fall.
+On a data × spatial mesh ``index`` and ``count`` are the process's data
+coordinate and the data ranks: the processes of one spatial group load
+the same rows, and each keeps its D-slab of them
+(``parallel.sharding.cut_d_slab``, the trainer's host side).
 """
 
 from __future__ import annotations

@@ -34,8 +34,19 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
     postprocessing on the host (``infer/postprocess.py``, per class for a
     label map), atomic write.
 
-``spatial_parallel``, the one option of the JAX Predictor that this package
-has not ported, raises ``NotImplementedError`` at construction.
+With ``spatial_parallel = n`` (``predict.py:375-415``) each member's
+forward runs D-sharded over n shard devices in lockstep: one thread a
+shard, each running the model on its D-slab under a
+``collectives.spatial`` plan of its own, the halos and the GroupNorm sums
+of an unfolded model going between the threads as device-to-device
+copies (``collectives.LocalGroup``); the probabilities are gathered on the
+Predictor's device. The shards are the first n cards when the host has
+them (the caller may name them, e.g. ``["cuda:0", "cuda:0"]``, or
+``["cpu"] * n``); with fewer, the Predictor logs a warning and serves
+unsharded, as JAX's does. TTA flips the whole volume before the split,
+the ensemble shards each member, and a volume up to n windows deep runs
+whole (``d_cap``, ``predict.py:577-581``), its tiles through the sharded
+forward above that.
 ``profile_dir`` is read by the callers (``cli/main.py``'s ``predict`` and
 the server), not by the Predictor. ``pallas_inference`` is a TPU switch and
 is ignored: on CUDA the hand-written kernel is the only conv.
@@ -43,6 +54,8 @@ is ignored: on CUDA the hand-written kernel is the only conv.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
 import math
 import os
@@ -68,6 +81,8 @@ from pcmseg_tpu_torch.infer.validate import (
     require_pth,
 )
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.parallel import collectives, multihost
+from pcmseg_tpu_torch.parallel.sharding import level_plan
 from pcmseg_tpu_torch.train.checkpoints import load_pth
 
 
@@ -243,12 +258,11 @@ def expand_model_paths(checkpoint_path) -> List[str]:
     return paths
 
 
-def unported_options(config: Config) -> List[str]:
-    """The config's Predictor options that this package has not ported."""
-    refused = []
-    if config.spatial_parallel > 1:
-        refused.append(f"spatial_parallel={config.spatial_parallel}")
-    return refused
+def _canonical(device: torch.device) -> torch.device:
+    """``device`` with the current card's index where a CUDA device has none."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def resolve_device(device=None) -> torch.device:
@@ -276,12 +290,16 @@ class Predictor:
         explicit: Sequence[str] = (),
         device=None,
         preloaded: Optional[Tuple[UNet3D, Dict[str, torch.Tensor]]] = None,
+        shard_devices: Optional[Sequence] = None,
     ):
         """``checkpoint_path`` is one path, or several (a comma-separated
         list, a glob such as ``run/best_fold_*.pth``, or a list) for a fold
         ensemble, whose config is adopted from the first member.
         ``preloaded=(model, state_dict)`` serves an already loaded model
-        (the Validator's) with ``config`` as it is, reading no checkpoint."""
+        (the Validator's) with ``config`` as it is, reading no checkpoint.
+        ``shard_devices``: the ``spatial_parallel`` devices of a sharded
+        forward, in D order (default: the host's first cards, if it has
+        enough)."""
         self.log = get_logger("pcmseg.predict")
         if preloaded is None:
             if checkpoint_path is None:
@@ -291,11 +309,6 @@ class Predictor:
                 require_pth(path)
             loaded = load_pth(paths[0])  # read once: config snapshot and weights
             config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
-        refused = unported_options(config)
-        if refused:
-            raise NotImplementedError(
-                "not ported to the PyTorch package yet: " + ", ".join(refused)
-            )
         self.config = config
         self.device = resolve_device(device)
         self.dtype = DTYPES[config.compute_dtype]
@@ -313,9 +326,67 @@ class Predictor:
             self.models += [self._serving_model(*load_model_state(config, p)) for p in paths[1:]]
             if len(paths) > 1:
                 self.log.info("fold-ensemble serving: %d checkpoints (%s)", len(paths), ", ".join(paths))
-        apply = self.models[0].predict if len(self.models) == 1 else self._ensemble_apply
+        self.shards = self._shard_devices(shard_devices)
+        # the members on each shard device (a copy where it is not the Predictor's)
+        self.replicas: Dict[str, List[UNet3D]] = {}
+        if self.shards is None:
+            self._members = [m.predict for m in self.models]
+        else:
+            home = _canonical(self.device)
+            self.replicas = {str(d): [m if _canonical(d) == home else copy.deepcopy(m).to(d) for m in self.models]
+                             for d in dict.fromkeys(self.shards)}
+            self._pool = ThreadPoolExecutor(max_workers=len(self.shards), thread_name_prefix="pcmseg-shard")
+            self._members = [self._sharded_apply([self.replicas[str(d)][i] for d in self.shards])
+                             for i in range(len(self.models))]
+        apply = self._members[0] if len(self._members) == 1 else self._ensemble_apply
         self._apply = make_tta_apply(apply) if config.tta else apply
         self._sw_fns = {}  # per-volume-shape tiled predictors
+
+    def _shard_devices(self, given: Optional[Sequence]) -> Optional[List[torch.device]]:
+        """The devices of the sharded forward, or None to serve unsharded."""
+        n = int(self.config.spatial_parallel)
+        if given is not None:
+            devices = [torch.device(d) for d in given]
+            if n < 2 or len(devices) != n:
+                raise ValueError(f"{len(devices)} shard devices for spatial_parallel={n}")
+            return devices
+        if n < 2:
+            return None
+        local = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if multihost.process_count() == 1 and local >= n:
+            return [torch.device("cuda", i) for i in range(n)]
+        self.log.warning(
+            "spatial_parallel=%d requested but %d local device(s) available in %d process(es); "
+            "serving unsharded", n, local, multihost.process_count(),
+        )
+        return None
+
+    def _sharded_apply(self, replicas: List[UNet3D]):
+        """(N, D, H, W, C) → (N, D, H, W, K) probabilities on the Predictor's
+        device, through one member's ``replicas`` (one a shard device), each
+        on its D-slab in a thread of its own."""
+
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            levels = level_plan(x.shape[1], len(replicas))
+            group = collectives.LocalGroup(len(replicas))
+
+            def run(rank: int) -> torch.Tensor:
+                device = self.shards[rank]
+                start, stop = levels.slabs[0][rank]
+                plan = collectives.SpatialPlan(group.member(rank), levels)
+                cuda = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+                try:
+                    with torch.inference_mode(), cuda, collectives.spatial(plan, this_thread=True):
+                        return replicas[rank].predict(x[:, start:stop].to(device))
+                except BaseException:
+                    group.abort()  # the other shards leave their barrier now
+                    raise
+
+            futures = [self._pool.submit(run, r) for r in range(len(replicas))]
+            slabs = [f.result() for f in futures]
+            return torch.cat([p.to(self.device) for p in slabs], 1)
+
+        return apply
 
     def _serving_model(self, model: UNet3D, state_dict: Dict[str, torch.Tensor]) -> UNet3D:
         cfg = self.config
@@ -328,10 +399,10 @@ class Predictor:
     def _ensemble_apply(self, x: torch.Tensor) -> torch.Tensor:
         """The members' mean probability, summed in fp32 in member order."""
         total = None
-        for model in self.models:
-            p = model.predict(x)
+        for member in self._members:
+            p = member(x)
             total = p if total is None else total + p
-        return total / len(self.models)
+        return total / len(self._members)
 
     def _upload(self, image) -> torch.Tensor:
         """Host array → device tensor in the compute dtype; on CUDA through
@@ -356,8 +427,10 @@ class Predictor:
             raise ValueError(f"expected (D,H,W,C), got {tuple(image.shape)}")
         x = self._upload(image)
         ws = self.config.window_size
+        # sharded, a card holds 1/n of the D axis: volumes n windows deep run whole
+        d_cap = ws[0] * (len(self.shards) if self.shards is not None else 1)
         needs_tiling = self.config.sliding_window or any(
-            s > w for s, w in zip(x.shape[:3], ws)
+            s > w for s, w in zip(x.shape[:3], (d_cap, ws[1], ws[2]))
         )
         if not needs_tiling:
             return self._apply(x[None])[0]

@@ -21,8 +21,9 @@ and the Predictor stays resident:
     on every exit path, ``run`` at its end) writes a window that is still
     open (``serve.py:69-78, 191-235``).
 
-Fold ensembles, TTA, postprocessing and K-class heads (uint8 label maps of
-class ids) come with the Predictor.
+Fold ensembles, TTA, postprocessing, K-class heads (uint8 label maps of
+class ids) and spatially sharded forwards (``spatial_parallel``) come with
+the Predictor.
 """
 
 from __future__ import annotations

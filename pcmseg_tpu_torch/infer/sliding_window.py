@@ -7,7 +7,9 @@ each tile's probabilities are weighted by a Gaussian centred in the window
 Tiles go through the network ``tile_batch`` at a time; the last group is
 padded with repeats of the first start, which are skipped when scattering.
 Accumulation runs in place on the device, so the caller fetches one
-tensor.
+tensor. A spatially sharded Predictor passes its sharded forward as the
+network: each tile batch is split along D over the shards
+(``predict.py:595-615``).
 """
 
 from __future__ import annotations

@@ -21,7 +21,10 @@ or several as a fold ensemble), on the GPU unless given ``device="cpu"``:
     (``clip(rint(label), 0, K−1)``) and the surface metrics score the
     foreground union (``validate.py:225-300, 396-440``);
   * the JSON artifacts and their fields are the JAX package's:
-    ``validation_results.json`` and ``validation_results_native.json``.
+    ``validation_results.json`` and ``validation_results_native.json``;
+  * ``spatial_parallel``: the Predictor's paths (the ensemble and
+    ``validate_native()``) run its sharded forward (``validate.py:495``);
+    the single model's eval step runs in this one process, unsharded.
 
 Also here, used by the
 Predictor: the checkpoint config adoption and model loading of ``.pth``

@@ -27,6 +27,19 @@ With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
 
 Parameters are fp32; activations run in ``dtype`` (bf16 by default); the
 logits come back fp32.
+
+Spatial parallelism: under a ``collectives.spatial`` plan the forward runs
+on this rank's D-slab of the volume. Every module knows its U-Net level
+(``level``: 0 at full resolution, 4 at the bottleneck). At a level the
+plan shards, a 3³ conv runs on its slab with the neighbours' facing
+slices around it (``ops.hybrid_conv.halo_conv``), and GroupNorm sums its
+per-sample statistics over the slabs. ``Down`` gathers the whole D
+(``collectives.gather_d``) before pooling into the first level the plan
+runs replicated, and ``Up`` pads its upsampled whole volume to the
+level's global shape and keeps this rank's slab where it rejoins a
+sharded level. BatchNorm sums over the ranks ``collectives.norm_scope``
+names: with those of the other slabs at a sharded level, without them
+where the statistics are already whole.
 """
 
 from __future__ import annotations
@@ -37,13 +50,12 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pcmseg_tpu_torch.parallel import collectives, multihost
-from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train
+from pcmseg_tpu_torch.parallel import collectives
+from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train, halo_conv
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 
 MIN_INPUT_SIZE = 16  # four 2x max-pools
@@ -59,6 +71,8 @@ class Conv3x3(nn.Module):
     weight is built the first time a forward needs it after a load or a
     move, and reused until the parameter changes again.
     """
+
+    level = 0  # the U-Net level (set by UNet3D)
 
     def __init__(self, in_ch: int, out_ch: int, relu: bool, device=None):
         super().__init__()
@@ -79,10 +93,16 @@ class Conv3x3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         packed = self.packed_weight(x.dtype)
-        if torch.is_grad_enabled():
-            y = conv3x3_train(x, self.weight, self.bias, packed)
-            return torch.relu(y) if self.relu else y
-        return conv3x3x3(x, packed, self.bias.detach(), self.relu)
+        train = torch.is_grad_enabled()
+
+        def conv(t):
+            if train:
+                return conv3x3_train(t, self.weight, self.bias, packed)
+            return conv3x3x3(t, packed, self.bias.detach(), self.relu)
+
+        plan = collectives.spatial_plan()
+        y = halo_conv(conv, x, plan.comm) if plan is not None and plan.sharded(self.level) else conv(x)
+        return torch.relu(y) if train and self.relu else y
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -93,23 +113,23 @@ class _BatchNormTrain(torch.autograd.Function):
     the analytic one, in fp32, saving only x in its own dtype.
 
     With ``sync`` (inside ``collectives.synchronized_batch``) the batch is
-    every data-parallel rank's part of it, as JAX's BatchNorm over a batch
-    sharded on 'data' is: the forward all-reduces (Σx, Σx²) before the mean
-    and variance, over the ranks times this rank's count (every rank holds
-    as many rows), and the backward all-reduces (Σdy, Σdy·(x − mean)) for
-    dx only. dγ and dβ stay this rank's sums: the gradient all-reduce sums
-    them once.
+    every rank's part of it, as JAX's BatchNorm over a batch sharded on
+    'data' and 'spatial' is: the forward all-reduces (Σx, Σx²) before the
+    mean and variance over the ranks that ``collectives.norm_scope`` names
+    for the module's ``level`` (the other rows and, at a sharded level, the
+    other D-slabs), with the count of their voxels, and the backward
+    all-reduces (Σdy, Σdy·(x − mean)) over the same ranks for dx only. dγ
+    and dβ stay this rank's sums: the gradient all-reduce sums them once.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, sync=False):
+    def forward(ctx, x, weight, bias, eps, sync=False, level=0):
         dims = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        world = multihost.process_count() if sync else 1
-        if sync:
-            n = world * (x.numel() // x.shape[-1])
-            sums = torch.stack([xf.sum(dims), xf.square().sum(dims)])
-            dist.all_reduce(sums)
+        voxels = x.numel() // x.shape[-1]
+        comm, n = collectives.norm_scope(level, voxels, x.shape[1]) if sync else (None, voxels)
+        if comm is not None:
+            sums = comm.all_reduce(torch.stack([xf.sum(dims), xf.square().sum(dims)]))
             mean = sums[0] / n
             var = (sums[1] / n - mean.square()).clamp_min(0.0)
         else:
@@ -119,7 +139,7 @@ class _BatchNormTrain(torch.autograd.Function):
         mult = weight.to(mean.dtype) * r
         shift = bias.to(mean.dtype) - mean * mult
         ctx.save_for_backward(x, weight, mean, r, mult)
-        ctx.world, ctx.sync = world, sync
+        ctx.comm, ctx.n = comm, n
         ctx.mark_non_differentiable(mean, var)
         return x * mult.to(x.dtype) + shift.to(x.dtype), mean, var
 
@@ -127,20 +147,18 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, r, mult = ctx.saved_tensors
         dims = tuple(range(x.dim() - 1))
-        n = ctx.world * (x.numel() // x.shape[-1])
+        n = ctx.n
         dyf = dy.to(mean.dtype)
         xc = x.to(mean.dtype) - mean
         ds = dyf.sum(dims)  # dL/dshift
         dxc = (dyf * xc).sum(dims)  # Σ dy·(x − mean)
         ds_all, dxc_all = ds, dxc
-        if ctx.sync:
-            sums = torch.stack([ds, dxc])
-            dist.all_reduce(sums)
-            ds_all, dxc_all = sums[0], sums[1]
+        if ctx.comm is not None:
+            ds_all, dxc_all = ctx.comm.all_reduce(torch.stack([ds, dxc]))
         # mult = γ·r, shift = β − mean·mult, r = (var + eps)^-½
         dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc_all
         dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds_all / n
-        return dx.to(x.dtype), r * dxc, ds, None, None
+        return dx.to(x.dtype), r * dxc, ds, None, None, None
 
 
 class BatchNorm(nn.BatchNorm3d):
@@ -157,6 +175,7 @@ class BatchNorm(nn.BatchNorm3d):
     """
 
     update_running_stats = True
+    level = 0  # the U-Net level (set by UNet3D)
     # a list while a data-parallel step defers the running-statistics update
     # (layout (b), train/steps.py): each forward appends its (mean, unbiased
     # var) instead, and the step replays the global chain in microbatch order
@@ -165,10 +184,11 @@ class BatchNorm(nn.BatchNorm3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             sync = collectives.batch_synchronized()
-            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, sync)
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, sync, self.level)
             if self.update_running_stats:
-                world = multihost.process_count() if sync else 1
-                n = world * (x.numel() // x.shape[-1])
+                n = x.numel() // x.shape[-1]
+                if sync:
+                    n = collectives.norm_scope(self.level, n, x.shape[1])[1]
                 unbiased = var * (n / max(n - 1, 1))
                 if self.stat_log is not None:
                     self.stat_log.append((mean, unbiased))
@@ -199,18 +219,27 @@ class _GroupNormFn(torch.autograd.Function):
     the fast variance E[x²] − mean² clipped at 0, in fp32 over (voxels,
     channels of the group); ``y = (x − mean)·(rsqrt(var + eps)·γ) + β`` in
     fp32, cast to x's dtype. The backward is the analytic one, in fp32,
-    saving x in its own dtype and the (N, G) statistics only."""
+    saving x in its own dtype and the (N, G) statistics only.
+
+    With ``comm`` (this rank holds one D-slab of each sample) the sums
+    behind every mean over a sample's voxels are summed over ``comm``'s
+    slabs, ``count`` being the sample's whole voxel count times the
+    group's channels."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, groups, eps):
+    def forward(ctx, x, weight, bias, groups, eps, comm=None, count=None):
         xg = _group_view(x, groups).to(torch.promote_types(x.dtype, torch.float32))
-        mean = xg.mean((1, 3))
-        var = (xg.square().mean((1, 3)) - mean.square()).clamp_min(0.0)
+        if comm is None:
+            mean = xg.mean((1, 3))
+            var = (xg.square().mean((1, 3)) - mean.square()).clamp_min(0.0)
+        else:
+            sums = comm.all_reduce(torch.stack([xg.sum((1, 3)), xg.square().sum((1, 3))])) / count
+            mean, var = sums[0], (sums[1] - sums[0].square()).clamp_min(0.0)
         r = torch.rsqrt(var + eps)
         mult = r[:, None, :, None] * _group_view(weight.to(r.dtype)[None], groups)
         y = (xg - mean[:, None, :, None]) * mult + _group_view(bias.to(r.dtype)[None], groups)
         ctx.save_for_backward(x, weight, mean, r)
-        ctx.groups = groups
+        ctx.groups, ctx.comm, ctx.count = groups, comm, count
         return y.reshape(x.shape).to(x.dtype)
 
     @staticmethod
@@ -227,10 +256,14 @@ class _GroupNormFn(torch.autograd.Function):
             db = dyg.sum((0, 1)).reshape(-1)
         if ctx.needs_input_grad[0]:
             dxhat = dyg * _group_view(weight.to(r.dtype)[None], g)
-            dx = r4 * (dxhat - dxhat.mean((1, 3), keepdim=True)
-                       - xhat * (dxhat * xhat).mean((1, 3), keepdim=True))
+            if ctx.comm is None:
+                m1, m2 = dxhat.mean((1, 3), keepdim=True), (dxhat * xhat).mean((1, 3), keepdim=True)
+            else:
+                sums = torch.stack([dxhat.sum((1, 3), keepdim=True), (dxhat * xhat).sum((1, 3), keepdim=True)])
+                m1, m2 = ctx.comm.all_reduce(sums) / ctx.count
+            dx = r4 * (dxhat - m1 - xhat * m2)
             dx = dx.reshape(x.shape).to(x.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None, None
 
 
 class GroupNorm(nn.GroupNorm):
@@ -238,8 +271,14 @@ class GroupNorm(nn.GroupNorm):
     same in training and eval: no running statistics. State-dict keys are
     ``nn.GroupNorm``'s (``weight``, ``bias``)."""
 
+    level = 0  # the U-Net level (set by UNet3D)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+        plan = collectives.spatial_plan()
+        if plan is None or not plan.sharded(self.level):
+            return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps)
+        count = x[0].numel() // x.shape[1] * plan.depth(self.level) // self.num_groups
+        return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps, plan.comm, count)
 
 
 @contextlib.contextmanager
@@ -320,11 +359,11 @@ class ConvTranspose2x(nn.Module):
         return y + self.bias.to(x.dtype)
 
 
-def _pad_to_match(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Zero-pad x's spatial dims to ref's; the low side gets diff // 2."""
+def _pad_to_match(x: torch.Tensor, shape) -> torch.Tensor:
+    """Zero-pad x's spatial dims to ``shape`` (D, H, W); the low side gets diff // 2."""
     pads = []
     for ax in (3, 2, 1):  # F.pad lists the last dim first
-        diff = ref.shape[ax] - x.shape[ax]
+        diff = shape[ax - 1] - x.shape[ax]
         pads += [diff // 2, diff - diff // 2]
     if any(pads):
         x = F.pad(x, [0, 0] + pads)
@@ -332,6 +371,12 @@ def _pad_to_match(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 class Down(nn.Module):
+    """Max-pool from level ``level − 1``, DoubleConv at ``level``; on a
+    spatially sharded rank the whole D is gathered first where ``level``
+    runs replicated and ``level − 1`` sharded."""
+
+    level = 1  # set by UNet3D
+
     def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
@@ -339,11 +384,19 @@ class Down(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        plan = collectives.spatial_plan()
+        if plan is not None and plan.sharded(self.level - 1) and not plan.sharded(self.level):
+            x = collectives.gather_d(x, plan, self.level - 1)
         return self.maxpool_conv(x)
 
 
 class Up(nn.Module):
-    """Transposed conv to ``out_ch``, pad-align, concat [skip, up], DoubleConv."""
+    """Transposed conv to ``out_ch``, pad-align, concat [skip, up], DoubleConv,
+    at ``level``. On a spatially sharded rank whose ``level`` is sharded and
+    the level below replicated, the upsampled whole volume is padded to the
+    level's global shape and cut to this rank's slab."""
+
+    level = 0  # set by UNet3D
 
     def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
@@ -351,7 +404,13 @@ class Up(nn.Module):
         self.conv = DoubleConv(2 * out_ch, out_ch, norm_layer, groups, device)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = _pad_to_match(self.up(x), skip)
+        x = self.up(x)
+        plan = collectives.spatial_plan()
+        if plan is not None and plan.sharded(self.level) and not plan.sharded(self.level + 1):
+            start, stop = plan.slab(self.level)
+            x = _pad_to_match(x, (plan.depth(self.level), *skip.shape[2:4]))[:, start:stop]
+        else:
+            x = _pad_to_match(x, skip.shape[1:4])
         return self.conv(torch.cat([skip.to(x.dtype), x], dim=-1))
 
 
@@ -422,6 +481,12 @@ class UNet3D(nn.Module):
             self.ds1 = Conv1x1(8 * f, n_classes, device)
             self.ds2 = Conv1x1(4 * f, n_classes, device)
             self.ds3 = Conv1x1(2 * f, n_classes, device)
+        for level, blocks in enumerate(((self.inc, self.up4), (self.down1, self.up3), (self.down2, self.up2),
+                                        (self.down3, self.up1), (self.down4,))):
+            for block in blocks:
+                for m in block.modules():
+                    if isinstance(m, (Conv3x3, BatchNorm, GroupNorm, Down, Up)):
+                        m.level = level
         if torch.device(device or "cpu").type != "meta":
             self.reset_parameters(generator)
 
@@ -460,9 +525,16 @@ class UNet3D(nn.Module):
                 f"expected {self.n_modalities} input channels (NDHWC), "
                 f"got shape {tuple(x.shape)}"
             )
-        if any(s < MIN_INPUT_SIZE for s in x.shape[1:4]):
+        plan = collectives.spatial_plan()
+        dims = tuple(x.shape[1:4])
+        if plan is not None:
+            start, stop = plan.slab(0)
+            if x.shape[1] != stop - start:
+                raise ValueError(f"D-slab of {x.shape[1]} voxels where the plan holds [{start}, {stop})")
+            dims = (plan.depth(0), *dims[1:])
+        if any(s < MIN_INPUT_SIZE for s in dims):
             raise ValueError(
-                f"spatial dims {tuple(x.shape[1:4])} too small: the 4-level "
+                f"spatial dims {dims} too small: the 4-level "
                 f"U-Net needs every spatial dim >= {MIN_INPUT_SIZE}"
             )
         x = x.to(self.dtype)

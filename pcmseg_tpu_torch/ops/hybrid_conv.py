@@ -15,17 +15,25 @@ The port of ``pcmseg_tpu/ops/hybrid_conv.py::conv3x3_hybrid`` with
 On CPU tensors every kernel wrapper runs its plain PyTorch version.
 ``conv3x3_plain`` is the plain version of the whole Function: autograd of
 ``F.conv3d`` in x's dtype, with the bias added in fp32 as B1 does.
+
+``halo_conv`` runs a conv on one rank's D-slab of a spatially sharded
+volume: on the slab with its neighbours' facing slices around it
+(``collectives.halo_exchange``), keeping the output's inner slices. In
+training its backward is the Function's own: dy zero-extended by the
+slicing, dx through B1 on it and dW through B2 on the extended x; the
+halos' cotangents go back to the neighbours.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 from pcmseg_tpu_torch.ops.kernels.conv3d_grad import conv3x3_dw
+from pcmseg_tpu_torch.parallel.collectives import Comm, halo_exchange
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -84,3 +92,11 @@ def conv3x3_plain(
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype), padding=1).permute(0, 2, 3, 4, 1)
     acc = torch.promote_types(x.dtype, torch.float32)
     return (y.to(acc) + bias.to(acc)).to(x.dtype).contiguous()
+
+
+def halo_conv(conv: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``conv`` (a 3³ SAME conv over NDHWC) of the whole volume, on this
+    rank's D-slab ``x`` of it: ``conv`` of the slab extended by one
+    neighbouring slice on each side (zeros at the volume's ends), less its
+    first and last output slices."""
+    return conv(halo_exchange(x, comm))[:, 1:-1].contiguous()

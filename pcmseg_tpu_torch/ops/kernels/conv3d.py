@@ -16,13 +16,16 @@ multiple of 64, in the packed weight and, by the wrapper, in x.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-# kernel launches since the count was last set to 0 (CPU calls not counted)
+# kernel launches since the count was last set to 0 (CPU calls not counted);
+# a sharded Predictor launches from one thread a shard
 launches = 0
+_count_lock = threading.Lock()
 
 
 def ci_pad(ci: int) -> int:
@@ -151,5 +154,6 @@ def conv3x3x3(
             f"(x {tuple(x.shape)}, Co={co})"
         )
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

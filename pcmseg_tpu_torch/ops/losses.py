@@ -5,12 +5,14 @@ sigmoid (binary head) or softmax over the K channels (``n_classes >= 2``,
 integer (N, ..., 1) label maps of class ids 0..K−1) → global flatten over
 the whole batch → fp32 sums, whatever the logits' dtype (the sums run over
 up to 2 M voxels per sample). Inside ``collectives.synchronized_batch`` every
-one of those sums runs over the global batch of all data-parallel ranks
-(``batch_sum``), as JAX's do over a batch sharded on 'data'; the result is
+one of those sums runs over the global batch of all ranks (``batch_sum``),
+as JAX's do over a batch sharded on 'data' and 'spatial'; the result is
 then the same on every rank. An optional (N,) 0/1 ``weight`` masks padded
 samples out: for the overlap losses their probabilities and targets are
 zeroed before the sums, for the per-voxel losses the mean runs over the
-real samples only.
+real samples only: each sample's mean over its voxels (summed over its
+D-slabs first, ``spatial_sum``), then the weighted mean over the rows
+(``row_sum``).
 
 K-class: per-class soft Dice / Tversky averaged over the classes, softmax
 cross-entropy as the analog of BCE, focal cross-entropy. The standalone
@@ -26,7 +28,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from pcmseg_tpu_torch.parallel.collectives import batch_sum, batch_synchronized
+from pcmseg_tpu_torch.parallel.collectives import batch_sum, batch_synchronized, row_sum, spatial_plan, spatial_sum
 
 Tensor = torch.Tensor
 
@@ -63,8 +65,14 @@ def _weighted_mean(per_elem: Tensor, weight: Optional[Tensor]) -> Tensor:
     # samples all have the same voxel count, so the masked per-voxel mean is
     # the weighted mean of the per-sample means
     w = weight.to(per_elem.dtype)
-    per_sample = per_elem.mean(dim=tuple(range(1, per_elem.dim())))
-    num, den = batch_sum(torch.stack([(per_sample * w).sum(), w.sum()]))
+    dims = tuple(range(1, per_elem.dim()))
+    if spatial_plan() is None:
+        per_sample = per_elem.mean(dim=dims)
+    else:  # this rank holds one D-slab of each sample
+        count = per_elem.new_full((per_elem.shape[0],), per_elem[0].numel())
+        total, count = spatial_sum(torch.stack([per_elem.sum(dim=dims), count]))
+        per_sample = total / count
+    num, den = row_sum(torch.stack([(per_sample * w).sum(), w.sum()]))
     return num / den.clamp_min(1.0)
 
 

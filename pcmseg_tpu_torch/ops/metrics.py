@@ -3,7 +3,9 @@ step uses them (``train/steps.py:392-400``): per sample, over flattened
 binary masks, Dice = 2·∩ / (Σp + Σt + EPS) and IoU = ∩ / (Σp + Σt − ∩ +
 EPS), EPS in the denominator only (the reference validator's formulas). For
 K-class label maps, the same per foreground class 1..K−1
-(``steps.py:366-378``).
+(``steps.py:366-378``). Where a rank holds one D-slab of each sample
+(``collectives.spatial``), the per-sample sums go over the slabs before
+the ratios.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from pcmseg_tpu_torch.parallel.collectives import spatial_sum
 
 EPS = 1e-8
 
@@ -22,8 +26,7 @@ def per_sample_dice_iou(
     n = pred.shape[0]
     p = pred.reshape(n, -1).float()
     t = target.reshape(n, -1).float()
-    inter = (p * t).sum(1)
-    psum, tsum = p.sum(1), t.sum(1)
+    inter, psum, tsum = spatial_sum(torch.stack([(p * t).sum(1), p.sum(1), t.sum(1)]))
     return (2.0 * inter) / (psum + tsum + eps), inter / (psum + tsum - inter + eps)
 
 

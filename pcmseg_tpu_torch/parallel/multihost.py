@@ -17,6 +17,10 @@ several.
   * :func:`establish_collectives` runs one all-reduce while the processes
     are aligned, so a backend's communicator is made before the first real
     step.
+  * :func:`mesh_coordinates` and :func:`mesh_groups`: a rank's place on a
+    (data, spatial, model) mesh, in the order of JAX's ``make_mesh``
+    (``pcmseg_tpu/parallel/sharding.py:61-64``), and the process groups of
+    the ranks that share one coordinate.
 
 Without a process group every function gives the single-process answer.
 """
@@ -118,6 +122,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _coordinator = None
+    _groups.clear()
 
 
 def _rank() -> int:
@@ -212,3 +217,38 @@ def establish_collectives(tag: str = "pcmseg_warmup") -> None:
     if float(x) != process_count():
         raise RuntimeError(f"all-reduce of ones over {process_count()} processes gave {float(x)}")
     barrier(tag)
+
+
+def mesh_coordinates(rank: int, data: int, spatial: int, model: int = 1) -> tuple:
+    """(d, s, m) of ``rank`` on a data × spatial × model mesh: the ranks in
+    the order JAX reshapes its devices, ``rank = (d·spatial + s)·model + m``."""
+    if not 0 <= rank < data * spatial * model:
+        raise ValueError(f"rank {rank} outside a {data}x{spatial}x{model} mesh")
+    return rank // (spatial * model), (rank // model) % spatial, rank % model
+
+
+_groups: dict = {}
+
+
+def mesh_groups(data: int, spatial: int) -> dict:
+    """This rank's process groups on a data × spatial mesh over the whole
+    job: ``{'spatial': (group, ranks), 'data': (group, ranks)}``, the ranks
+    that hold the same rows (one per D-slab) and those that hold the same
+    D-slab (one per rows), each group as ``dist.new_group`` made it (None:
+    the whole job). Every rank makes every group, spatial groups by data
+    coordinate and then data groups by spatial coordinate, as
+    ``new_group`` asks; made once per mesh shape and process group."""
+    if data * spatial != process_count():
+        raise ValueError(f"a {data}x{spatial} mesh over {process_count()} processes")
+    key = (data, spatial)
+    if key not in _groups:
+        every = {"spatial": [[d * spatial + s for s in range(spatial)] for d in range(data)],
+                 "data": [[d * spatial + s for d in range(data)] for s in range(spatial)]}
+        d, s, _ = mesh_coordinates(process_index(), data, spatial)
+        mine = {}
+        for axis, lists in every.items():
+            made = [None if len(r) == process_count() else dist.new_group(r) for r in lists]
+            pick = d if axis == "spatial" else s
+            mine[axis] = (made[pick], lists[pick])
+        _groups[key] = mine
+    return _groups[key]

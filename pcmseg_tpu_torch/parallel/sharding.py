@@ -1,37 +1,48 @@
-"""The ('data', 'spatial', 'model') mesh over the ranks and the rows of a
-global batch each rank trains: the port of
-``pcmseg_tpu/parallel/sharding.py:35-128`` as far as data parallelism
-needs it.
+"""The ('data', 'spatial', 'model') mesh over the ranks, the rows of a
+global batch each rank trains and the D-slab of those rows it holds: the
+port of ``pcmseg_tpu/parallel/sharding.py:35-128``.
 
 One rank is one process on one card. ``data`` ranks train disjoint rows of
 each global batch with replicated parameters; BatchNorm and the loss sum
 over the global batch (``collectives``), as GSPMD made them in JAX, and
-the gradients are summed by one all-reduce a step. ``spatial`` and
-``model`` (tensor) parallelism are not ported: a config with either above 1
-is refused by name where a trainer or step is built
+the gradients are summed by one all-reduce a step. ``spatial`` ranks hold
+the same rows, each a slab of the volume's D axis (:func:`level_plan`):
+the ranks of a mesh are ordered as JAX's (``multihost.mesh_coordinates``),
+so rank ``d·spatial + s`` holds rows ``d`` and slab ``s``. ``model``
+(tensor) parallelism is not ported: a config with it above 1 is refused
+by name where a trainer or step is built
 (``train/steps.py::refuse_unported_training``).
 
 A padded global batch of B rows, run as A microbatches of m = B / A rows
-(JAX's ``lax.scan`` over ``reshape(A, m, ...)``), is spread over P ranks
-in one of two layouts (:func:`microbatch_layout`):
+(JAX's ``lax.scan`` over ``reshape(A, m, ...)``), is spread over P data
+ranks in one of two layouts (:func:`microbatch_layout`):
 
   (a) P divides m: every rank holds m / P rows of every microbatch, and
       BatchNorm and the loss are synchronised inside each microbatch;
   (b) P divides A: every rank runs A / P whole microbatches, the
       contiguous block ``rank·A/P .. (rank+1)·A/P − 1``, with no collective
-      inside a microbatch.
+      between data ranks inside a microbatch.
 
 :func:`local_rows` gives a rank's rows in the order its step runs them, so
 a loader or a gather hands each rank exactly those rows. With A = 1 it is
 the contiguous slice ``rank·B/P .. (rank+1)·B/P − 1``, JAX's
 ``process_shard``.
+
+D-slabs (:func:`d_slabs`, :func:`level_plan`): the D voxels of the input
+are dealt out in whole pairs, as evenly as they go, so every slab but the
+last is even and starts at an even index and 2³ max-pooling stays inside
+a slab; the level below then holds the halved slabs. A level runs sharded
+while its slabs came from such a pooling; from the first level where a
+slab would start at an odd index (16³ over 4 ranks: level 3; 18³ over 2:
+level 2) the activations are gathered whole onto every rank of the
+spatial group, and the deeper levels run replicated.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -40,6 +51,9 @@ from pcmseg_tpu_torch.parallel import multihost
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
 MODEL_AXIS = "model"
+# the key of a batch whose arrays hold one D-slab of their rows: (start, stop, depth)
+D_SLAB = "d_slab"
+LEVELS = 5  # the U-Net's resolutions: the input's and four pooled ones
 
 
 @dataclass(frozen=True)
@@ -136,20 +150,95 @@ def batch_sharding(mesh: Mesh, global_batch: int, accum: int = 1, rank: Optional
     """The rows of a padded global batch of ``global_batch`` rows that this
     rank (default: this process) trains on ``mesh``'s data axis."""
     rank = multihost.process_index() if rank is None else rank
-    return local_rows(global_batch, accum, mesh.data, rank % mesh.data)
+    d, _, _ = multihost.mesh_coordinates(rank, mesh.data, mesh.spatial, mesh.model)
+    return local_rows(global_batch, accum, mesh.data, d)
+
+
+def d_slabs(depth: int, parts: int) -> List[Tuple[int, int]]:
+    """[start, stop) of each of ``parts`` D-slabs of a volume ``depth`` deep:
+    whole voxel pairs dealt out as evenly as they go (the first slabs one
+    pair longer), the last slab keeping an odd trailing voxel. Raises when
+    a slab would be empty."""
+    pairs = depth // 2
+    if parts < 1 or pairs < parts:
+        raise ValueError(f"D={depth} cannot be split into {parts} slabs of whole voxel pairs")
+    base, extra = divmod(pairs, parts)
+    bounds, start = [], 0
+    for r in range(parts):
+        stop = start + 2 * (base + (r < extra))
+        bounds.append((start, stop))
+        start = stop
+    bounds[-1] = (bounds[-1][0], depth)
+    return bounds
+
+
+@dataclass(frozen=True)
+class LevelPlan:
+    """Where the D axis of each U-Net level lies over the ranks of a spatial
+    group: ``depths[l]``, the level's whole D, and ``slabs[l]``, each rank's
+    [start, stop) there, or None where the level runs replicated (the whole
+    D on every rank)."""
+
+    depths: Tuple[int, ...]
+    slabs: Tuple[Optional[Tuple[Tuple[int, int], ...]], ...]
+
+    def sharded(self, level: int) -> bool:
+        return self.slabs[level] is not None
+
+
+def level_plan(depth: int, parts: int) -> LevelPlan:
+    """The D-slabs of every level for an input ``depth`` deep over ``parts``
+    ranks (module docstring): level 0 by :func:`d_slabs`; level l + 1
+    sharded, with level l's bounds halved (the last stop the level's own
+    D), while every slab of level l starts at an even index and none of
+    level l + 1 is empty."""
+    depths = [depth]
+    for _ in range(LEVELS - 1):
+        depths.append(depths[-1] // 2)
+    slabs: List[Optional[Tuple[Tuple[int, int], ...]]] = [tuple(d_slabs(depth, parts))]
+    for level in range(1, LEVELS):
+        above = slabs[-1]
+        below = None
+        if above is not None and all(start % 2 == 0 for start, _ in above):
+            halved = [(start // 2, stop // 2) for start, stop in above[:-1]] + [(above[-1][0] // 2, depths[level])]
+            if all(stop > start for start, stop in halved):
+                below = tuple(halved)
+        slabs.append(below)
+    return LevelPlan(tuple(depths), tuple(slabs))
+
+
+def cut_d_slab(batch: dict, mesh: Mesh, rank: Optional[int] = None) -> dict:
+    """A batch of whole rows → this rank's D-slab of them on a spatial
+    mesh (``mesh.spatial`` > 1): every array or tensor of 5 dims (the image
+    and the label: N, D, H, W, C) is sliced along D, and ``D_SLAB`` records
+    (start, stop, depth). On a mesh without a spatial axis, the batch."""
+    if mesh.spatial == 1:
+        return batch
+    rank = multihost.process_index() if rank is None else rank
+    _, s, _ = multihost.mesh_coordinates(rank, mesh.data, mesh.spatial, mesh.model)
+    depths = {v.shape[1] for v in batch.values() if getattr(v, "ndim", 0) == 5}
+    if len(depths) != 1:
+        raise ValueError(f"batch entries disagree on the D axis: {sorted(depths)}")
+    depth = depths.pop()
+    start, stop = d_slabs(depth, mesh.spatial)[s]
+    out = {k: v[:, start:stop] if getattr(v, "ndim", 0) == 5 else v for k, v in batch.items()}
+    out[D_SLAB] = (start, stop, depth)
+    return out
 
 
 def shard_batch(batch: Any, mesh: Mesh, rank: Optional[int] = None, accum: int = 1) -> Any:
     """This rank's rows (:func:`batch_sharding`) of a global batch dict:
     arrays, tensors and lists with a leading batch axis are sliced, other
-    values pass through. Arrays and tensors are cut by slicing and
+    values pass through; on a spatial mesh then its D-slab of them
+    (:func:`cut_d_slab`). Arrays and tensors are cut by slicing and
     reshaping, with no index tensor (nothing waits for a copy to the card)."""
     sizes = {len(v) for v in batch.values() if isinstance(v, list) or getattr(v, "ndim", 0) >= 1}
     if len(sizes) != 1:
         raise ValueError(f"batch entries disagree on the batch size: {sorted(sizes)}")
     n, world, accum = sizes.pop(), mesh.data, max(1, int(accum))
-    rank = (multihost.process_index() if rank is None else rank) % world
-    rows = local_rows(n, accum, world, rank)
+    rank = multihost.process_index() if rank is None else rank
+    d, _, _ = multihost.mesh_coordinates(rank, mesh.data, mesh.spatial, mesh.model)
+    rows = local_rows(n, accum, world, d)
 
     def take(v):
         if isinstance(v, list):
@@ -158,11 +247,11 @@ def shard_batch(batch: Any, mesh: Mesh, rank: Optional[int] = None, accum: int =
             return v
         if microbatch_layout(n, accum, world) == "a":
             part = n // accum // world
-            return v.reshape(accum, world, part, *v.shape[1:])[:, rank].reshape(accum * part, *v.shape[1:])
+            return v.reshape(accum, world, part, *v.shape[1:])[:, d].reshape(accum * part, *v.shape[1:])
         share = n // world
-        return v[rank * share: (rank + 1) * share]
+        return v[d * share: (d + 1) * share]
 
-    return {k: take(v) for k, v in batch.items()}
+    return cut_d_slab({k: take(v) for k, v in batch.items()}, mesh, rank)
 
 
 def param_spec(shape, tp: int) -> tuple:

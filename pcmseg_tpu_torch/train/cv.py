@@ -10,9 +10,9 @@ reference-layout ``best_fold_{k}.pth`` that ``predict``, ``serve`` and
 an aggregate ``cv_results.json`` with the mean and the sample std
 (ddof=1) of the folds' best validation losses.
 
-Under a data-parallel process group every process runs every fold's
-Trainer in step (each fold data-parallel); the primary alone writes the
-JSON files, and every process meets it at a barrier after each, so a
+Under a process group every process runs every fold's Trainer in step
+(each fold on the Trainer's data × spatial mesh); the primary alone writes
+the JSON files, and every process meets it at a barrier after each, so a
 resumed run reads the same completed folds on every process.
 """
 

@@ -27,24 +27,39 @@ L2, not AdamW). The learning rate lives in the param group.
 Metrics stay device tensors so the trainer can fetch a step's loss after
 the next step is queued.
 
-Data parallelism (``parallel/``): one path for every process, without a
-process group too (P = 1, no collective runs). In a group of P ranks (P = 1
-included, where every collective is an identity) each rank's step receives
-its rows of the padded global batch (``sharding.local_rows``) and leaves
-the same state on every rank. The layout follows the
-microbatching (``sharding.microbatch_layout``): (a) when P divides the
-microbatch, every microbatch is global: BatchNorm and the loss sum over
-every rank's rows (``collectives.synchronized_batch``), and each rank seeds
-its backward with 1/P of the replicated loss; (b) when P divides
-``accum_steps`` instead, each rank runs its own whole microbatches with no
-collective inside, records each BatchNorm forward's statistics instead of
-moving the running statistics, and after the last microbatch every rank
-replays the running-statistics chain of all microbatches in their global
-order (JAX's ``lax.scan`` carry, ``steps.py:264-275``), from the exchanged
-per-microbatch statistics. Then one all-reduce sums the gradients
-(``collectives.GradientAllReduce``), divided by ``accum_steps``; the norm,
-clip, Adam and EMA follow on identical values on every rank. The loss is
-the mean of the global microbatch losses, summed in microbatch order.
+Data and spatial parallelism (``parallel/``): one path for every process,
+without a process group too (one rank, no collective runs). In a group
+(of one rank too, where every collective is an identity) the step runs on
+a data × spatial mesh (``sharding.Mesh``; default: every rank on 'data').
+Each rank's step receives its rows of the padded global batch
+(``sharding.local_rows``, by its data coordinate) and, on a spatial mesh,
+its D-slab of them (``sharding.cut_d_slab``, by its spatial coordinate;
+a batch of whole rows is cut here), and leaves the same state on every
+rank. The layout follows the microbatching over the P data ranks
+(``sharding.microbatch_layout``): (a) when P divides the microbatch, every
+microbatch is global: BatchNorm and the loss sum over every rank's part
+(``collectives.synchronized_batch``), and each rank seeds its backward
+with 1/world of the replicated loss; (b) when P divides ``accum_steps``
+instead, each data rank runs its own whole microbatches, synchronised
+only with the other D-slabs of its rows (seeding 1/spatial), records each
+BatchNorm forward's statistics instead of moving the running statistics,
+and after the last microbatch every rank replays the running-statistics
+chain of all microbatches in their global order (JAX's ``lax.scan``
+carry, ``steps.py:264-275``), from the per-microbatch statistics
+exchanged over the data ranks. Then one all-reduce over every rank sums
+the gradients (``collectives.GradientAllReduce``: other rows' and other
+slabs' partial sums alike), divided by ``accum_steps``; the norm, clip,
+Adam and EMA follow on identical values on every rank. The loss is the
+mean of the global microbatch losses, summed in microbatch order.
+
+On a spatial mesh the forward and the loss run under a
+``collectives.spatial`` plan (``models/unet3d.py``: halo convs, gathered
+deep levels). Each output is scored on the rows this rank owns: its slab
+at a sharded level; at a replicated level (a deep-supervision head) the
+rows whose nearest label voxel lies in its label slab (``slab_targets``,
+JAX's index rule on global coordinates, on the labels gathered whole), so
+the ranks' loss terms are disjoint and their sums over the group are the
+whole loss.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from pcmseg_tpu_torch.models.unet3d import BatchNorm
 from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
 from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
+from pcmseg_tpu_torch.parallel.collectives import SpatialPlan
 
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
@@ -149,13 +165,36 @@ def align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return labels
 
 
+def slab_targets(out: torch.Tensor, labels: torch.Tensor, plan: SpatialPlan, level: int):
+    """(the D-rows of ``out``, an output at U-Net ``level``, that this rank
+    scores; their labels) on a spatially sharded rank, from ``labels``, the
+    whole D of its rows. Row i of the level's whole D takes the label of
+    voxel ``floor((i + 0.5) · D / D_level)``, :func:`align_labels`' rule on
+    global coordinates. ``out`` holds the level's slab where the level is
+    sharded, all of which this rank scores; the whole D where it runs
+    replicated, of which this rank scores the rows whose voxel lies in its
+    level-0 slab, so that the ranks' rows tile the level."""
+    depth, (start, stop) = plan.depth(0), plan.slab(level)
+    if out.shape[1] != stop - start or labels.shape[1] != depth:
+        raise ValueError(f"an output of D={out.shape[1]} at level {level} (the plan holds [{start}, {stop})) "
+                         f"and labels of D={labels.shape[1]} (the volume's D is {depth})")
+    src = (2 * torch.arange(start, stop) + 1) * depth // (2 * plan.depth(level))
+    if not plan.sharded(level):
+        s0, e0 = plan.slab(0)
+        owned = ((src >= s0) & (src < e0)).tolist()  # src grows with i: one run of rows
+        a = owned.index(True) if any(owned) else 0
+        out, src = out[:, a: a + sum(owned)], src[a: a + sum(owned)]
+    if labels.dim() == out.dim() - 1:
+        labels = labels[..., None]
+    labels = labels.index_select(1, src.to(labels.device))
+    return out, align_labels(out, labels)
+
+
 def unported_training_options(config) -> List[str]:
     """The config's training options that this package has not ported."""
-    refused = []
-    for name in ("spatial_parallel", "tensor_parallel"):
-        if getattr(config, name) > 1:
-            refused.append(f"{name}={getattr(config, name)}")
-    return refused
+    if config.tensor_parallel > 1:
+        return [f"tensor_parallel={config.tensor_parallel}"]
+    return []
 
 
 def refuse_unported_training(config) -> None:
@@ -165,17 +204,18 @@ def refuse_unported_training(config) -> None:
 
 
 def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[torch.Tensor],
-                          accum: int, owned: range) -> torch.Tensor:
-    """Layout (b): every rank's per-microbatch BatchNorm statistics and
-    losses, exchanged exactly, then the running statistics moved through
-    all ``accum`` microbatches in their global order, as one process moves
-    them. Returns the (accum,) microbatch losses in that order."""
+                          accum: int, owned: range, comm) -> torch.Tensor:
+    """Layout (b): every data rank's per-microbatch BatchNorm statistics and
+    losses, exchanged exactly over ``comm`` (the data ranks), then the
+    running statistics moved through all ``accum`` microbatches in their
+    global order, as one process moves them. Returns the (accum,)
+    microbatch losses in that order."""
     local = torch.stack([
         torch.cat([parts[i].reshape(1)] + [torch.cat(log[i]) for log in logs]) for i in range(len(owned))
     ])
     table = torch.zeros((accum, local.shape[1]), dtype=local.dtype, device=local.device)
     table[owned.start: owned.stop] = local
-    collectives.exchange(table)
+    collectives.exchange(table, comm)
     for j in range(accum):
         offset = 1
         for m in norms:
@@ -185,7 +225,54 @@ def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[
     return table[:, 0]
 
 
-def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None) -> Callable:
+class _MeshStep:
+    """What a step knows of its mesh: the groups of this rank (None without
+    a process group), its data coordinate, and the D-slab plan of a batch."""
+
+    def __init__(self, config, mesh: Optional[sharding.Mesh]):
+        active = collectives.active()
+        if mesh is None:
+            mesh = sharding.make_mesh(-1, config.spatial_parallel) if active else sharding.Mesh()
+        if mesh.model > 1:
+            raise NotImplementedError(f"not ported to the PyTorch package yet: tensor_parallel={mesh.model}")
+        if not active and mesh.size > 1:
+            raise ValueError(f"a {mesh.data}x{mesh.spatial} mesh needs a process group of {mesh.size} ranks")
+        self.mesh = mesh
+        self.comms = collectives.mesh_comms(mesh) if active else None
+        self.data_index = (
+            multihost.mesh_coordinates(multihost.process_index(), mesh.data, mesh.spatial)[0] if active else 0
+        )
+        self._levels: Dict[int, sharding.LevelPlan] = {}
+
+    def slab_plan(self, batch: dict):
+        """(the batch as this rank holds it, its ``SpatialPlan`` or None): on
+        a spatial mesh a batch of whole rows is cut to this rank's slab."""
+        if self.mesh.spatial == 1:
+            return batch, None
+        if sharding.D_SLAB not in batch:
+            batch = sharding.cut_d_slab(batch, self.mesh)
+        start, stop, depth = batch[sharding.D_SLAB]
+        if depth not in self._levels:
+            self._levels[depth] = sharding.level_plan(depth, self.mesh.spatial)
+        plan = SpatialPlan(self.comms.spatial, self._levels[depth])
+        if plan.slab(0) != (start, stop):
+            raise ValueError(f"a batch of D-slab [{start}, {stop}) on the rank of slab {plan.slab(0)}")
+        return batch, plan
+
+    def synchronized(self, layout: str = "a"):
+        """The ``synchronized_batch`` of a microbatch in ``layout``: (a) the
+        voxels over every rank and the samples over the data ranks; (b) the
+        voxels over the other D-slabs only (none without them)."""
+        if self.comms is None:
+            return collectives.synchronized_batch(False)
+        if layout == "a":
+            return collectives.synchronized_batch(batch=self.comms.world, rows=self.comms.data)
+        return collectives.synchronized_batch(self.mesh.spatial > 1, batch=self.comms.spatial)
+
+
+def make_train_step(
+    model: nn.Module, config, loss_fn: Optional[Callable] = None, mesh: Optional[sharding.Mesh] = None
+) -> Callable:
     """(state, batch) -> {'loss', 'grad_norm'} (device tensors), updating
     ``state`` in place.
 
@@ -195,34 +282,42 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
     in order, each forward updating the BN running statistics; the gradients
     are summed and divided by ``accum_steps`` and the loss is the mean of
     the microbatch losses (``steps.py:244-276``). ``grad_norm`` is the global
-    norm before clipping. In a data-parallel job ``batch`` is this rank's
-    rows of the global batch (module docstring).
+    norm before clipping. In a job of several ranks ``batch`` is this
+    rank's rows of the global batch, whole or its D-slab of them, on
+    ``mesh`` (module docstring).
     """
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     accum = max(1, int(config.accum_steps))
     ema_decay = float(config.ema_decay)
     clip = float(config.grad_clip_norm or 0.0)
-    world, rank = multihost.process_count(), multihost.process_index()
+    on = _MeshStep(config, mesh)
+    dp = on.mesh.data
     sync_grads = collectives.GradientAllReduce(list(model.parameters()))
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
 
-    def objective(out, labels, weight):
+    def objective(out, labels, weight, plan):
         if not model.deep_supervision:
             return loss_fn(out, align_labels(out, labels), weight)
         logits, aux = out
+        # a rank scores a coarse head on rows whose labels may lie in other slabs
+        whole = collectives.gather_d(labels, plan, 0) if plan is not None else None
         total = 0.0
-        for w, o in zip(DS_WEIGHTS, (logits, *aux)):
-            total = total + w * loss_fn(o, align_labels(o, labels), weight)
+        for level, (w, o) in enumerate(zip(DS_WEIGHTS, (logits, *aux))):
+            if plan is None or level == 0:  # level 0: the output's slab is the labels'
+                o, t = o, align_labels(o, labels)
+            else:
+                o, t = slab_targets(o, whole, plan, level)
+            total = total + w * loss_fn(o, t, weight)
         return total
 
-    def data_parallel_loss(images, labels, weight) -> torch.Tensor:
+    def data_parallel_loss(images, labels, weight, plan) -> torch.Tensor:
         """This rank's microbatches, forward and backward; the gradients
         still this rank's own (without a process group: every microbatch,
         layout (a) with one rank). Returns the mean of the global
         microbatch losses."""
-        layout = sharding.microbatch_layout(images.shape[0] * world, accum, world)
-        n_micro = accum if layout == "a" else accum // world
+        layout = sharding.microbatch_layout(images.shape[0] * dp, accum, dp)
+        n_micro = accum if layout == "a" else accum // dp
         micro = images.shape[0] // n_micro
         if weight is None and accum > 1:
             # as JAX's scan over microbatches (steps.py:259-263)
@@ -232,12 +327,12 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
             for m in norms:
                 m.stat_log = []
         try:
-            with collectives.synchronized_batch(layout == "a"):
+            with on.synchronized(layout), collectives.spatial(plan):
                 scale = collectives.backward_scale()
                 for i in range(n_micro):
                     sl = slice(i * micro, (i + 1) * micro)
                     w = None if weight is None else weight[sl]
-                    part = objective(model(images[sl]), labels[sl], w)
+                    part = objective(model(images[sl]), labels[sl], w, plan)
                     (part * scale).backward()
                     parts.append(part.detach())
         finally:
@@ -245,14 +340,16 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
             for m in norms:
                 m.stat_log = None
         if layout == "b":
-            owned = sharding.owned_microbatches(accum, world, rank)
-            parts = list(_replay_running_stats(norms, logs, parts, accum, owned))
+            owned = sharding.owned_microbatches(accum, dp, on.data_index)
+            data_comm = on.comms.data if on.comms is not None else None
+            parts = list(_replay_running_stats(norms, logs, parts, accum, owned, data_comm))
         loss = torch.zeros((), device=images.device)
         for part in parts:
             loss = loss + part
         return loss / accum
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch, plan = on.slab_plan(batch)
         images = batch["image"]
         labels = align_labels(images[..., :1], batch["label"])
         weight = batch.get("weight")
@@ -260,7 +357,7 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        loss = data_parallel_loss(images, labels, weight)
+        loss = data_parallel_loss(images, labels, weight, plan)
         sync_grads()
         if accum > 1:
             for p in params:
@@ -279,7 +376,11 @@ def make_train_step(model: nn.Module, config, loss_fn: Optional[Callable] = None
 
 
 def make_eval_step(
-    model: nn.Module, config, loss_fn: Optional[Callable] = None, return_pred: bool = False
+    model: nn.Module,
+    config,
+    loss_fn: Optional[Callable] = None,
+    return_pred: bool = False,
+    mesh: Optional[sharding.Mesh] = None,
 ) -> Callable:
     """(state, batch) -> {'loss', 'dice', 'iou', 'dice_sum', 'iou_sum',
     'weight_sum'}: the batch loss with the running statistics, and Dice/IoU
@@ -289,17 +390,24 @@ def make_eval_step(
     ('dice_class', 'iou_class', (N, K−1)), 'dice' and 'iou' are the means
     over those classes, and 'pred' is the (N, D, H, W, 1) uint8 label map.
     With EMA on (and ``ema_eval``) the averaged parameters are scored;
-    ``state`` is read for its ``ema`` only. In a data-parallel job the loss
-    and the three sums are over every rank's rows of the global batch, the
-    per-sample entries this rank's own."""
+    ``state`` is read for its ``ema`` only. In a job of several ranks the
+    loss and the three sums are over every rank's rows of the global batch,
+    the per-sample entries those of this rank's rows (summed over their
+    D-slabs on a spatial ``mesh``; 'pred' this rank's slab)."""
     refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     threshold = config.threshold
     n_classes = int(config.n_classes)
     use_ema = config.ema_decay > 0 and config.ema_eval
+    on = _MeshStep(config, mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch, plan = on.slab_plan(batch)
+        with collectives.spatial(plan):
+            return scores(state, batch)
+
+    def scores(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         images, weight = batch["image"], batch.get("weight")
         model.eval()
         if use_ema and state.ema is not None:
@@ -318,9 +426,9 @@ def make_eval_step(
             pred = (torch.sigmoid(logits.float()) > threshold).float()
             dice, iou = per_sample_dice_iou(pred, labels)
         w = weight.float() if weight is not None else torch.ones_like(dice)
-        with collectives.synchronized_batch():
+        with on.synchronized():
             loss = loss_fn(logits, labels, weight)
-            sums = collectives.batch_sum(torch.stack([(dice * w).sum(), (iou * w).sum(), w.sum()]))
+            sums = collectives.row_sum(torch.stack([(dice * w).sum(), (iou * w).sum(), w.sum()]))
         out.update(loss=loss, dice=dice, iou=iou, dice_sum=sums[0], iou_sum=sums[1], weight_sum=sums[2])
         if return_pred:
             out["pred"] = pred.to(torch.uint8)

@@ -58,8 +58,18 @@ checkpoints, and every process meets it at a barrier over the store after
 each write (from the writer thread under ``async_checkpoint``, where the
 latest-wins collapse is off so that every process writes the same
 sequence). vol/s counts the global batch's samples. In one process a
-mesh the host cannot hold warns and runs 1×1×1, as JAX's does. Spatial and
-tensor parallelism are not ported and raise ``NotImplementedError``
+mesh the host cannot hold warns and runs 1×1×1, as JAX's does.
+
+Spatial parallelism (``trainer.py:108-145``): a data × spatial mesh over
+the processes (``spatial_parallel`` > 1; rank ``d·spatial + s``). The
+processes of one data coordinate ``d`` load the same rows (the loaders'
+``process_shard`` is ``(d, data)``, the cache holds block ``d``), and each
+keeps its D-slab ``s`` of every batch (``sharding.cut_d_slab``, on the
+host before the copy to the card; from the cache after the crop and the
+augmentation of the whole rows); the steps run on the mesh
+(``train/steps.py``). A card so holds 1/data of the cached stacks, where
+JAX's hold 1/(data·spatial), and the cache's budget counts the data ranks
+only. Tensor parallelism is not ported and raises ``NotImplementedError``
 naming the option.
 """
 
@@ -80,7 +90,14 @@ from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan,
 from pcmseg_tpu_torch.infer.predict import resolve_device
 from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
 from pcmseg_tpu_torch.parallel import collectives, multihost
-from pcmseg_tpu_torch.parallel.sharding import Mesh, make_mesh, microbatch_layout, padded_batch_size, shard_state
+from pcmseg_tpu_torch.parallel.sharding import (
+    Mesh,
+    cut_d_slab,
+    make_mesh,
+    microbatch_layout,
+    padded_batch_size,
+    shard_state,
+)
 from pcmseg_tpu_torch.train.checkpoints import (
     AsyncCheckpointWriter,
     copy_train_checkpoint,
@@ -177,7 +194,7 @@ class Trainer:
         if self.mesh.size != self.process_count:
             raise ValueError(
                 f"mesh {self.mesh.data}x{self.mesh.spatial}x{self.mesh.model} over {self.process_count} "
-                "processes: a data-parallel job runs one process per rank of the mesh"
+                "processes: a multi-process job runs one process per rank of the mesh"
             )
         if not self.is_primary:
             self.log.setLevel("WARNING")
@@ -185,9 +202,11 @@ class Trainer:
         # the processes and the accumulation steps
         accum = max(1, int(config.accum_steps))
         self._pad_to = padded_batch_size(config.batch_size, self.mesh.data, self.process_count, accum)
-        microbatch_layout(self._pad_to, accum, self.process_count)  # raises on a layout the step cannot run
-        # in a process group (of one rank too) the loaders and the cache shard
-        self._shard = (self.process_index, self.process_count) if collectives.active() else None
+        microbatch_layout(self._pad_to, accum, self.mesh.data)  # raises on a layout the step cannot run
+        # in a process group (of one rank too) the loaders and the cache
+        # shard by this process's data coordinate
+        data_index = multihost.mesh_coordinates(self.process_index, self.mesh.data, self.mesh.spatial)[0]
+        self._shard = (data_index, self.mesh.data) if collectives.active() else None
 
         augmenter = None
         if config.data_augmentation or config.train_crop:
@@ -229,8 +248,8 @@ class Trainer:
         )
         self.state = create_train_state(model.to(self.device), config)
         shard_state(model, self.mesh)  # the same parameters on every rank, or raise
-        self._train_step = make_train_step(model, config)
-        self._eval_step = make_eval_step(model, config)
+        self._train_step = make_train_step(model, config, mesh=self.mesh)
+        self._eval_step = make_eval_step(model, config, mesh=self.mesh)
         self._setup_device_cache(augmenter)
         self._epochs_run = 0  # cached epochs: their plan and draws are (seed, epoch) derived
 
@@ -250,7 +269,8 @@ class Trainer:
     def _setup_device_cache(self, augmenter) -> None:
         """Full cache, partial cache or streaming, by the budget of one card
         times the data-parallel ranks, which split the stacks
-        (``trainer.py:225-337``)."""
+        (``trainer.py:225-337``; JAX's stacks split over the spatial ranks
+        too, and its budget counts them)."""
         config = self.config
         self._dcache = None
         self._dcache_partial = False
@@ -260,7 +280,7 @@ class Trainer:
         if config.device_data_cache_gb <= 0:
             self.log.info("device data cache off (device_data_cache_gb=0): every epoch streams from the host")
             return
-        shards = self.mesh.data * self.mesh.spatial
+        shards = self.mesh.data
         n_fit = int(config.device_data_cache_gb * 1e9 * shards // per_case)
         resident = None
         if n_fit >= n_cases:
@@ -287,8 +307,8 @@ class Trainer:
             self.dataset, self.device, indices=resident if self._dcache_partial else None, shard=self._shard,
         )
         held = self._dcache["rows"]
-        self._cached_train_step = device_cache.make_cached_train_step(config, self._train_step, held)
-        self._cached_eval_step = device_cache.make_cached_eval_step(self._eval_step, held)
+        self._cached_train_step = device_cache.make_cached_train_step(config, self._train_step, held, self.mesh)
+        self._cached_eval_step = device_cache.make_cached_eval_step(self._eval_step, held, self.mesh)
         if not self._dcache_partial:
             return
         # case index -> stack row, and the train/val sets split into their
@@ -408,7 +428,7 @@ class Trainer:
             for batch in loader:
                 # the global batch's unpadded samples (a process's rows hold a share)
                 batch.setdefault("n_real", float(np.sum(batch["weight"])))
-                yield batch
+                yield cut_d_slab(batch, self.mesh)
 
         return prefetch_to_device(host_batches(), self.device, self.dtype, size=self.config.prefetch)
 

@@ -102,14 +102,17 @@ def _worker(mode, pid, nproc, port, data_dir, save_dir) -> int:
     from pcmseg_tpu_torch.train.trainer import Trainer
 
     if mode == "sync":
-        # a mesh that does not span the processes raises; spatial parallelism is refused by name
-        for bad, error in ((dict(data_parallel=1), ValueError), (dict(spatial_parallel=2), NotImplementedError)):
+        # a mesh that does not span the processes raises; tensor parallelism is refused by name;
+        # a spatial mesh over the processes builds (tests/test_torch_sp_parity.py trains one)
+        for bad, error in ((dict(data_parallel=1), ValueError), (dict(tensor_parallel=2), NotImplementedError)):
             try:
                 Trainer(config.replace(**bad), device="cpu")
             except error as e:
-                assert "processes" in str(e) or "spatial_parallel=2" in str(e), e
+                assert "processes" in str(e) or "tensor_parallel=2" in str(e), e
             else:
                 raise AssertionError(f"{bad} built a trainer over {nproc} processes")
+        spatial = Trainer(config.replace(spatial_parallel=nproc), device="cpu")
+        assert spatial.mesh.shape == {"data": 1, "spatial": nproc, "model": 1}
     trainer = Trainer(config, device="cpu")
     assert trainer.mesh.shape == {"data": nproc, "spatial": 1, "model": 1}
     if mode == "cache":  # each process decoded and holds its block of the 6 cases only

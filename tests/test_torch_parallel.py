@@ -177,12 +177,16 @@ def test_shard_batch_slices_arrays_tensors_and_lists():
 
 
 def test_unported_axes_and_tensor_parallel_specs_are_refused():
+    """Spatial parallelism is ported (tests/test_torch_spatial.py): only
+    tensor parallelism is refused by name."""
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.parallel.sharding import param_spec
-    from pcmseg_tpu_torch.train.steps import refuse_unported_training
+    from pcmseg_tpu_torch.train.steps import refuse_unported_training, unported_training_options
 
-    with pytest.raises(NotImplementedError, match="spatial_parallel=2, tensor_parallel=2"):
+    with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
         refuse_unported_training(get_config(spatial_parallel=2, tensor_parallel=2))
+    assert unported_training_options(get_config(spatial_parallel=2, tensor_parallel=2)) == ["tensor_parallel=2"]
+    refuse_unported_training(get_config(spatial_parallel=2))
     refuse_unported_training(get_config(data_parallel=4))
     assert param_spec((3, 3, 3, 8, 16), 1) == ()
     with pytest.raises(NotImplementedError, match="tensor_parallel=2"):

@@ -29,7 +29,7 @@ from pcmseg_tpu.train.steps import create_train_state
 from pcmseg_tpu_torch.cli.main import main as torch_main
 from pcmseg_tpu_torch.core.config import get_config
 from pcmseg_tpu_torch.infer import sliding_window
-from pcmseg_tpu_torch.infer.predict import Predictor, load_multimodal_images, unported_options
+from pcmseg_tpu_torch.infer.predict import Predictor, load_multimodal_images
 from pcmseg_tpu_torch.infer.serve import PredictionServer
 from pcmseg_tpu_torch.train.checkpoints import load_pth, save_pth
 
@@ -237,26 +237,36 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys, monkeypat
     ],
 )
 def test_unported_options_are_refused(slice_setup, overrides, names):
-    """Each option the port has not ported (``spatial_parallel``) is refused
-    by name. K-class serving, ported since, passes that gate, and the binary
-    checkpoint then fails the 3-class model's strict load
+    """The Predictor refuses no option now. K-class serving passes, and the
+    binary checkpoint then fails the 3-class model's strict load
     (tests/test_torch_kclass.py serves K-class checkpoints against JAX);
-    device ingest and profiling, ported since, build a Predictor that has
-    them (tests/test_torch_ingest.py, tests/test_torch_profiling.py)."""
+    device ingest and profiling build a Predictor that has them
+    (tests/test_torch_ingest.py, tests/test_torch_profiling.py);
+    ``spatial_parallel=2`` serves sharded over two named shard devices and,
+    on a host of one device, warns and serves unsharded as JAX's Predictor
+    does (tests/test_torch_sp_parity.py holds both against JAX's), while
+    the training steps still refuse ``tensor_parallel=2`` by name."""
     config, pth, _, _ = slice_setup
+    if names == "spatial_parallel":
+        from pcmseg_tpu_torch.train.steps import refuse_unported_training
+
+        image = np.random.default_rng(0).normal(size=(16, 16, 16, 5)).astype(np.float32)
+        plain = Predictor(config, pth, device="cpu").predict_probs(image)
+        sharded = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu",
+                            shard_devices=["cpu", "cpu"])
+        assert [str(d) for d in sharded.shards] == ["cpu", "cpu"]
+        np.testing.assert_allclose(sharded.predict_probs(image), plain, atol=1e-5)
+        assert Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu").shards is None
+        with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
+            refuse_unported_training(config.replace(tensor_parallel=2))
+        return
     if names in ("device_ingest", "profile_dir"):
-        assert unported_options(config.replace(**overrides)) == []
         predictor = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
         assert getattr(predictor.config, names) == overrides[names]
         image, _ = predictor.load_case(os.path.join(slice_setup[2], "case_a"))
         assert isinstance(image, torch.Tensor) == (names == "device_ingest")
         return
-    if names == "n_classes":
-        assert unported_options(config.replace(**overrides)) == []
-        with pytest.raises(RuntimeError, match="outc"):
-            Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=names):
+    with pytest.raises(RuntimeError, match="outc"):
         Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")
 
 

@@ -120,16 +120,17 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
     ids=lambda o: next(iter(o)),
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
-    """Each option the port has not ported (spatial and tensor parallelism)
-    is refused by name; deep supervision, K-class heads, GroupNorm,
-    asynchronous checkpoints, profiling and data parallelism, ported since,
-    build a trainer that has them (tests/test_torch_deep_supervision.py,
-    tests/test_torch_kclass.py, tests/test_torch_groupnorm.py,
-    tests/test_torch_async_checkpoint.py, tests/test_torch_profiling.py and
-    tests/test_torch_multihost.py hold them against JAX). ``data_parallel=2``
-    in one process is a mesh the host cannot hold: it warns and runs 1x1x1,
-    as JAX's trainer does."""
-    if "data_parallel" in option:
+    """Tensor parallelism, the one option the port has not ported, is
+    refused by name; deep supervision, K-class heads, GroupNorm,
+    asynchronous checkpoints, profiling and data and spatial parallelism,
+    ported since, build a trainer that has them
+    (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
+    tests/test_torch_groupnorm.py, tests/test_torch_async_checkpoint.py,
+    tests/test_torch_profiling.py, tests/test_torch_multihost.py and
+    tests/test_torch_sp_parity.py hold them against JAX).
+    ``data_parallel=2`` or ``spatial_parallel=2`` in one process is a mesh
+    the host cannot hold: it warns and runs 1x1x1, as JAX's trainer does."""
+    if "data_parallel" in option or "spatial_parallel" in option:
         logger = logging.getLogger("pcmseg.trainer")
         logger.addHandler(caplog.handler)
         try:
