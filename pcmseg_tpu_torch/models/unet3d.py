@@ -492,6 +492,13 @@ class UNet3D(nn.Module):
 
     @classmethod
     def from_config(cls, config, norm_layer: Optional[str] = None, **kwargs) -> "UNet3D":
+        """The model a config describes. Parameters are fp32 here: a
+        ``param_dtype`` other than 'float32' (JAX's ``unet3d.py:529`` casts
+        its params to it) raises ``NotImplementedError`` naming it, so that
+        the Trainer, the Validator and the Predictor, which build their
+        models here, never train or serve fp32 weights in its place."""
+        if config.param_dtype != "float32":
+            raise NotImplementedError(f"not ported to the PyTorch package yet: param_dtype={config.param_dtype!r}")
         return cls(
             n_modalities=config.n_modalities,
             n_classes=config.n_classes,

@@ -129,6 +129,19 @@ def test_guards():
         model.train()(torch.zeros(1, 16, 16, 8, 5))
 
 
+@pytest.mark.parametrize("param_dtype", ["bfloat16", "float16"])
+def test_param_dtype_other_than_float32_is_refused_by_name(param_dtype):
+    """JAX casts its params to ``param_dtype`` (``unet3d.py:529``); the port
+    keeps fp32 params, so any other value is refused where every entry
+    point builds its model, not trained or served as fp32 in silence."""
+    from pcmseg_tpu_torch.core.config import get_config
+
+    with pytest.raises(NotImplementedError, match=f"param_dtype='{param_dtype}'"):
+        UNet3D.from_config(get_config(base_features=4, param_dtype=param_dtype), device="meta")
+    model = UNet3D.from_config(get_config(base_features=4, param_dtype="float32"), device="meta")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
 def test_packed_weight_follows_loads_and_edits():
     model = UNet3D(base_features=4, norm_layer="none", dtype=torch.float32).eval()
     x = torch.ones(1, 16, 16, 16, 5)
