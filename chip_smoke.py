@@ -132,11 +132,11 @@ kernel on them:
      outside the window; a ``PredictionServer`` over the serve cases whose
      window, written by ``close()``, holds 18 B1 per forward and one
      ``case:`` span per case; ``predict --profile`` in its own process;
- 15. async_ckpt: the 12 cases, flagship configuration, 4 epochs from the
+ 15. async_ckpt: the 12 cases, flagship configuration, 2 epochs from the
      same init with synchronous and asynchronous checkpoints: histories
      and parameters equal, latest, best and best.pth bitwise-equal tensors
      and equal meta (but the two config keys that differ); an async run
-     killed after epoch 2 and resumed bitwise equal to the uninterrupted
+     killed after epoch 1 and resumed bitwise equal to the uninterrupted
      one; a writer that cannot write raised by ``train()``; exact launch
      counts; each run's wall time and epoch times (with and without a
      write in flight), the training thread's time in saves, the writer's
@@ -161,7 +161,7 @@ kernel on them:
      launches per rank and step; each rank's step time and gradient
      all-reduce time (361.2 MB through the host: gloo's numbers on a shared
      card, not NCCL's). (b) a one-rank NCCL group (``--dp-trainer 0 1 PORT
-     WORK nccl g1``): a 2-epoch flagship Trainer over the cache phase's 12 cases
+     WORK nccl g1``): a 1-epoch flagship Trainer over the cache phase's 12 cases
      from the device cache sharded over the one rank, with asynchronous
      checkpoints, every collective through NCCL; exact launch counts,
      latest and best.pth, the history bitwise equal to the same run without
@@ -189,6 +189,23 @@ kernel on them:
      device cache on the 12 cases: histories equal, the primary's one
      checkpoint set, exact launches. ``python3 chip_smoke.py --only sp``
      runs the kernel checks and this phase alone.
+ 19. tp: tensor parallelism, every conv's, transposed conv's, head's and
+     norm's output channels split over TP_RANKS ranks, on the one card. B1
+     forward with Co halved, B1 as dx on a dy shard (Ci = Co / 2: 32 at
+     level 1, which B1 pads to 64) and B2 with Co halved, at the 128³ base-64
+     shapes, against their plain versions, timed; (b) two gloo ranks
+     (``chip_smoke.py --tp-rank R 2 PORT WORK gloo``) on a data 1 × spatial
+     1 × model 2 mesh, 2 flagship steps each on all 4 microbatches, held as
+     (b) of sp holds its ranks: the gathered states bitwise equal, step 1 in
+     float64 through the plain conv against one process's, the bf16 steps'
+     losses and gradients, 140 B1 / 72 B2 a rank-step (each conv once a
+     microbatch on its shard); each rank's step time, peak memory, and the
+     time and bytes of the channel gathers and of their backward's
+     gradient sums; (c) a 2-rank tp Trainer (``--tp-trainer``) for 2
+     epochs with validation from the device cache on the 12 cases:
+     histories bitwise equal, the primary's one checkpoint set in the whole
+     reference layout, exact launches. ``python3 chip_smoke.py --only tp``
+     runs the kernel checks and this phase alone.
 
 Every phase prints its own lines; any failure raises and exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, it exits 1
@@ -197,15 +214,17 @@ kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
 ``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt``, ``ingest``,
-``dp_a`` (both ranks), ``dp_b``, ``sp_serve``, ``sp_train`` (both ranks)
-and ``sp_trainer`` (both ranks) those of the phases of those names;
-``slab_*`` the times at one D-slab's shapes),
+``dp_a`` (both ranks), ``dp_b``, ``sp_serve``, ``sp_train``, ``sp_trainer``,
+``tp_train`` and ``tp_trainer`` (both ranks each) those of the phases of
+those names; ``slab_*`` the times at one D-slab's shapes, ``tp_*`` at one
+output-channel shard's),
 the nvidia-smi line, and the device JSON.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -244,6 +263,12 @@ PEAK_BYTES = 3.35e12
 # the sp phase's spatial group: every rank holds one D-slab of its rows
 SP_RANKS = 2
 SLAB_NOTE = {False: "", True: f", one of {SP_RANKS} D-slabs with its halo"}
+# the tp phase's model group: every rank holds one output-channel shard of each conv
+TP_RANKS = 2
+
+
+def shape_note(slab: bool, tp: int) -> str:
+    return SLAB_NOTE[slab] + (f", one of {tp} output-channel shards" if tp > 1 else "")
 
 
 def log(msg: str) -> None:
@@ -311,10 +336,11 @@ def slab_depth(size: int, slab: bool) -> int:
     return size // SP_RANKS + 2 if slab else size
 
 
-def check_kernels(device, card: str, batches, slab: bool = False) -> dict:
+def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1) -> dict:
     """Kernel vs plain version at each shape and each batch size in
     ``batches``, timed at the first; returns the JSON record's numbers.
-    With ``slab``, at a D-slab's shape (``slab_depth``)."""
+    With ``slab``, at a D-slab's shape (``slab_depth``); with ``tp`` > 1, at
+    one output-channel shard's (Co / tp)."""
     import torch
     import torch.nn.functional as F
 
@@ -323,7 +349,7 @@ def check_kernels(device, card: str, batches, slab: bool = False) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(0)
     for ci, co, s, layers in CONV_SHAPES:
-        d = slab_depth(s, slab)
+        d, co = slab_depth(s, slab), co // tp
         w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
         b = torch.randn((co,), generator=g, device=device) * 0.1
         packed = conv3d.pack_weight(w, torch.bfloat16)
@@ -357,7 +383,7 @@ def check_kernels(device, card: str, batches, slab: bool = False) -> dict:
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, w, b, packed
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"forward, 18 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+    log(f"forward, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn conv alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
@@ -671,12 +697,13 @@ TIME_STEPS = 5
 GRAD_SLACK = 1e-3
 
 
-def check_dw_kernels(device, card: str, slab: bool = False) -> dict:
+def check_dw_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict:
     """B2 against its plain version at the 14 shapes (N=1, bf16 inputs, fp32
     reference with TF32 off), two launches bitwise equal; median times of
     the kernel, the plain version and cuDNN's weight gradient alone. With
     ``slab``, at a D-slab's shape with its halo, dy zero on the halo slices
-    as the sharded conv's backward gives it."""
+    as the sharded conv's backward gives it. With ``tp`` > 1, at one
+    output-channel shard's shape: the whole Ci, Co / tp."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
@@ -684,7 +711,7 @@ def check_dw_kernels(device, card: str, slab: bool = False) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(1)
     for ci, co, s, layers in CONV_SHAPES:
-        d = slab_depth(s, slab)
+        d, co = slab_depth(s, slab), co // tp
         x = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
         dy = torch.randn((1, d, s, s, co), generator=g, device=device).to(torch.bfloat16)
         if slab:
@@ -712,17 +739,20 @@ def check_dw_kernels(device, card: str, slab: bool = False) -> dict:
         rows.append((layers, k_ms, p_ms, c_ms, least, least if ops else 0.0))
         del x, dy
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dW, 18 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+    log(f"dW, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn wgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
 
 
-def check_dx_kernels(device, card: str, slab: bool = False) -> dict:
+def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict:
     """B1 as dx (relu off, no bias) at the 17 transposed shapes, N=1, against
     its plain version, with B1's bound; median times of the kernel, the
     plain version and cuDNN's data gradient alone. With ``slab``, at a
-    D-slab's shape with its halo, dy zero on the halo slices."""
+    D-slab's shape with its halo, dy zero on the halo slices. With ``tp`` >
+    1, on one output-channel shard of dy (its Ci is the layer's Co / tp,
+    zero-padded to what the kernel reads: 32 to 64 at level 1 for tp 2);
+    the bound counts the real channels."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
@@ -730,7 +760,7 @@ def check_dx_kernels(device, card: str, slab: bool = False) -> dict:
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(2)
     for ci, co, s, layers in DX_SHAPES:
-        d = slab_depth(s, slab)
+        d, ci = slab_depth(s, slab), ci // tp
         dy = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
         if slab:
             dy[:, 0] = dy[:, -1] = 0
@@ -761,7 +791,7 @@ def check_dx_kernels(device, card: str, slab: bool = False) -> dict:
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del dy, w, packed, w_bf, dyc, xc
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dx, 17 layers of one 128^3 microbatch{SLAB_NOTE[slab]}: kernel {out['ms']:.3f} ms, "
+    log(f"dx, 17 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
@@ -2073,7 +2103,10 @@ def kclass(work: str, device, card: str, bn_step_s) -> tuple:
 # ---- profiling, asynchronous checkpoints and device ingest (slice 7) ----------------
 
 PROFILE_STEPS = 2  # the trainer's profiled window: global steps 1 and 2 of epoch 0
-ASYNC_EPOCHS = 4
+# 2 epochs: the async run killed after epoch 1 resumes for the second (4
+# until the tp phase joined: an epoch writes up to 2.5 GB of checkpoints,
+# and the machine's disk counts every write, kept or not)
+ASYNC_EPOCHS = 2
 # device ingest against the host path's bf16 stack: one bf16 step at 1.0
 INGEST_MAX_DIFF = 2.0**-8
 UNDECIDED_P = 1e-2  # masks may differ only where the host path's p is this close to the threshold
@@ -2239,7 +2272,7 @@ def async_ckpt(work: str, device, card: str):
     ASYNC_EPOCHS epochs from the same init, with synchronous and with
     asynchronous checkpoints: equal histories and parameters; latest, best
     and best.pth bitwise equal tensors and equal meta; an async run killed
-    after epoch 2 and resumed bitwise equal to the uninterrupted one; a
+    an epoch early and resumed bitwise equal to the uninterrupted one; a
     writer that cannot write raised by ``train()``. Returns the async run's
     (B1, B2) launches."""
     import torch
@@ -2309,12 +2342,12 @@ def async_ckpt(work: str, device, card: str):
     del t_sync
     torch.cuda.empty_cache()
 
-    killed = c_async.replace(save_dir=os.path.join(work, "ack_killed"), num_epochs=2)
+    killed = c_async.replace(save_dir=os.path.join(work, "ack_killed"), num_epochs=ASYNC_EPOCHS - 1)
     Trainer(killed, device=device).train()
     resumed = Trainer(killed.replace(num_epochs=ASYNC_EPOCHS, resume=True), device=device)
     again = resumed.train()
-    equal = resumed.start_epoch == 2 and again == h_async and same_params(resumed, t_async)
-    log(f"async_ckpt: killed after epoch 2 and resumed from the async latest, bitwise equal to the "
+    equal = resumed.start_epoch == ASYNC_EPOCHS - 1 and again == h_async and same_params(resumed, t_async)
+    log(f"async_ckpt: killed after epoch {ASYNC_EPOCHS - 1} and resumed from the async latest, bitwise equal to the "
         f"uninterrupted run: {equal} [{card}]")
     if not equal:
         raise AssertionError("the resumed asynchronous run differs from the uninterrupted one")
@@ -2454,7 +2487,9 @@ DP_SEED = 11
 DP_GRAD_NORM_RTOL = 1e-5
 DP_PARAM_ATOL = 1e-6
 DP_LOSS_RTOL = 2e-5
-DP_EPOCHS = 2
+# 1 epoch (2 until the tp phase joined: the script's time and the machine's
+# disk, which counts every checkpoint written, needed the room)
+DP_EPOCHS = 1
 
 
 def dp_batches(device):
@@ -3080,16 +3115,19 @@ def sp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
 
 def exact_first_step(config, batch, device, mesh=None, rank=0, path=None) -> dict:
     """Step 1 of the flagship model from the seed in float64 through the
-    plain conv: on ``mesh`` (this rank's part of ``batch``), or in one
-    process. Returns the loss and grad norm, and its gradients before the
-    clip and Adam (written to ``path`` on rank 0 where given)."""
+    plain conv: on ``mesh`` (this rank's part of ``batch``; on a model axis
+    this rank's shards of the model, the gradients gathered whole after),
+    or in one process. Returns the loss and grad norm, and its gradients
+    before the clip and Adam (written to ``path`` on rank 0 where given)."""
     import torch
 
     from pcmseg_tpu_torch.models.unet3d import UNet3D
-    from pcmseg_tpu_torch.parallel.sharding import shard_batch
+    from pcmseg_tpu_torch.parallel import collectives
+    from pcmseg_tpu_torch.parallel.sharding import shard_batch, shard_state, whole_payload
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
 
     model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    axes = shard_state(model, mesh) if mesh is not None else None
     state, step = create_train_state(model, config), make_train_step(model, config, mesh=mesh)
     grads = {}
     if mesh is not None:
@@ -3097,6 +3135,9 @@ def exact_first_step(config, batch, device, mesh=None, rank=0, path=None) -> dic
     with plain_train_conv(model, torch.float64), first_gradients(model, grads):
         metrics = step(state, batch)
         out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    if axes is not None:
+        grads = whole_payload({"model": grads, "optimizer": {"state": {}}}, axes, [],
+                              collectives.mesh_comms(mesh).model)["model"]
     if path is None:
         out["grads"] = grads
     elif rank == 0:
@@ -3104,6 +3145,19 @@ def exact_first_step(config, batch, device, mesh=None, rank=0, path=None) -> dic
     del model, state, step
     torch.cuda.empty_cache()
     return out
+
+
+def one_process_exact(ref: dict) -> dict:
+    """exact_first_step in one process on the first dp batch, made once and
+    kept in ``ref`` (dp_reference) for the sp and tp phases."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+
+    if "exact" not in ref:
+        ref["exact"] = exact_first_step(get_config(base_features=BASE_FEATURES, **TRAIN),
+                                        dp_batches(torch.device("cuda"))[0], torch.device("cuda"))
+    return ref["exact"]
 
 
 def sp_steps(work: str, ref: dict, card: str) -> list:
@@ -3123,10 +3177,7 @@ def sp_steps(work: str, ref: dict, card: str) -> list:
     for when in ("1", "final"):
         states = [torch.load(os.path.join(work, f"sp_rank{r}_{when}.pt"), weights_only=True) for r in range(SP_RANKS)]
         bitwise[when] = all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in states[0])
-    from pcmseg_tpu_torch.core.config import get_config
-
-    exact = exact_first_step(get_config(base_features=BASE_FEATURES, **TRAIN), dp_batches(torch.device("cuda"))[0],
-                             torch.device("cuda"))
+    exact = one_process_exact(ref)
     sharded = torch.load(os.path.join(work, "sp_grads.pt"), weights_only=True)
     sharded64 = torch.load(os.path.join(work, "sp_grads64.pt"), weights_only=True)
 
@@ -3281,6 +3332,329 @@ def sp_phase(work: str, device, card: str, ref: dict) -> dict:
             "slab": slab}
 
 
+# ---- tensor parallelism (slice 10) -----------------------------------------------
+
+# (b) is held as the sp phase holds its ranks: the float64 step 1 through
+# the plain conv against one process's (the loss within SP_EXACT_RTOL, each
+# gradient tensor within SP_EXACT_SHARE), the bf16 kernel step by the loss
+# bounds and, against the float64 step, by BF16_MARGIN x one process's
+# distance + GRAD_SLACK. The float64 step's grad norm is held within
+# TP_EXACT_NORM_RTOL, not SP_EXACT_RTOL: its gradients are fp32 (the
+# parameters' dtype), each rounded from float64 sums in another order
+# (cuDNN's algorithm for a shard's shape), so they differ from one
+# process's by an fp32 ulp here and there (5.69e-8 of a tensor's largest
+# entry), and the norm sums their squares in fp32 over the shards and then
+# the model group, where one process sums whole tensors (measured 6.51e-8
+# on an NVIDIA H100 80GB HBM3, 700.00 W). A shard's squares left out moves
+# it by tens of percent; tests/test_torch_tp.py holds the sum to 1e-12 in
+# float64 on the CPU.
+TP_EXACT_NORM_RTOL = 1e-6
+# (c): the tp Trainer on TP_TRAIN_CASES of the cache phase's cases (one
+# batch of 4) and one val case, so each epoch is one step through the
+# gathers staged in host memory (a rank-step takes seconds there)
+TP_EPOCHS = 2
+TP_TRAIN_CASES = 4
+# (b) runs the first TP_STEPS of the DP_STEPS batches: each bf16 rank-step
+# takes 17-28 s through the host-staged gathers
+TP_STEPS = 2
+
+
+@contextlib.contextmanager
+def timed_gathers(device, tally: dict):
+    """Inside, every channel gather (forward) and every sum of a sharded
+    layer's input gradient over the model group (backward) is synchronised
+    and timed into ``tally``, with the bytes a rank receives (gathers) and
+    the bytes all-reduced (sums, in the gradient's dtype)."""
+    import torch
+
+    from pcmseg_tpu_torch.parallel import collectives
+
+    def timed(fn, name, kind):
+        real = getattr(fn, name)
+
+        def run(ctx, t, *args):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = real(ctx, t, *args)
+            torch.cuda.synchronize(device)
+            tally[kind + "_s"] += time.perf_counter() - t0
+            moved = t.numel() * t.element_size() * ((ctx.comm.size - 1) if kind == "gather" else 1)
+            tally[kind + "_bytes"] += moved
+            tally[kind + "_calls"] += 1
+            return out
+        setattr(fn, name, staticmethod(run))
+        return real
+
+    saved = [(collectives._GatherChannels, "forward", timed(collectives._GatherChannels, "forward", "gather")),
+             (collectives._SumInputGrads, "backward", timed(collectives._SumInputGrads, "backward", "sum"))]
+    try:
+        yield
+    finally:
+        for fn, name, real in saved:
+            setattr(fn, name, staticmethod(real))
+
+
+def tp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
+    """One rank of a model group (``chip_smoke.py --tp-rank RANK WORLD PORT
+    WORK BACKEND``): the flagship model from the seed, cut to this rank's
+    output-channel shards on a data 1 x spatial 1 x model WORLD mesh;
+    TP_STEPS steps of dp_batches, every rank on all 4 microbatches of all
+    rows; each step timed and its launches counted, the peak memory of the
+    warm steps, every channel gather and gradient sum of the last step
+    synchronised and timed; then the float64 step 1. Returns the SHA-256 of
+    the whole (gathered) state after step 1 and after the last, and writes
+    step 1's whole gradients (rank 0) to WORK/tp_grads.pt."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import collectives, multihost
+    from pcmseg_tpu_torch.parallel.sharding import Mesh, shard_batch, shard_state, whole_payload
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+    device = multihost.local_device() if backend == "nccl" else torch.device("cuda", 0)
+    multihost.establish_collectives()
+    config = get_config(base_features=BASE_FEATURES, tensor_parallel=world, **TRAIN)
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    mesh = Mesh(1, 1, world)
+    axes = shard_state(model, mesh)
+    comm = collectives.mesh_comms(mesh).model
+    state = create_train_state(model, config)
+    step = make_train_step(model, config, mesh=mesh)
+
+    def whole(tensors: dict) -> dict:
+        return whole_payload({"model": tensors, "optimizer": {"state": {}}}, axes, [], comm)["model"]
+
+    out = {"rank": rank, "device": str(device), "loss": [], "grad_norm": [], "step_s": [], "launches": [],
+           "shard_params": sum(p.numel() for p in model.parameters())}
+    grads = {}
+    tally = {f"{kind}_{what}": 0 for kind in ("gather", "sum") for what in ("s", "bytes", "calls")}
+    batches = dp_batches(device)[:TP_STEPS]
+    with first_gradients(model, grads):
+        for batch in batches:
+            local = shard_batch(batch, mesh, rank=rank, accum=config.accum_steps)
+            torch.cuda.synchronize(device)
+            if len(out["loss"]) == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            conv3d.launches = conv3d_grad.launches = 0
+            last = len(out["loss"]) == TP_STEPS - 1
+            t = time.perf_counter()
+            with timed_gathers(device, tally) if last else contextlib.nullcontext():
+                metrics = step(state, local)
+                out["loss"].append(float(metrics["loss"]))
+                torch.cuda.synchronize(device)
+            out["step_s"].append(time.perf_counter() - t)
+            out["launches"].append([conv3d.launches, conv3d_grad.launches])
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+            if len(out["loss"]) in (1, TP_STEPS):
+                digest = hashlib.sha256()
+                for k, v in whole(model.state_dict()).items():
+                    digest.update(k.encode())
+                    digest.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+                out["1" if len(out["loss"]) == 1 else "final"] = digest.hexdigest()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    grads = whole(grads)
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "tp_grads.pt"))
+    out.update(gathers=tally, rows=len(local["image"]))
+    del model, state, step
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["exact"] = exact_first_step(config, batches[0], device, mesh, rank, os.path.join(work, "tp_grads64.pt"))
+    out["exact_s"] = time.perf_counter() - t
+    multihost.shutdown()
+    return out
+
+
+def tp_steps(work: str, ref: dict, card: str) -> list:
+    """(b) TP_RANKS gloo ranks sharing the card through tp_rank, held against
+    each other and against ``ref`` (dp_reference) as sp_steps holds its
+    ranks. Returns the (B1, B2) launches of all ranks."""
+    import re
+
+    import torch
+
+    port, t0 = free_port(), time.perf_counter()
+    ranks = spawn_ranks(lambda r: ["--tp-rank", str(r), str(TP_RANKS), str(port), work, "gloo"], TP_RANKS)
+    wall = time.perf_counter() - t0
+    micro = TRAIN["accum_steps"]
+    per_step = [micro * 35, micro * 18]
+    bitwise = {when: all(r[when] == ranks[0][when] for r in ranks) for when in ("1", "final")}
+    exact = one_process_exact(ref)
+    sharded = torch.load(os.path.join(work, "tp_grads.pt"), weights_only=True)
+    sharded64 = torch.load(os.path.join(work, "tp_grads64.pt"), weights_only=True)
+
+    def share(a, b):
+        """max|a - b| / max|b| per tensor, the BN-preceded conv biases (true gradient 0) apart"""
+        out = {k: float((a[k] - w).abs().max() / w.abs().max().clamp_min(1e-30)) for k, w in b.items()}
+        return ({k: v for k, v in out.items() if not re.search(r"conv\.[03]\.bias$", k)},
+                max(v for k, v in out.items() if re.search(r"conv\.[03]\.bias$", k)))
+
+    s64, b64 = share(sharded64, exact["grads"])
+    s_tp, _ = share(sharded, exact["grads"])
+    s_un, _ = share(ref["grads"], exact["grads"])
+    s_pair, b_pair = share(sharded, ref["grads"])
+    r0 = ranks[0]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    worst64 = max(s64, key=s64.get)
+    beyond = sorted(k for k in s_tp if s_tp[k] > BF16_MARGIN * s_un[k] + GRAD_SLACK)
+    worst_pair = max(s_pair, key=s_pair.get)
+    norm64 = exact["grad_norm"]
+    for r in ranks:
+        g = r["gathers"]
+        log(f"tp (b) rank {r['rank']} of {TP_RANKS} (gloo on {r['device']}, {r['rows']} rows, {r['shard_params']} of "
+            f"{N_PARAMS} parameters, all {micro} microbatches a step): losses {r['loss']}, grad norms "
+            f"{r['grad_norm']}; step {', '.join(f'{s * 1e3:.1f}' for s in r['step_s'])} ms (the first cold, the "
+            f"last with its channel gathers synchronised: {g['gather_calls']} calls, {g['gather_s'] * 1e3:.1f} ms, "
+            f"{g['gather_bytes'] / 1e6:.1f} MB received; their backward, the sums of the sharded layers' input "
+            f"gradients: {g['sum_calls']} all-reduces, {g['sum_s'] * 1e3:.1f} ms, {g['sum_bytes'] / 1e6:.1f} MB of "
+            f"bf16); the float64 step {r['exact_s']:.1f} s; peak device memory of "
+            f"the warm steps {r['peak_gib']:.2f} GiB (one process {ref['peak_gib']:.2f}); launches per step "
+            f"{r['launches']} (expected {per_step}) [{card}; gloo through the host on one shared card, not NCCL]")
+    loss1, norm1 = rel(r0["loss"][0], ref["loss"][0]), rel(r0["grad_norm"][0], ref["grad_norm"][0])
+    later = max(rel(a, b) for a, b in zip(r0["loss"][1:], ref["loss"][1:]))
+    loss64, normrel64 = rel(r0["exact"]["loss"], exact["loss"]), rel(r0["exact"]["grad_norm"], norm64)
+    norm_ok = abs(r0["grad_norm"][0] - norm64) <= BF16_MARGIN * abs(ref["grad_norm"][0] - norm64) + GRAD_SLACK * norm64
+    log(f"tp (b) float64 step 1 through the plain conv, sharded against one process: loss rel {loss64:.3g}, grad "
+        f"norm rel {normrel64:.3g} (bounds {SP_EXACT_RTOL} / {TP_EXACT_NORM_RTOL}), the largest gradient difference "
+        f"over its tensor's max|g| {s64[worst64]:.3g} at {worst64} (bound {SP_EXACT_SHARE}; the BN-preceded "
+        f"biases, reported: {b64:.3g}) [{card}]")
+    log(f"tp (b) bf16 kernel steps against one process ({', '.join(f'{s * 1e3:.1f}' for s in ref['step_s'])} ms a "
+        f"step): ranks' gathered states bitwise equal after step 1 {bitwise['1']} and step {TP_STEPS} "
+        f"{bitwise['final']}; step 1 loss rel {loss1:.3g} (bound {SP_LOSS1_RTOL}), grad norm rel {norm1:.3g} "
+        f"(reported), the largest gradient difference over its tensor's max|g| {s_pair[worst_pair]:.3g} at "
+        f"{worst_pair} (reported; the BN-preceded biases {b_pair:.3g}); against the float64 step: grad norm "
+        f"{r0['grad_norm'][0]!r} sharded, {ref['grad_norm'][0]!r} one process, {norm64!r} float64 (bound "
+        f"{BF16_MARGIN}x one process's distance + {GRAD_SLACK}), the largest share sharded {max(s_tp.values()):.3g}, "
+        f"one process {max(s_un.values()):.3g}, {len(beyond)} of {len(s_tp)} tensors beyond {BF16_MARGIN}x one "
+        f"process's + {GRAD_SLACK} {beyond[:3]}; later losses rel {later:.3g} (bound {SP_LOSS_RTOL}); the ranks in "
+        f"{wall:.1f} s of processes [{card}]")
+    if any(r["launches"] != [per_step] * TP_STEPS for r in ranks):
+        raise AssertionError(f"tp ranks launched {[r['launches'] for r in ranks]}, expected {per_step} a step")
+    if any(r["loss"] != r0["loss"] or r["grad_norm"] != r0["grad_norm"] or r["exact"] != r0["exact"] for r in ranks) \
+            or not all(bitwise.values()):
+        raise AssertionError("the tp ranks differ")
+    if not (loss64 <= SP_EXACT_RTOL and normrel64 <= TP_EXACT_NORM_RTOL and s64[worst64] <= SP_EXACT_SHARE):
+        raise AssertionError(f"tp float64 step against one process: loss {loss64}, grad norm {normrel64}, "
+                             f"gradient share {s64[worst64]} ({worst64})")
+    if not (loss1 <= SP_LOSS1_RTOL and norm_ok and not beyond and later <= SP_LOSS_RTOL):
+        raise AssertionError(f"tp bf16 steps: loss {loss1}, grad norm {r0['grad_norm'][0]} against one process's "
+                             f"{ref['grad_norm'][0]} and float64's {norm64}, tensors beyond the bound {beyond}, "
+                             f"later losses {later}")
+    return [sum(sum(s[i] for s in r["launches"]) for r in ranks) for i in (0, 1)]
+
+
+def tp_trainer(rank: int, world: int, port: int, work: str, backend: str, name: str) -> dict:
+    """A flagship Trainer on a data 1 x spatial 1 x model WORLD mesh over
+    TP_TRAIN_CASES of the cache phase's cases and one val case for
+    TP_EPOCHS epochs, from the device cache (``chip_smoke.py --tp-trainer
+    ...``). Returns its history, launches, the checkpoint writes it made
+    and (rank 0) the value count of its ``best.pth``."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import multihost
+    from pcmseg_tpu_torch.train import trainer as trainer_module
+    from pcmseg_tpu_torch.train.checkpoints import load_pth
+
+    multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+    multihost.establish_collectives()
+    writes, real_write = [], trainer_module.write_train_checkpoint
+
+    def counted_write(*args, **kwargs):
+        writes.append(args[1])
+        return real_write(*args, **kwargs)
+
+    trainer_module.write_train_checkpoint = counted_write
+    save_dir = os.path.join(work, f"tp_{name}")
+    config = get_config(base_features=BASE_FEATURES, data_dir=os.path.join(work, "cache_data"),
+                        cache_dir=os.path.join(work, "preproc"), seed=0, save_dir=save_dir,
+                        tensor_parallel=TP_RANKS, **{**TRAIN, "num_epochs": TP_EPOCHS})
+    trainer = trainer_module.Trainer(config, train_indices=range(TP_TRAIN_CASES), val_indices=[TP_TRAIN_CASES],
+                                     device=torch.device("cuda", 0))
+    steps = math.ceil(len(trainer.train_indices) / config.batch_size)
+    val_batches = math.ceil(len(trainer.val_indices) / config.batch_size)
+    conv3d.launches = conv3d_grad.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.train()
+    torch.cuda.synchronize()
+    run = {"rank": rank, "history": history, "wall_s": time.perf_counter() - t0, "mesh": trainer.mesh.shape,
+           "cached": trainer._dcache is not None, "launches": [conv3d.launches, conv3d_grad.launches],
+           "want": [TP_EPOCHS * (steps * config.accum_steps * 35 + val_batches * 18),
+                    TP_EPOCHS * steps * config.accum_steps * 18],
+           "writes": writes, "files": sorted(os.listdir(save_dir)) if os.path.isdir(save_dir) else []}
+    if rank == 0 and "best.pth" in run["files"]:
+        run["pth_values"] = sum(v.numel() for v in load_pth(os.path.join(save_dir, "best.pth"))[0].values())
+    multihost.shutdown()
+    return run
+
+
+def tp_trainers(work: str, card: str) -> list:
+    """(c) tp_trainer as TP_RANKS gloo ranks sharing the card: the ranks'
+    histories bitwise equal, one checkpoint set written (by the primary
+    alone) in the whole reference layout (``best.pth`` holds as many values
+    as the whole model's state dict), exact launch counts. Returns the
+    (B1, B2) launches of all ranks."""
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+
+    if not os.path.isdir(os.path.join(work, "cache_data")):
+        write_train_tree(os.path.join(work, "cache_data"), get_config().modalities, CACHE_CASES, ext=".nii")
+    port, t0 = free_port(), time.perf_counter()
+    runs = spawn_ranks(lambda r: ["--tp-trainer", str(r), str(TP_RANKS), str(port), work, "gloo", "g"], TP_RANKS)
+    wall = time.perf_counter() - t0
+    whole = sum(v.numel() for v in UNet3D.from_config(get_config(base_features=BASE_FEATURES),
+                                                      device="meta").state_dict().values())
+    log(f"tp (c) {TP_RANKS}-rank gloo Trainer, mesh {runs[0]['mesh']}, {TP_TRAIN_CASES} + 1 of the {CACHE_CASES} cases "
+        f"x {TP_EPOCHS} epochs with validation, device cache {runs[0]['cached']}: history {json.dumps(runs[0]['history'])}, train() "
+        f"{', '.join(f'{r['wall_s']:.1f}' for r in runs)} s; launches {[r['launches'] for r in runs]} (expected "
+        f"{runs[0]['want']} a rank); checkpoint writes by rank {[r['writes'] for r in runs]}, files "
+        f"{runs[0]['files']}, best.pth {runs[0].get('pth_values')} values (the whole model's state dict {whole}); "
+        f"processes {wall:.1f} s [{card}]")
+    if any(r["history"] != runs[0]["history"] for r in runs):
+        raise AssertionError("the tp trainer's ranks differ")
+    want_files = sorted(["latest.pt", "best.pt", "best.pth"])
+    if (runs[0]["writes"] != ["latest"] * TP_EPOCHS or any(r["writes"] for r in runs[1:])
+            or runs[0]["files"] != want_files or runs[0].get("pth_values") != whole):
+        raise AssertionError(f"tp trainer checkpoints: writes {[r['writes'] for r in runs]}, files "
+                             f"{runs[0]['files']} (expected {want_files}), best.pth values {runs[0].get('pth_values')} "
+                             f"against {whole}")
+    for r in runs:
+        if (r["launches"] != r["want"] or not r["cached"]
+                or r["mesh"] != {"data": 1, "spatial": 1, "model": TP_RANKS}):
+            raise AssertionError(f"tp trainer: {r}")
+        if not all(math.isfinite(v) for vals in r["history"].values() for v in vals):
+            raise AssertionError(f"non-finite history {r['history']}")
+    return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
+
+
+def tp_phase(work: str, device, card: str, ref: dict) -> dict:
+    """Tensor parallelism on the one card: the kernels at one output-channel
+    shard's shapes (base 64 at TP_RANKS) against their plain versions, then
+    (b) the sharded steps, (c) the sharded Trainer. Returns the launches of
+    each path and the shard-shape kernel records. First the earlier phases'
+    outputs but the cases and their preprocessing cache are deleted, so
+    that (c)'s checkpoints reuse their blocks on the machine's disk."""
+    for entry in os.listdir(work):
+        if entry not in ("cache_data", "preproc"):
+            path = os.path.join(work, entry)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    shard = {"fwd": check_kernels(device, card, (1,), tp=TP_RANKS), "dx": check_dx_kernels(device, card, tp=TP_RANKS),
+             "dw": check_dw_kernels(device, card, tp=TP_RANKS)}
+    return {"train": tp_steps(work, ref, card), "trainer": tp_trainers(work, card), "shard": shard}
+
+
+def phase(name: str, fn, *args):
+    """``fn(*args)``, logging the seconds it took: where the script's time goes."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -3323,6 +3697,14 @@ def main() -> int:
         rank, world, port, work, backend, name = sys.argv[2:8]
         print(json.dumps(sp_trainer(int(rank), int(world), int(port), work, backend, name)))
         return 0
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of the tp phase's steps
+        rank, world, port, work, backend = sys.argv[2:7]
+        print(json.dumps(tp_rank(int(rank), int(world), int(port), work, backend)))
+        return 0
+    if sys.argv[1:2] == ["--tp-trainer"]:  # a rank of the tp phase's Trainer
+        rank, world, port, work, backend, name = sys.argv[2:8]
+        print(json.dumps(tp_trainer(int(rank), int(world), int(port), work, backend, name)))
+        return 0
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.data.native import get_native_lib
     from pcmseg_tpu_torch.ops.kernels import build
@@ -3337,41 +3719,42 @@ def main() -> int:
         f"in {info['seconds']:.1f} s")
 
     config = get_config(base_features=BASE_FEATURES, norm_layer="batch")
-    record = check_kernels(device, card, (1, config.window_tile_batch))
-    dx = check_dx_kernels(device, card)
-    dw = check_dw_kernels(device, card)
-    check_gradients(device, card)
+    record = phase("kernels", check_kernels, device, card, (1, config.window_tile_batch))
+    dx = phase("dx", check_dx_kernels, device, card)
+    dw = phase("dw", check_dw_kernels, device, card)
+    phase("gradients", check_gradients, device, card)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    if sys.argv[1:] in (["--only", "dp"], ["--only", "sp"]):  # one phase alone, after the kernels' checks
-        ref = dp_reference(device)
-        (dp_phase if sys.argv[2] == "dp" else sp_phase)(work, device, card, ref)
+    if sys.argv[1:] in (["--only", "dp"], ["--only", "sp"], ["--only", "tp"]):  # one phase alone, after the kernels'
+        ref = phase("dp_reference", dp_reference, device)
+        phase(sys.argv[2], {"dp": dp_phase, "sp": sp_phase, "tp": tp_phase}[sys.argv[2]], work, device, card, ref)
         shutil.rmtree(work, ignore_errors=True)
         print(card)
         return 0
-    train_launches = train(work, device, card)
-    bn_step_s = time_steps(device, card)
-    cv_launches, cv_dir = cross_validate(work, device, card)
-    validate_launches = validate(work, cv_dir, device, card)
-    cli(work, cv_dir, card)
-    cache_launches = cache_phase(work, device, card)
-    ds_launches = deep_supervision(work, device, card)
-    kclass_launches = kclass(work, device, card, bn_step_s)
+    train_launches = phase("train", train, work, device, card)
+    bn_step_s = phase("time", time_steps, device, card)
+    cv_launches, cv_dir = phase("cv", cross_validate, work, device, card)
+    validate_launches = phase("validate", validate, work, cv_dir, device, card)
+    phase("cli", cli, work, cv_dir, card)
+    cache_launches = phase("cache", cache_phase, work, device, card)
+    ds_launches = phase("ds", deep_supervision, work, device, card)
+    kclass_launches = phase("kclass", kclass, work, device, card, bn_step_s)
 
     native = get_native_lib() is not None
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
-    serve_launches, server = serve(work, config, device, card)
-    profile(work, server, card)
-    profiling_launches = profiling_phase(work, device, card)
-    async_launches = async_ckpt(work, device, card)
-    ingest_launches = ingest(work, server, device, card)
+    serve_launches, server = phase("serve", serve, work, config, device, card)
+    phase("profile", profile, work, server, card)
+    profiling_launches = phase("profiling", profiling_phase, work, device, card)
+    async_launches = phase("async_ckpt", async_ckpt, work, device, card)
+    ingest_launches = phase("ingest", ingest, work, server, device, card)
     del server
     torch.cuda.empty_cache()
-    ref = dp_reference(device)
-    dp_launches = dp_phase(work, device, card, ref)
-    sp = sp_phase(work, device, card, ref)
+    ref = phase("dp_reference", dp_reference, device)
+    dp_launches = phase("dp", dp_phase, work, device, card, ref)
+    sp = phase("sp", sp_phase, work, device, card, ref)
+    tp = phase("tp", tp_phase, work, device, card, ref)
     shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
@@ -3387,15 +3770,20 @@ def main() -> int:
                                  "kclass": kclass_launches[0], "profiling": profiling_launches[0],
                                  "async_ckpt": async_launches[0], "ingest": ingest_launches,
                                  "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0], "sp_serve": sp["serve"],
-                                 "sp_train": sp["train"][0], "sp_trainer": sp["trainer"][0]},
+                                 "sp_train": sp["train"][0], "sp_trainer": sp["trainer"][0],
+                                 "tp_train": tp["train"][0], "tp_trainer": tp["trainer"][0]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"], sp["slab"]["fwd"]["max_abs_err"],
-                               sp["slab"]["dx"]["max_abs_err"]),
+                               sp["slab"]["dx"]["max_abs_err"], tp["shard"]["fwd"]["max_abs_err"],
+                               tp["shard"]["dx"]["max_abs_err"]),
             # the 18 forward convs of one 128^3 microbatch; dx_*: the 17 dx convs
             **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{f"dx_{k}": dx[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             # the same at one of SP_RANKS D-slabs of a 128^3 microbatch with its halo
             **{f"slab_{k}": sp["slab"]["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"slab_dx_{k}": sp["slab"]["dx"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            # the same at one of TP_RANKS output-channel shards of each conv (dx: of dy's channels)
+            **{f"tp_{k}": tp["shard"]["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{f"tp_dx_{k}": tp["shard"]["dx"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
         {
             "name": "conv3x3_dw",
@@ -3408,10 +3796,12 @@ def main() -> int:
                                  "kclass": kclass_launches[1], "profiling": profiling_launches[1],
                                  "async_ckpt": async_launches[1], "dp_a": dp_launches[0][1],
                                  "dp_b": dp_launches[1][1], "sp_train": sp["train"][1],
-                                 "sp_trainer": sp["trainer"][1]},
+                                 "sp_trainer": sp["trainer"][1], "tp_train": tp["train"][1],
+                                 "tp_trainer": tp["trainer"][1]},
             **dw,
-            "max_abs_err": max(dw["max_abs_err"], sp["slab"]["dw"]["max_abs_err"]),
+            "max_abs_err": max(dw["max_abs_err"], sp["slab"]["dw"]["max_abs_err"], tp["shard"]["dw"]["max_abs_err"]),
             **{f"slab_{k}": sp["slab"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{f"tp_{k}": tp["shard"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
     ]}))
     print(card)

@@ -40,6 +40,17 @@ level's global shape and keeps this rank's slab where it rejoins a
 sharded level. BatchNorm sums over the ranks ``collectives.norm_scope``
 names: with those of the other slabs at a sharded level, without them
 where the statistics are already whole.
+
+Tensor parallelism: ``parallel.sharding.shard_model`` cuts a model to one
+rank's output-channel shards of every conv, transposed conv, head and norm
+whose channels the model group's size divides (JAX's rule by shape) and
+gives each a ``collectives.ChannelShard``. A sharded layer's output is the
+rank's channel shard; BatchNorm, GroupNorm (over the model group where a
+group spans the shards), ReLU and max-pooling run on the shard; a layer
+reads the whole of its input, gathered from the shards where it is one
+(``ChannelShard.input``: after the halo exchange, which so moves the shard
+only), and ``Up`` gathers its skip and its upsampled half before the
+concat. The heads' logits are whole on every rank.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ class Conv3x3(nn.Module):
     """
 
     level = 0  # the U-Net level (set by UNet3D)
+    tp: Optional[collectives.ChannelShard] = None  # set by sharding.shard_model
 
     def __init__(self, in_ch: int, out_ch: int, relu: bool, device=None):
         super().__init__()
@@ -96,6 +108,8 @@ class Conv3x3(nn.Module):
         train = torch.is_grad_enabled()
 
         def conv(t):
+            if self.tp is not None:
+                t = self.tp.input(t, self.weight.shape[1])
             if train:
                 return conv3x3_train(t, self.weight, self.bias, packed)
             return conv3x3x3(t, packed, self.bias.detach(), self.relu)
@@ -176,6 +190,7 @@ class BatchNorm(nn.BatchNorm3d):
 
     update_running_stats = True
     level = 0  # the U-Net level (set by UNet3D)
+    tp: Optional[collectives.ChannelShard] = None  # set by sharding.shard_model
     # a list while a data-parallel step defers the running-statistics update
     # (layout (b), train/steps.py): each forward appends its (mean, unbiased
     # var) instead, and the step replays the global chain in microbatch order
@@ -266,16 +281,88 @@ class _GroupNormFn(torch.autograd.Function):
         return dx, dw, db, None, None, None, None
 
 
+class _GroupNormSpanFn(torch.autograd.Function):
+    """GroupNorm of this rank's channel shard where its groups span the
+    shards (``GroupNorm.shard_groups``): ``_GroupNormFn``'s arithmetic with
+    each group's sums taken over its channels on every rank, per channel
+    here, added into a (N, groups) table by each channel's group
+    ``group_of`` and summed over ``comms`` (the model group, and the
+    D-slabs' group on a spatially sharded level); ``count`` is a group's
+    whole element count a sample."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group_of, groups, comms, count):
+        xf = x.reshape(x.shape[0], -1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32))
+        sums = _group_sums(torch.stack([xf.sum(1), xf.square().sum(1)]), group_of, groups, comms) / count
+        mean = sums[0]
+        r = torch.rsqrt((sums[1] - mean.square()).clamp_min(0.0) + eps)
+        mean, r = mean[:, group_of], r[:, group_of]  # (N, C) for the local channels
+        y = (xf - mean[:, None]) * (r * weight.to(r.dtype))[:, None] + bias.to(r.dtype)
+        ctx.save_for_backward(x, weight, mean, r, group_of)
+        ctx.groups, ctx.comms, ctx.count = groups, comms, count
+        return y.reshape(x.shape).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, r, group_of = ctx.saved_tensors
+        xhat = (x.reshape(x.shape[0], -1, x.shape[-1]).to(r.dtype) - mean[:, None]) * r[:, None]
+        dyf = dy.reshape(xhat.shape).to(r.dtype)
+        dw = (dyf * xhat).sum((0, 1)) if ctx.needs_input_grad[1] else None
+        db = dyf.sum((0, 1)) if ctx.needs_input_grad[2] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dxhat = dyf * weight.to(r.dtype)
+            sums = torch.stack([dxhat.sum(1), (dxhat * xhat).sum(1)])
+            m1, m2 = _group_sums(sums, group_of, ctx.groups, ctx.comms)[:, :, group_of] / ctx.count
+            dx = (r[:, None] * (dxhat - m1[:, None] - xhat * m2[:, None])).reshape(x.shape).to(x.dtype)
+        return dx, dw, db, None, None, None, None, None
+
+
+def _group_sums(per_channel: torch.Tensor, group_of: torch.Tensor, groups: int, comms) -> torch.Tensor:
+    """(..., C) sums per local channel → (..., groups) sums per group over
+    the channels of every rank of ``comms``."""
+    table = per_channel.new_zeros((*per_channel.shape[:-1], groups)).index_add_(-1, group_of, per_channel)
+    for comm in comms:
+        comm.all_reduce(table)
+    return table
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over NDHWC with flax's arithmetic (``_GroupNormFn``), the
     same in training and eval: no running statistics. State-dict keys are
     ``nn.GroupNorm``'s (``weight``, ``bias``)."""
 
     level = 0  # the U-Net level (set by UNet3D)
+    tp: Optional[collectives.ChannelShard] = None  # set by sharding.shard_model
+    # where the groups span the channel shards: (the whole layer's groups,
+    # each local channel's group index)
+    _spanning: Optional[tuple] = None
+
+    def shard_groups(self, local: int) -> None:
+        """This rank holds ``local`` of the channels, from ``tp.span``'s
+        start: whole groups of them where the shards keep groups whole (then
+        ``num_groups`` counts the local groups), else each local channel's
+        group is recorded and the statistics are summed over the model group."""
+        start, per = self.tp.span[0], self.num_channels // self.num_groups
+        if start % per == 0 and local % per == 0:
+            self.num_groups = local // per
+        else:
+            group_of = torch.arange(start, start + local, device=self.weight.device) // per
+            self._spanning = (self.num_groups, group_of)
+        self.num_channels = local
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         plan = collectives.spatial_plan()
-        if plan is None or not plan.sharded(self.level):
+        split = plan is not None and plan.sharded(self.level)
+        if self._spanning is not None:
+            groups, group_of = self._spanning
+            voxels = x[0].numel() // x.shape[-1]  # a sample's, whole over the D-slabs
+            if split:
+                voxels = voxels // x.shape[1] * plan.depth(self.level)
+            count = voxels * (self.tp.channels // groups)
+            comms = ([plan.comm] if split else []) + [self.tp.comm]
+            return _GroupNormSpanFn.apply(x, self.weight, self.bias, self.eps, group_of, groups, comms, count)
+        if not split:
             return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps)
         count = x[0].numel() // x.shape[1] * plan.depth(self.level) // self.num_groups
         return _GroupNormFn.apply(x, self.weight, self.bias, self.num_groups, self.eps, plan.comm, count)
@@ -345,12 +432,16 @@ class ConvTranspose2x(nn.Module):
     kernel is stored spatially flipped on the JAX side).
     """
 
+    tp: Optional[collectives.ChannelShard] = None  # set by sharding.shard_model
+
     def __init__(self, in_ch: int, out_ch: int, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 2, 2, 2, device=device))
         self.bias = nn.Parameter(torch.empty(out_ch, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.input(x, self.weight.shape[0])
         n, d, h, w, ci = x.shape
         co = self.weight.shape[1]
         k = self.weight.to(x.dtype).permute(0, 2, 3, 4, 1).reshape(ci, 8 * co)
@@ -411,11 +502,18 @@ class Up(nn.Module):
             x = _pad_to_match(x, (plan.depth(self.level), *skip.shape[2:4]))[:, start:stop]
         else:
             x = _pad_to_match(x, skip.shape[1:4])
+        tp = self.up.tp
+        if tp is not None:  # the shards of each part joined before the concat
+            skip, x = tp.whole(skip, tp.channels), tp.whole(x, tp.channels)
         return self.conv(torch.cat([skip.to(x.dtype), x], dim=-1))
 
 
 class Conv1x1(nn.Module):
-    """The 1×1×1 output conv; ``weight`` is (K, C, 1, 1, 1)."""
+    """The 1×1×1 output conv; ``weight`` is (K, C, 1, 1, 1). Its logits are
+    whole on every rank of a tensor-parallel model (gathered where its K
+    outputs are sharded)."""
+
+    tp: Optional[collectives.ChannelShard] = None  # set by sharding.shard_model
 
     def __init__(self, in_ch: int, out_ch: int, device=None):
         super().__init__()
@@ -423,8 +521,11 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.input(x, self.weight.shape[1])
         w = self.weight.reshape(self.weight.shape[:2]).to(x.dtype)
-        return F.linear(x, w, self.bias.to(x.dtype))
+        y = F.linear(x, w, self.bias.to(x.dtype))
+        return self.tp.whole(y, self.tp.channels) if self.tp is not None else y
 
 
 class UNet3D(nn.Module):

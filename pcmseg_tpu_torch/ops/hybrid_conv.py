@@ -22,6 +22,17 @@ volume: on the slab with its neighbours' facing slices around it
 training its backward is the Function's own: dy zero-extended by the
 slicing, dx through B1 on it and dW through B2 on the extended x; the
 halos' cotangents go back to the neighbours.
+
+Tensor parallelism: a conv whose output channels are sharded over the
+model group is this same Function on the whole input, gathered from the
+channel shards, with the rank's weight shard: the forward is B1 with
+Co / tp, dW is B2 with the whole Ci and Co / tp, and dx is B1 on the dy
+shard (Ci = Co / tp, zero-padded by ``ci_pad``), a partial sum that the
+layer adds up over the model group (``collectives.ChannelShard.input``).
+On a spatial × model mesh ``halo_conv`` exchanges the halo of the channel
+shard and the gather runs inside ``conv`` on the extended slab: the halo
+moves 1/tp of the bytes it would move after the gather, and the gathered
+tensor is the conv's input as on a spatial mesh alone.
 """
 
 from __future__ import annotations

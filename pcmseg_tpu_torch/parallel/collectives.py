@@ -1,6 +1,8 @@
-"""The collectives of data and spatial parallelism. In JAX, GSPMD inserted
-them where a reduction ran over an axis sharded on the mesh, and where a
-3³ conv read across a D-slab's edge; here they are written out.
+"""The collectives of data, spatial and tensor parallelism. In JAX, GSPMD
+inserted them where a reduction ran over an axis sharded on the mesh,
+where a 3³ conv read across a D-slab's edge, and where a layer read the
+channels that other ranks' shards of its producer computed; here they are
+written out.
 
   * :class:`Comm`: a group of ranks that sum and gather together.
     :class:`ProcessComm` is a ``torch.distributed`` group (one process a
@@ -24,9 +26,15 @@ them where a reduction ran over an axis sharded on the mesh, and where a
     summed statistics, so a rank seeds its backward with 1/size of the
     batch group (:func:`backward_scale`), and the summed parameter
     gradients are then the global loss's.
-  * :class:`GradientAllReduce`: the gradients of every parameter, copied
-    into one flat fp32 buffer in parameter order, summed by one collective
-    a step and copied back. A fixed order and one collective keep the step
+  * :class:`ChannelShard` marks a layer of a tensor-parallel model (the
+    'model' axis): its output channels in contiguous shards over the model
+    group, the whole input gathered from the shards before it reads it
+    (:func:`gather_channels`), its input gradient summed over the group
+    (:func:`sum_input_grads`).
+  * :class:`GradientAllReduce`: the gradients of every parameter (this
+    rank's shards of the sharded ones), copied into one flat fp32 buffer in
+    parameter order, summed by one collective a step over the ranks that
+    hold the same channels, and copied back. A fixed order and one collective keep the step
     deterministic and the result bitwise equal on every rank.
   * :func:`exchange`: the sum of contributions that are zero on all ranks
     but one element by element (rows written by their owner into a zeroed
@@ -162,20 +170,25 @@ def world_comm() -> ProcessComm:
 
 @dataclass(frozen=True)
 class MeshComms:
-    """This rank's groups on a data × spatial mesh: ``world``; ``data``, the
-    ranks that hold the same D-slab of other rows; ``spatial``, the ranks
-    that hold the other D-slabs of the same rows."""
+    """This rank's groups on a data × spatial × model mesh: ``world``;
+    ``data``, the ranks that hold the same D-slab and channels of other
+    rows; ``spatial``, the ranks that hold the other D-slabs of the same
+    rows and channels; ``model``, the ranks that hold the other channel
+    shards of the same D-slab of the same rows; ``replica``, every rank
+    that holds the same channels (``multihost.mesh_groups``)."""
 
     world: Comm
     data: Comm
     spatial: Comm
+    model: Comm
+    replica: Comm
 
 
 def mesh_comms(mesh: Mesh) -> MeshComms:
     """The groups of ``mesh`` over the job's process group (made on every
     rank in the same order: ``multihost.mesh_groups``)."""
-    groups = multihost.mesh_groups(mesh.data, mesh.spatial)
-    return MeshComms(world_comm(), ProcessComm(*groups["data"]), ProcessComm(*groups["spatial"]))
+    groups = multihost.mesh_groups(mesh.data, mesh.spatial, mesh.model)
+    return MeshComms(world_comm(), *(ProcessComm(*groups[axis]) for axis in ("data", "spatial", "model", "replica")))
 
 
 # ---- batch-wide sums -------------------------------------------------------------
@@ -402,15 +415,109 @@ def gather_d(x: torch.Tensor, plan: SpatialPlan, level: int) -> torch.Tensor:
     return _GatherD.apply(x, plan.comm, plan.levels.slabs[level])
 
 
+# ---- tensor parallelism: output-channel shards ---------------------------------------
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm, ctx.width = comm, x.shape[-1]
+        return torch.cat(comm.all_gather(x), -1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the cotangent of a whole tensor is whole, and the same, on every rank
+        # (module docstring of ChannelShard): this rank's slice of it
+        start = ctx.comm.rank * ctx.width
+        return dy[..., start: start + ctx.width].contiguous(), None
+
+
+def gather_channels(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """This rank's channel shard (..., C / size) → the whole (..., C) on
+    every rank of ``comm``, the shards in rank order (an all-gather).
+    Differentiable: the backward keeps this rank's slice of the whole
+    tensor's cotangent, which :class:`ChannelShard` keeps whole on every
+    rank."""
+    return _GatherChannels.apply(x, comm)
+
+
+class _SumInputGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return ctx.comm.all_reduce(dx.contiguous().clone()), None
+
+
+def sum_input_grads(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``x`` itself; in the backward its cotangent summed over ``comm``: the
+    input of a layer whose output channels are sharded, each rank's
+    cotangent of it a partial sum over its own channels. The sum runs in
+    the cotangent's own dtype, as GSPMD all-reduces a partial result in
+    its dtype: bf16 on the card, where two ranks' sum is rounded once
+    either way and half the bytes of an fp32 sum cross."""
+    return _SumInputGrads.apply(x, comm)
+
+
+@dataclass(frozen=True)
+class ChannelShard:
+    """A layer's ``channels`` output channels over the model group ``comm``:
+    ``sharded`` where JAX's rule by shape shards its leaves
+    (``sharding.shard_axis``), this rank holding the contiguous block
+    ``span``; else whole on every rank.
+
+    What keeps the backward right on every mix of sharded and whole layers:
+    a tensor that is whole on every rank of the group has a cotangent that
+    is whole and bitwise equal on every rank. A sharded layer's input
+    gradient is a partial sum over its own output channels, so the layer
+    sums it over the group itself (:meth:`input`, :func:`sum_input_grads`);
+    a whole layer's is whole already; so the gather of a shard
+    (:func:`gather_channels`) only keeps its rank's slice in the backward,
+    whatever layers read the gathered tensor."""
+
+    comm: Comm
+    channels: int
+    sharded: bool
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """This rank's [start, stop) of the layer's output channels."""
+        if not self.sharded:
+            return 0, self.channels
+        per = self.channels // self.comm.size
+        return self.comm.rank * per, (self.comm.rank + 1) * per
+
+    def whole(self, x: torch.Tensor, channels: int) -> torch.Tensor:
+        """``x`` with all of its ``channels`` channels: gathered over the
+        group where it holds this rank's shard of them."""
+        if x.shape[-1] == channels:
+            return x
+        if x.shape[-1] * self.comm.size != channels:
+            raise ValueError(f"a tensor of {x.shape[-1]} channels is no shard of {channels} over {self.comm.size}")
+        return gather_channels(x, self.comm)
+
+    def input(self, x: torch.Tensor, channels: int) -> torch.Tensor:
+        """The layer's input of ``channels`` channels (gathered where ``x``
+        is a shard), with its gradient summed over the group where the
+        layer's outputs are sharded."""
+        x = self.whole(x, channels)
+        return sum_input_grads(x, self.comm) if self.sharded else x
+
+
 # ---- the gradient all-reduce ----------------------------------------------------------
 
 
 class GradientAllReduce:
-    """Sums the gradients of ``params`` over every rank with one all-reduce
-    of a flat fp32 buffer, kept between steps."""
+    """Sums the gradients of ``params`` over ``comm`` (default: every rank;
+    on a tensor-parallel mesh the ranks that hold the same channels) with
+    one all-reduce of a flat fp32 buffer, kept between steps."""
 
-    def __init__(self, params: List[torch.nn.Parameter]):
+    def __init__(self, params: List[torch.nn.Parameter], comm: Optional[Comm] = None):
         self.params = [p for p in params if p.requires_grad]
+        self.comm = comm
         self._flat: Optional[torch.Tensor] = None
 
     def __call__(self) -> None:
@@ -423,7 +530,7 @@ class GradientAllReduce:
         for g in grads:
             self._flat[offset: offset + g.numel()].copy_(g.reshape(-1))
             offset += g.numel()
-        dist.all_reduce(self._flat)
+        (self.comm or world_comm()).all_reduce(self._flat)
         offset = 0
         for g in grads:
             g.copy_(self._flat[offset: offset + g.numel()].view_as(g))

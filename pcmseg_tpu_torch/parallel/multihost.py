@@ -230,25 +230,42 @@ def mesh_coordinates(rank: int, data: int, spatial: int, model: int = 1) -> tupl
 _groups: dict = {}
 
 
-def mesh_groups(data: int, spatial: int) -> dict:
-    """This rank's process groups on a data × spatial mesh over the whole
-    job: ``{'spatial': (group, ranks), 'data': (group, ranks)}``, the ranks
-    that hold the same rows (one per D-slab) and those that hold the same
-    D-slab (one per rows), each group as ``dist.new_group`` made it (None:
-    the whole job). Every rank makes every group, spatial groups by data
-    coordinate and then data groups by spatial coordinate, as
+def mesh_groups(data: int, spatial: int, model: int = 1) -> dict:
+    """This rank's process groups on a data × spatial × model mesh over the
+    whole job, each as ``(group, ranks)`` with the group as ``dist.new_group``
+    made it (None: the whole job):
+
+      * 'spatial': the ranks that hold the other D-slabs of the same rows
+        and the same channels;
+      * 'data': those that hold the same D-slab of other rows and the same
+        channels;
+      * 'model': those that hold the other channel shards of the same
+        D-slab of the same rows;
+      * 'replica': every rank that holds the same channels (the data ×
+        spatial ranks of one model coordinate), over which the gradients
+        are summed.
+
+    Every rank makes every group, in one order (spatial groups by (d, m),
+    data groups by (s, m), model groups by (d, s), replica groups by m), as
     ``new_group`` asks; made once per mesh shape and process group."""
-    if data * spatial != process_count():
-        raise ValueError(f"a {data}x{spatial} mesh over {process_count()} processes")
-    key = (data, spatial)
+    if data * spatial * model != process_count():
+        raise ValueError(f"a {data}x{spatial}x{model} mesh over {process_count()} processes")
+    key = (data, spatial, model)
     if key not in _groups:
-        every = {"spatial": [[d * spatial + s for s in range(spatial)] for d in range(data)],
-                 "data": [[d * spatial + s for d in range(data)] for s in range(spatial)]}
-        d, s, _ = mesh_coordinates(process_index(), data, spatial)
+        def rank(d, s, m):
+            return (d * spatial + s) * model + m
+
+        every = {
+            "spatial": [[rank(d, s, m) for s in range(spatial)] for d in range(data) for m in range(model)],
+            "data": [[rank(d, s, m) for d in range(data)] for s in range(spatial) for m in range(model)],
+            "model": [[rank(d, s, m) for m in range(model)] for d in range(data) for s in range(spatial)],
+            "replica": [[rank(d, s, m) for d in range(data) for s in range(spatial)] for m in range(model)],
+        }
+        d, s, m = mesh_coordinates(process_index(), data, spatial, model)
+        pick = {"spatial": d * model + m, "data": s * model + m, "model": d * spatial + s, "replica": m}
         mine = {}
         for axis, lists in every.items():
             made = [None if len(r) == process_count() else dist.new_group(r) for r in lists]
-            pick = d if axis == "spatial" else s
-            mine[axis] = (made[pick], lists[pick])
+            mine[axis] = (made[pick[axis]], lists[pick[axis]])
         _groups[key] = mine
     return _groups[key]

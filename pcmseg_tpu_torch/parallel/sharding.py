@@ -1,17 +1,18 @@
 """The ('data', 'spatial', 'model') mesh over the ranks, the rows of a
-global batch each rank trains and the D-slab of those rows it holds: the
-port of ``pcmseg_tpu/parallel/sharding.py:35-128``.
+global batch each rank trains, the D-slab of those rows it holds and its
+shards of the model: the port of ``pcmseg_tpu/parallel/sharding.py:35-128``.
 
 One rank is one process on one card. ``data`` ranks train disjoint rows of
-each global batch with replicated parameters; BatchNorm and the loss sum
-over the global batch (``collectives``), as GSPMD made them in JAX, and
-the gradients are summed by one all-reduce a step. ``spatial`` ranks hold
-the same rows, each a slab of the volume's D axis (:func:`level_plan`):
-the ranks of a mesh are ordered as JAX's (``multihost.mesh_coordinates``),
-so rank ``d·spatial + s`` holds rows ``d`` and slab ``s``. ``model``
-(tensor) parallelism is not ported: a config with it above 1 is refused
-by name where a trainer or step is built
-(``train/steps.py::refuse_unported_training``).
+each global batch; BatchNorm and the loss sum over the global batch
+(``collectives``), as GSPMD made them in JAX, and the gradients are summed
+by one all-reduce a step. ``spatial`` ranks hold the same rows, each a
+slab of the volume's D axis (:func:`level_plan`). ``model`` ranks hold the
+same rows and slab, each the output-channel shards of every leaf that
+JAX's rule by shape shards (:func:`param_spec`, mapped to the port's
+layouts by :func:`shard_axis`; the state cut by :func:`shard_state`, the
+checkpoints joined by :func:`whole_payload`). The ranks of a mesh are
+ordered as JAX's (``multihost.mesh_coordinates``): rank ``(d·spatial +
+s)·model + m`` holds rows ``d``, slab ``s`` and shard ``m``.
 
 A padded global batch of B rows, run as A microbatches of m = B / A rows
 (JAX's ``lax.scan`` over ``reshape(A, m, ...)``), is spread over P data
@@ -42,7 +43,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -255,43 +256,191 @@ def shard_batch(batch: Any, mesh: Mesh, rank: Optional[int] = None, accum: int =
 
 
 def param_spec(shape, tp: int) -> tuple:
-    """Every parameter is replicated: the spec of a replicated leaf, ``()``.
-    Tensor parallelism (``tp`` > 1: output-channel shards of the convs) is
-    not ported and raises."""
-    if tp > 1:
-        raise NotImplementedError(f"not ported to the PyTorch package yet: tensor_parallel={tp}")
-    return ()
+    """JAX's tensor-parallel spec of a leaf of ``shape`` in the JAX layout
+    (``pcmseg_tpu/parallel/sharding.py:81-92``), as a tuple: the trailing
+    (output-channel) axis on 'model' where ``tp`` > 1 divides it, e.g.
+    ``(None, None, None, None, 'model')`` for a (kD, kH, kW, I, O) kernel;
+    ``()`` (replicated) for a scalar or an indivisible leaf. Apply it to a
+    JAX-layout shape only: :func:`shard_axis` maps the port's leaves."""
+    shape = tuple(shape)
+    if tp <= 1 or not shape or shape[-1] % tp:
+        return ()
+    return (None,) * (len(shape) - 1) + (MODEL_AXIS,)
 
 
-def state_checksum(model: torch.nn.Module) -> torch.Tensor:
-    """(2,) float64: the sum of every parameter and buffer element, and the
-    same sum weighted by each element's position (so that a swap shows)."""
+def shard_axis(module: torch.nn.Module, name: str, shape, tp: int) -> Optional[int]:
+    """The axis of ``module``'s leaf ``name`` (of torch ``shape``) that
+    :func:`param_spec` shards at ``tp``, or None where it is replicated. The
+    JAX layout of each port leaf:
+
+      * ``Conv3x3.weight`` (Co, Ci, 3, 3, 3) ↔ (3, 3, 3, Ci, Co): axis 0;
+      * ``ConvTranspose2x.weight`` (Ci, Co, 2, 2, 2) ↔ (2, 2, 2, Ci, Co): axis 1;
+      * ``Conv1x1.weight`` (K, C, 1, 1, 1) ↔ (1, 1, 1, C, K): axis 0;
+      * biases, norm weights and biases, BatchNorm running statistics (C,):
+        axis 0; the scalar ``num_batches_tracked``: replicated."""
+    from pcmseg_tpu_torch.models.unet3d import Conv1x1, Conv3x3, ConvTranspose2x
+
+    shape = tuple(shape)
+    if name == "weight" and isinstance(module, ConvTranspose2x):
+        jax_shape, axis = (*shape[2:], shape[0], shape[1]), 1
+    elif name == "weight" and isinstance(module, (Conv3x3, Conv1x1)):
+        jax_shape, axis = (*shape[2:], shape[1], shape[0]), 0
+    elif len(shape) <= 1:
+        jax_shape, axis = shape, 0
+    else:
+        raise ValueError(f"no JAX layout known for {type(module).__name__}.{name} of shape {shape}")
+    return axis if param_spec(jax_shape, tp) else None
+
+
+def shard_axes(model: torch.nn.Module, tp: int) -> Dict[str, Optional[int]]:
+    """:func:`shard_axis` of every state-dict entry of ``model`` (whole, as
+    built), by its state-dict key."""
+    axes = {}
+    for prefix, module in model.named_modules():
+        for name, t in list(module.named_parameters(recurse=False)) + list(module.named_buffers(recurse=False)):
+            axes[f"{prefix}.{name}" if prefix else name] = shard_axis(module, name, t.shape, tp)
+    return axes
+
+
+def _slice(t: torch.Tensor, axis: Optional[int], rank: int, tp: int) -> torch.Tensor:
+    if axis is None:
+        return t
+    per = t.shape[axis] // tp
+    return t.narrow(axis, rank * per, per).clone()
+
+
+def shard_model(model: torch.nn.Module, comm) -> Dict[str, Optional[int]]:
+    """Cut ``model`` (whole, the same on every rank) to this rank's shards
+    over the model group ``comm`` (a ``collectives.Comm``), in place: every
+    parameter and buffer that :func:`shard_axes` shards keeps its block
+    ``comm.rank`` of ``comm.size``, the parameter objects staying the same
+    (an optimizer made before still holds them); the norms count their
+    local channels; each conv, transposed conv, head and norm gets its
+    ``collectives.ChannelShard``. Returns the axes. A 3³ conv off the CPU
+    (on a card, or on ``meta`` to check a configuration) whose shard would
+    hold a channel count the CUDA kernels cannot take (not a multiple of 8)
+    raises ``ValueError`` naming it."""
+    from pcmseg_tpu_torch.models.unet3d import BatchNorm, Conv1x1, Conv3x3, ConvTranspose2x, GroupNorm
+    from pcmseg_tpu_torch.parallel.collectives import ChannelShard
+
+    tp, rank = comm.size, comm.rank
+    axes = shard_axes(model, tp)
+    for prefix, module in model.named_modules():
+        if isinstance(module, (Conv3x3, Conv1x1)):
+            channels = module.weight.shape[0]
+        elif isinstance(module, ConvTranspose2x):
+            channels = module.weight.shape[1]
+        elif isinstance(module, (BatchNorm, GroupNorm)):
+            channels = module.num_features if isinstance(module, BatchNorm) else module.num_channels
+        else:
+            continue
+        leaves = list(module.named_parameters(recurse=False)) + list(module.named_buffers(recurse=False))
+        shard = ChannelShard(comm, channels, axes[f"{prefix}.weight"] is not None)
+        if (shard.sharded and isinstance(module, Conv3x3) and module.weight.device.type != "cpu"
+                and (channels // tp) % 8):
+            raise ValueError(f"tensor_parallel={tp}: {prefix} would hold {channels // tp} of its {channels} output "
+                             "channels, and the CUDA conv kernels take multiples of 8 only")
+        with torch.no_grad():
+            for n, t in leaves:
+                t.data = _slice(t.data, axes[f"{prefix}.{n}"], rank, tp)
+        module.tp = shard
+        if shard.sharded and isinstance(module, BatchNorm):
+            module.num_features = channels // tp
+        elif shard.sharded and isinstance(module, GroupNorm):
+            module.shard_groups(channels // tp)
+    return axes
+
+
+def local_payload(payload: dict, axes: Dict[str, Optional[int]], names: List[str], rank: int, tp: int) -> dict:
+    """A training checkpoint's payload (``train.checkpoints.train_payload``
+    of a whole state) → this rank's shards of it: the model's state dict by
+    ``axes``, each optimizer state tensor of parameter ``names[i]`` of that
+    parameter's shape as the parameter, the EMA by name."""
+    out = dict(payload)
+    out["model"] = {k: _slice(v, axes[k], rank, tp) for k, v in payload["model"].items()}
+    out["optimizer"] = _map_optimizer(payload["optimizer"], names, axes, lambda t, axis: _slice(t, axis, rank, tp))
+    if payload.get("ema"):
+        out["ema"] = {k: _slice(v, axes[k], rank, tp) for k, v in payload["ema"].items()}
+    return out
+
+
+def whole_payload(payload: dict, axes: Dict[str, Optional[int]], names: List[str], comm) -> dict:
+    """The inverse of :func:`local_payload` on every rank of the model group
+    ``comm``: each shard all-gathered over it and joined in rank order (a
+    collective: every rank of the group calls it, in the same order)."""
+    def join(t, axis):
+        return t if axis is None else torch.cat(comm.all_gather(t), axis)
+
+    out = dict(payload)
+    out["model"] = type(payload["model"])((k, join(v, axes[k])) for k, v in payload["model"].items())
+    if hasattr(payload["model"], "_metadata"):
+        out["model"]._metadata = payload["model"]._metadata
+    out["optimizer"] = _map_optimizer(payload["optimizer"], names, axes, join)
+    if payload.get("ema"):
+        out["ema"] = {k: join(v, axes[k]) for k, v in payload["ema"].items()}
+    return out
+
+
+def _map_optimizer(opt: dict, names: List[str], axes: Dict[str, Optional[int]], fn) -> dict:
+    """An optimizer state dict with ``fn(tensor, axis)`` applied to every
+    per-parameter tensor of a parameter's rank (Adam's moments; its scalar
+    step count has no axis)."""
+    state = {}
+    for i, entry in opt["state"].items():
+        axis = axes[names[int(i)]]
+        state[i] = {k: fn(v, axis if isinstance(v, torch.Tensor) and v.dim() >= 1 else None)
+                    for k, v in entry.items()}
+    return {**opt, "state": state}
+
+
+def state_checksum(tensors) -> torch.Tensor:
+    """(2,) float64: the sum of every element of ``tensors``, and the same
+    sum weighted by each element's position (so that a swap shows)."""
     total = torch.zeros(2, dtype=torch.float64)
-    for t in list(model.parameters()) + list(model.buffers()):
+    for t in tensors:
         flat = t.detach().reshape(-1).double()
         pos = torch.arange(1, flat.numel() + 1, dtype=torch.float64, device=flat.device) / flat.numel()
         total += torch.stack([flat.sum(), (flat * pos).sum()]).cpu()
     return total
 
 
-def shard_state(model: torch.nn.Module, mesh: Mesh) -> None:
-    """Place the state on the mesh: replicated on every rank. Each rank
-    builds it from the same seed; one all-reduce of its checksum shows that
-    the copies match, and a rank whose copy differs raises."""
+def _same_on(comm, mine: torch.Tensor, what: str) -> None:
+    """Raise unless ``mine`` (a checksum) is the same on every rank of ``comm``."""
     import torch.distributed as dist
 
-    for p in model.parameters():
-        param_spec(tuple(p.shape), mesh.model)
-    if not dist.is_initialized():
-        return
-
-    mine = state_checksum(model)
     device = multihost.local_device() if dist.get_backend() == "nccl" else torch.device("cpu")
     lo, hi = mine.to(device), mine.to(device)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=comm.group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=comm.group)
     if not (torch.equal(lo.cpu(), mine) and torch.equal(hi.cpu(), mine)):
         raise RuntimeError(
-            f"rank {multihost.process_index()}: the replicated state differs across ranks "
+            f"rank {multihost.process_index()}: {what} differs across ranks "
             f"(checksums from {lo.tolist()} to {hi.tolist()})"
         )
+
+
+def shard_state(model: torch.nn.Module, mesh: Mesh) -> Optional[Dict[str, Optional[int]]]:
+    """Place the model on the mesh. Every rank builds it whole from the same
+    seed; on a mesh with a model axis each rank then keeps its shards
+    (:func:`shard_model`, over its model group) and the axes are returned
+    (None without a model axis). Checksums show that the copies match: the
+    replicated leaves across every rank, each shard across the ranks that
+    hold it (the replica group); a rank whose copy differs raises. The
+    optimizer state and the EMA are made after this, from the shards."""
+    import torch.distributed as dist
+
+    from pcmseg_tpu_torch.parallel import collectives
+
+    if mesh.model > 1 and not dist.is_initialized():
+        raise ValueError(f"a model axis of {mesh.model} needs a process group of {mesh.size} ranks")
+    if not dist.is_initialized():
+        return None
+    comms = collectives.mesh_comms(mesh)
+    axes = shard_model(model, comms.model) if mesh.model > 1 else None
+    leaves = model.state_dict()
+    replicated = [t for k, t in leaves.items() if axes is None or axes[k] is None]
+    _same_on(comms.world, state_checksum(replicated), "the replicated state")
+    if axes is not None:
+        shards = [t for k, t in leaves.items() if axes[k] is not None]
+        _same_on(comms.replica, state_checksum(shards), "a shard of the state")
+    return axes

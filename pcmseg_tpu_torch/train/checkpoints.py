@@ -195,11 +195,15 @@ def copy_train_checkpoint(directory: str, src: str, dst: str) -> str:
     return _atomic_write(train_checkpoint_path(directory, dst), lambda tmp: shutil.copyfile(src_path, tmp))
 
 
-def load_train_checkpoint(path: str, state) -> dict:
+def load_train_checkpoint(path: str, state, local: Optional[Callable[[dict], dict]] = None) -> dict:
     """Restore ``state`` in place from a ``save_train_checkpoint`` file (onto
     the devices its tensors already live on); returns the meta dict. A
-    checkpoint without an EMA restarts the EMA from the restored params."""
+    checkpoint without an EMA restarts the EMA from the restored params.
+    ``local`` maps the file's payload to the part of it that ``state``
+    holds first (a tensor-parallel rank's shards: ``sharding.local_payload``)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    if local is not None:
+        payload = local(payload)
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
@@ -357,9 +361,9 @@ class SnapshotPool:
             self.peak_pinned_bytes = max(self.peak_pinned_bytes, self.pinned_bytes)
         return buffers
 
-    def take(self, state) -> Snapshot:
-        """Snapshot of ``state``'s ``train_payload``."""
-        payload = train_payload(state)
+    def take(self, state, payload: Optional[dict] = None) -> Snapshot:
+        """Snapshot of ``payload``, by default ``state``'s ``train_payload``."""
+        payload = train_payload(state) if payload is None else payload
         leaves = _leaves(payload, [])
         layout = tuple((tuple(t.shape), t.dtype, t.device.type) for t in leaves)
         buffers = self._acquire(layout)
@@ -398,8 +402,9 @@ class AsyncCheckpointWriter:
     """One writer thread for a trainer's checkpoints
     (``pcmseg_tpu/train/trainer.py:357-455, 854-868``).
 
-    ``submit(kind, state, write)`` snapshots ``state`` and queues
-    ``write(payload)`` on the thread:
+    ``submit(kind, state, write)`` snapshots ``state`` (or the ``payload``
+    given for it, made on the caller's thread) and queues ``write(payload)``
+    on the thread:
 
       * latest-wins collapse: a queued, not yet started task of the same
         ``kind`` is cancelled ('latest' onto 'latest', 'best' (best +
@@ -439,7 +444,7 @@ class AsyncCheckpointWriter:
         """Tasks queued or running."""
         return sum(not f.done() for _, f, _ in self._tasks)
 
-    def submit(self, kind: str, state, write: Callable[[dict], Any]) -> None:
+    def submit(self, kind: str, state, write: Callable[[dict], Any], payload: Optional[dict] = None) -> None:
         t0 = time.perf_counter()
         if kind != "periodic" and self.collapse:
             kept = []
@@ -458,7 +463,7 @@ class AsyncCheckpointWriter:
         self.drain()
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="pcmseg_ckpt")
-        snapshot = self.snapshots.take(state)
+        snapshot = self.snapshots.take(state, payload)
         self._tasks.append((kind, self._pool.submit(self._run, snapshot, write), snapshot))
         self.stats["submitted"] += 1
         self.stats["blocked_s"] += time.perf_counter() - t0

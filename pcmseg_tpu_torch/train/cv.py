@@ -11,7 +11,7 @@ an aggregate ``cv_results.json`` with the mean and the sample std
 (ddof=1) of the folds' best validation losses.
 
 Under a process group every process runs every fold's Trainer in step
-(each fold on the Trainer's data × spatial mesh); the primary alone writes
+(each fold on the Trainer's data × spatial × model mesh); the primary alone writes
 the JSON files, and every process meets it at a barrier after each, so a
 resumed run reads the same completed folds on every process.
 """

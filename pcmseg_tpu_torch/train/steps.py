@@ -60,6 +60,17 @@ rows whose nearest label voxel lies in its label slab (``slab_targets``,
 JAX's index rule on global coordinates, on the labels gathered whole), so
 the ranks' loss terms are disjoint and their sums over the group are the
 whole loss.
+
+On a mesh with a model axis (tensor parallelism) the model holds this
+rank's output-channel shards (``sharding.shard_state``); every rank of a
+model group receives the same rows and D-slab, and the forward's logits,
+the loss and the metrics are whole and equal on each of them. The batch
+sums above then run over the ranks that hold the same channels (the
+replica group: every rank without a model axis), so a rank seeds its
+backward with 1/(data·spatial), and one all-reduce over that group sums
+the gradients of this rank's shards and of the replicated parameters.
+The clip's global norm sums the sharded gradients' squares over the model
+group (``sharded_global_norm``); Adam's moments and the EMA are per shard.
 """
 
 from __future__ import annotations
@@ -136,13 +147,38 @@ def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm
         g.div_(den).mul_(num)
 
 
+def sharded_global_norm(model: nn.Module) -> Optional[torch.Tensor]:
+    """The global norm of the gradients of a tensor-parallel ``model``
+    (``sharding.shard_model``), the same on every rank: the squares of the
+    sharded parameters' gradients summed over the model group, those of the
+    replicated ones (whole on every rank) counted once. None for a model
+    without shards."""
+    comm, sharded, whole = None, [], []
+    for m in model.modules():
+        tp = getattr(m, "tp", None)
+        own = [p.grad for p in m.parameters(recurse=False) if p.requires_grad]
+        if tp is not None and tp.sharded:
+            comm = tp.comm
+            sharded += own
+        else:
+            whole += own
+    if comm is None:
+        return None
+    squares = lambda grads: torch.stack([torch.linalg.vector_norm(g).square() for g in grads]).sum()  # noqa: E731
+    total = comm.all_reduce(squares(sharded))
+    return torch.sqrt(total + squares(whole)) if whole else torch.sqrt(total)
+
+
 def apply_gradients(state: TrainState, max_norm: float) -> torch.Tensor:
     """The optimizer update from each parameter's ``grad``, flax's
     ``TrainState.apply_gradients`` over the JAX optimizer chain: optax's
     clip by global norm when ``max_norm`` > 0, then Adam with coupled L2.
-    Counts the step. Returns the global norm before clipping."""
+    Counts the step. Returns the global norm before clipping (of the whole
+    gradient on a tensor-parallel model: ``sharded_global_norm``)."""
     grads = [p.grad for p in state.model.parameters() if p.requires_grad]
-    norm = global_norm(grads)
+    norm = sharded_global_norm(state.model)
+    if norm is None:
+        norm = global_norm(grads)
     if max_norm > 0:
         clip_by_global_norm_(grads, norm, max_norm)
     state.optimizer.step()
@@ -190,19 +226,6 @@ def slab_targets(out: torch.Tensor, labels: torch.Tensor, plan: SpatialPlan, lev
     return out, align_labels(out, labels)
 
 
-def unported_training_options(config) -> List[str]:
-    """The config's training options that this package has not ported."""
-    if config.tensor_parallel > 1:
-        return [f"tensor_parallel={config.tensor_parallel}"]
-    return []
-
-
-def refuse_unported_training(config) -> None:
-    refused = unported_training_options(config)
-    if refused:
-        raise NotImplementedError("not ported to the PyTorch package yet: " + ", ".join(refused))
-
-
 def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[torch.Tensor],
                           accum: int, owned: range, comm) -> torch.Tensor:
     """Layout (b): every data rank's per-microbatch BatchNorm statistics and
@@ -232,15 +255,16 @@ class _MeshStep:
     def __init__(self, config, mesh: Optional[sharding.Mesh]):
         active = collectives.active()
         if mesh is None:
-            mesh = sharding.make_mesh(-1, config.spatial_parallel) if active else sharding.Mesh()
-        if mesh.model > 1:
-            raise NotImplementedError(f"not ported to the PyTorch package yet: tensor_parallel={mesh.model}")
+            mesh = (sharding.make_mesh(-1, config.spatial_parallel, config.tensor_parallel) if active
+                    else sharding.Mesh())
         if not active and mesh.size > 1:
-            raise ValueError(f"a {mesh.data}x{mesh.spatial} mesh needs a process group of {mesh.size} ranks")
+            raise ValueError(f"a {mesh.data}x{mesh.spatial}x{mesh.model} mesh needs a process group of "
+                             f"{mesh.size} ranks")
         self.mesh = mesh
         self.comms = collectives.mesh_comms(mesh) if active else None
         self.data_index = (
-            multihost.mesh_coordinates(multihost.process_index(), mesh.data, mesh.spatial)[0] if active else 0
+            multihost.mesh_coordinates(multihost.process_index(), mesh.data, mesh.spatial, mesh.model)[0]
+            if active else 0
         )
         self._levels: Dict[int, sharding.LevelPlan] = {}
 
@@ -261,12 +285,13 @@ class _MeshStep:
 
     def synchronized(self, layout: str = "a"):
         """The ``synchronized_batch`` of a microbatch in ``layout``: (a) the
-        voxels over every rank and the samples over the data ranks; (b) the
+        voxels over every rank that holds the same channels (every rank
+        without a model axis) and the samples over the data ranks; (b) the
         voxels over the other D-slabs only (none without them)."""
         if self.comms is None:
             return collectives.synchronized_batch(False)
         if layout == "a":
-            return collectives.synchronized_batch(batch=self.comms.world, rows=self.comms.data)
+            return collectives.synchronized_batch(batch=self.comms.replica, rows=self.comms.data)
         return collectives.synchronized_batch(self.mesh.spatial > 1, batch=self.comms.spatial)
 
 
@@ -286,14 +311,13 @@ def make_train_step(
     rank's rows of the global batch, whole or its D-slab of them, on
     ``mesh`` (module docstring).
     """
-    refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     accum = max(1, int(config.accum_steps))
     ema_decay = float(config.ema_decay)
     clip = float(config.grad_clip_norm or 0.0)
     on = _MeshStep(config, mesh)
     dp = on.mesh.data
-    sync_grads = collectives.GradientAllReduce(list(model.parameters()))
+    sync_grads = collectives.GradientAllReduce(list(model.parameters()), on.comms.replica if on.comms else None)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
 
     def objective(out, labels, weight, plan):
@@ -394,7 +418,6 @@ def make_eval_step(
     loss and the three sums are over every rank's rows of the global batch,
     the per-sample entries those of this rank's rows (summed over their
     D-slabs on a spatial ``mesh``; 'pred' this rank's slab)."""
-    refuse_unported_training(config)
     loss_fn = loss_fn or loss_fn_from_config(config)
     threshold = config.threshold
     n_classes = int(config.n_classes)

@@ -69,8 +69,18 @@ host before the copy to the card; from the cache after the crop and the
 augmentation of the whole rows); the steps run on the mesh
 (``train/steps.py``). A card so holds 1/data of the cached stacks, where
 JAX's hold 1/(data·spatial), and the cache's budget counts the data ranks
-only. Tensor parallelism is not ported and raises ``NotImplementedError``
-naming the option.
+only.
+
+Tensor parallelism (``trainer.py:109-117``, ``shard_state`` at :196 and
+:487): ``tensor_parallel`` > 1 adds the mesh's model axis (rank
+``(d·spatial + s)·model + m``). The ranks of one model group load the same
+rows and keep the same D-slab; each builds the whole model from the seed
+and keeps its output-channel shards (``sharding.shard_state``), from which
+the optimizer and the EMA are made. Every checkpoint, ``.pth`` and resume
+is in the whole reference layout: before each save every rank gathers the
+shards over its model group on the training thread, in epoch order (a
+collective, never on the writer thread), and a resume cuts the loaded
+whole state to this rank's shards again.
 """
 
 from __future__ import annotations
@@ -93,10 +103,12 @@ from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.parallel.sharding import (
     Mesh,
     cut_d_slab,
+    local_payload,
     make_mesh,
     microbatch_layout,
     padded_batch_size,
     shard_state,
+    whole_payload,
 )
 from pcmseg_tpu_torch.train.checkpoints import (
     AsyncCheckpointWriter,
@@ -116,7 +128,6 @@ from pcmseg_tpu_torch.train.steps import (
     create_train_state,
     make_eval_step,
     make_train_step,
-    refuse_unported_training,
     set_learning_rate,
 )
 
@@ -134,7 +145,6 @@ class Trainer:
         tag: str = "",
         device=None,
     ):
-        refuse_unported_training(config)
         self.config = config
         self.tag = tag
         self.log = get_logger(f"pcmseg.trainer{('.' + tag) if tag else ''}")
@@ -198,14 +208,15 @@ class Trainer:
             )
         if not self.is_primary:
             self.log.setLevel("WARNING")
-        # every batch pads to one size, divisible by the data-parallel ranks,
-        # the processes and the accumulation steps
+        # every batch pads to one size, divisible by the data-parallel ranks
+        # (the processes that load other rows: the spatial and model ranks
+        # of one data coordinate load the same ones) and the accumulation steps
         accum = max(1, int(config.accum_steps))
-        self._pad_to = padded_batch_size(config.batch_size, self.mesh.data, self.process_count, accum)
+        self._pad_to = padded_batch_size(config.batch_size, self.mesh.data, self.mesh.data, accum)
         microbatch_layout(self._pad_to, accum, self.mesh.data)  # raises on a layout the step cannot run
         # in a process group (of one rank too) the loaders and the cache
         # shard by this process's data coordinate
-        data_index = multihost.mesh_coordinates(self.process_index, self.mesh.data, self.mesh.spatial)[0]
+        data_index = multihost.mesh_coordinates(self.process_index, *self.mesh.shape.values())[0]
         self._shard = (data_index, self.mesh.data) if collectives.active() else None
 
         augmenter = None
@@ -246,8 +257,10 @@ class Trainer:
             config, deep_supervision=config.deep_supervision,
             generator=torch.Generator().manual_seed(config.seed),
         )
-        self.state = create_train_state(model.to(self.device), config)
-        shard_state(model, self.mesh)  # the same parameters on every rank, or raise
+        # the same parameters on every rank, or raise; on a model axis this
+        # rank's shards of them (axes: None without one)
+        self._axes = shard_state(model.to(self.device), self.mesh)
+        self.state = create_train_state(model, config)
         self._train_step = make_train_step(model, config, mesh=self.mesh)
         self._eval_step = make_eval_step(model, config, mesh=self.mesh)
         self._setup_device_cache(augmenter)
@@ -385,10 +398,25 @@ class Trainer:
                 raise
             multihost.barrier(done_tag)  # the store's barrier: safe on the writer thread
 
+        payload = self._whole_payload()
         if self.writer is None:
-            write(train_payload(self.state))
+            write(payload)
             return
-        self.writer.submit("periodic" if periodic else ("best" if is_best else "latest"), self.state, write)
+        self.writer.submit("periodic" if periodic else ("best" if is_best else "latest"), self.state, write,
+                           payload=payload)
+
+    def _param_names(self) -> List[str]:
+        return [k for k, _ in self.state.model.named_parameters()]
+
+    def _whole_payload(self) -> dict:
+        """The state's checkpoint payload in the whole reference layout: on a
+        model axis the shards gathered over the model group, here on the
+        training thread (every rank, in save order)."""
+        payload = train_payload(self.state)
+        if self._axes is None:
+            return payload
+        comm = collectives.mesh_comms(self.mesh).model
+        return whole_payload(payload, self._axes, self._param_names(), comm)
 
     def close(self) -> None:
         """Complete queued checkpoint writes and release the writer thread,
@@ -403,7 +431,11 @@ class Trainer:
         if not os.path.exists(path):
             self.log.info("resume requested but no latest checkpoint; fresh start")
             return
-        meta = load_train_checkpoint(path, self.state)
+        local = None
+        if self._axes is not None:  # the whole state cut to this rank's shards again
+            comm = collectives.mesh_comms(self.mesh).model
+            local = lambda p: local_payload(p, self._axes, self._param_names(), comm.rank, comm.size)  # noqa: E731
+        meta = load_train_checkpoint(path, self.state, local)
         self.history = meta.get("history", self.history)
         self.best_monitor = meta.get("best_monitor", float("inf"))
         self.start_epoch = int(meta.get("epoch", -1)) + 1

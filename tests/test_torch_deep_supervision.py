@@ -217,8 +217,6 @@ def test_k_class_and_group_norm_are_still_refused(option):
     for K = 3) and moves every head (tests/test_torch_kclass.py holds the
     K = 3 GroupNorm step against JAX)."""
     config = get_config(**_kw(target_size=(16,) * 3, **option))
-    steps.refuse_unported_training(config)
-    assert steps.unported_training_options(config) == []
     model = UNet3D.from_config(config, deep_supervision=True, generator=torch.Generator().manual_seed(0))
     state = steps.create_train_state(model, config)
     before = {f"ds{i}": getattr(model, f"ds{i}").weight.detach().clone() for i in (1, 2, 3)}

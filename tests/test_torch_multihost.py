@@ -102,17 +102,21 @@ def _worker(mode, pid, nproc, port, data_dir, save_dir) -> int:
     from pcmseg_tpu_torch.train.trainer import Trainer
 
     if mode == "sync":
-        # a mesh that does not span the processes raises; tensor parallelism is refused by name;
-        # a spatial mesh over the processes builds (tests/test_torch_sp_parity.py trains one)
-        for bad, error in ((dict(data_parallel=1), ValueError), (dict(tensor_parallel=2), NotImplementedError)):
+        # a mesh that does not span the processes raises; a spatial and a
+        # tensor-parallel mesh over the processes build (tests/test_torch_sp_parity.py
+        # and tests/test_torch_tp_trainer.py train them)
+        for bad, error in ((dict(data_parallel=1), ValueError), (dict(tensor_parallel=nproc + 1), ValueError)):
             try:
                 Trainer(config.replace(**bad), device="cpu")
             except error as e:
-                assert "processes" in str(e) or "tensor_parallel=2" in str(e), e
+                assert "processes" in str(e) or "devices" in str(e), e
             else:
                 raise AssertionError(f"{bad} built a trainer over {nproc} processes")
         spatial = Trainer(config.replace(spatial_parallel=nproc), device="cpu")
         assert spatial.mesh.shape == {"data": 1, "spatial": nproc, "model": 1}
+        tensor = Trainer(config.replace(tensor_parallel=nproc), device="cpu")
+        assert tensor.mesh.shape == {"data": 1, "spatial": 1, "model": nproc}
+        assert tensor.state.model.inc.conv[0].weight.shape[0] * nproc == 4  # this rank's shard of base 4
     trainer = Trainer(config, device="cpu")
     assert trainer.mesh.shape == {"data": nproc, "spatial": 1, "model": 1}
     if mode == "cache":  # each process decoded and holds its block of the 6 cases only

@@ -177,20 +177,21 @@ def test_shard_batch_slices_arrays_tensors_and_lists():
 
 
 def test_unported_axes_and_tensor_parallel_specs_are_refused():
-    """Spatial parallelism is ported (tests/test_torch_spatial.py): only
-    tensor parallelism is refused by name."""
+    """Every mesh axis is ported now: tensor parallelism's specs are JAX's
+    rule by shape (tests/test_torch_tp.py holds them against JAX's), and a
+    model with a model axis builds. What is still refused by name is a
+    ``param_dtype`` other than 'float32', where every entry point builds
+    its model."""
     from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
     from pcmseg_tpu_torch.parallel.sharding import param_spec
-    from pcmseg_tpu_torch.train.steps import refuse_unported_training, unported_training_options
 
-    with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
-        refuse_unported_training(get_config(spatial_parallel=2, tensor_parallel=2))
-    assert unported_training_options(get_config(spatial_parallel=2, tensor_parallel=2)) == ["tensor_parallel=2"]
-    refuse_unported_training(get_config(spatial_parallel=2))
-    refuse_unported_training(get_config(data_parallel=4))
     assert param_spec((3, 3, 3, 8, 16), 1) == ()
-    with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
-        param_spec((3, 3, 3, 8, 16), 2)
+    assert param_spec((3, 3, 3, 8, 16), 2) == (None, None, None, None, "model")
+    assert param_spec((3, 3, 3, 8, 1), 2) == ()
+    UNet3D.from_config(get_config(spatial_parallel=2, tensor_parallel=2), device="meta")
+    with pytest.raises(NotImplementedError, match="param_dtype='bfloat16'"):
+        UNet3D.from_config(get_config(tensor_parallel=2, param_dtype="bfloat16"), device="meta")
 
 
 def test_one_process_group_initialises_once_and_needs_no_traffic():

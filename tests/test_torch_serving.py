@@ -237,7 +237,7 @@ def test_cli_predict_and_unported_verbs(slice_setup, tmp_path, capsys, monkeypat
     ],
 )
 def test_unported_options_are_refused(slice_setup, overrides, names):
-    """The Predictor refuses no option now. K-class serving passes, and the
+    """The Predictor refuses no mesh option now. K-class serving passes, and the
     binary checkpoint then fails the 3-class model's strict load
     (tests/test_torch_kclass.py serves K-class checkpoints against JAX);
     device ingest and profiling build a Predictor that has them
@@ -245,11 +245,10 @@ def test_unported_options_are_refused(slice_setup, overrides, names):
     ``spatial_parallel=2`` serves sharded over two named shard devices and,
     on a host of one device, warns and serves unsharded as JAX's Predictor
     does (tests/test_torch_sp_parity.py holds both against JAX's), while
-    the training steps still refuse ``tensor_parallel=2`` by name."""
+    a ``param_dtype`` other than 'float32' is refused by name (the served
+    model's parameters are fp32)."""
     config, pth, _, _ = slice_setup
     if names == "spatial_parallel":
-        from pcmseg_tpu_torch.train.steps import refuse_unported_training
-
         image = np.random.default_rng(0).normal(size=(16, 16, 16, 5)).astype(np.float32)
         plain = Predictor(config, pth, device="cpu").predict_probs(image)
         sharded = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu",
@@ -257,8 +256,8 @@ def test_unported_options_are_refused(slice_setup, overrides, names):
         assert [str(d) for d in sharded.shards] == ["cpu", "cpu"]
         np.testing.assert_allclose(sharded.predict_probs(image), plain, atol=1e-5)
         assert Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu").shards is None
-        with pytest.raises(NotImplementedError, match="tensor_parallel=2"):
-            refuse_unported_training(config.replace(tensor_parallel=2))
+        with pytest.raises(NotImplementedError, match="param_dtype='bfloat16'"):
+            Predictor(config.replace(param_dtype="bfloat16"), pth, explicit=["param_dtype"], device="cpu")
         return
     if names in ("device_ingest", "profile_dir"):
         predictor = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")

@@ -116,21 +116,23 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
 @pytest.mark.parametrize(
     "option",
     [dict(data_parallel=2), dict(spatial_parallel=2), dict(tensor_parallel=2), dict(async_checkpoint=True),
-     dict(profile_dir="prof"), dict(n_classes=3), dict(deep_supervision=True), dict(norm_layer="group")],
+     dict(profile_dir="prof"), dict(n_classes=3), dict(deep_supervision=True), dict(norm_layer="group"),
+     dict(param_dtype="bfloat16")],
     ids=lambda o: next(iter(o)),
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
-    """Tensor parallelism, the one option the port has not ported, is
-    refused by name; deep supervision, K-class heads, GroupNorm,
-    asynchronous checkpoints, profiling and data and spatial parallelism,
-    ported since, build a trainer that has them
+    """``param_dtype`` other than 'float32', which the port has not ported,
+    is refused by name; deep supervision, K-class heads, GroupNorm,
+    asynchronous checkpoints, profiling and data, spatial and tensor
+    parallelism, ported since, build a trainer that has them
     (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
     tests/test_torch_groupnorm.py, tests/test_torch_async_checkpoint.py,
-    tests/test_torch_profiling.py, tests/test_torch_multihost.py and
-    tests/test_torch_sp_parity.py hold them against JAX).
-    ``data_parallel=2`` or ``spatial_parallel=2`` in one process is a mesh
-    the host cannot hold: it warns and runs 1x1x1, as JAX's trainer does."""
-    if "data_parallel" in option or "spatial_parallel" in option:
+    tests/test_torch_profiling.py, tests/test_torch_multihost.py,
+    tests/test_torch_sp_parity.py and tests/test_torch_tp_parity.py hold
+    them against JAX). ``data_parallel=2``, ``spatial_parallel=2`` or
+    ``tensor_parallel=2`` in one process is a mesh the host cannot hold:
+    it warns and runs 1x1x1, as JAX's trainer does."""
+    if any(axis in option for axis in ("data_parallel", "spatial_parallel", "tensor_parallel")):
         logger = logging.getLogger("pcmseg.trainer")
         logger.addHandler(caplog.handler)
         try:
