@@ -8,8 +8,10 @@ The streamed path of the JAX trainer:
     ``val_indices`` over a shared ``dataset`` (a cross-validation fold;
     ``val_indices`` alone trains on the rest) (``trainer.py:58-106``);
   * every batch, the ragged tail included, padded to the smallest multiple
-    of lcm(data-parallel ranks, processes, ``accum_steps``) that holds
-    ``batch_size`` (``trainer.py:127-136``);
+    of lcm(data-parallel ranks, ``accum_steps``) that holds ``batch_size``
+    (``trainer.py:127-136``, where one process holds every virtual device;
+    here the spatial and model ranks of a data coordinate load the same
+    rows, so the data ranks are the processes that split a batch);
   * ``train_epoch``: batches decoded by the loader's threads, prefetched to
     the card from pinned memory, each step's loss fetched after the next
     step is queued, and a non-finite loss aborts the epoch
