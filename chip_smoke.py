@@ -26,6 +26,16 @@ kernel on them:
      (fp32 sums of up to 2.1 M bf16 products in another order), two launches
      bitwise equal; times of the kernel, the plain version and cuDNN's
      weight gradient alone, TFLOP/s and share of the bound;
+ 5b. fp32_kernels: the fp32 operand paths of B1 (``csrc/conv3x3x3_f32.cu``;
+     the 14 forward shapes and the 13 dx shapes of a 128³ microbatch's 18
+     and 17 layers) and B2 (``csrc/conv3x3_dw_f32.cu``, the 14 shapes), N=1,
+     fp32 inputs, each against a float64 conv of the
+     same inputs: max|kernel − float64| ≤ FP32_MARGIN × the plain fp32
+     version's (cuDNN, TF32 off) + FP32_SLACK·max|ref|; B2 two launches
+     bitwise equal; median times of the kernel, the plain version and
+     cuDNN's conv / dgrad / wgrad alone, TFLOP/s and the share of the bound
+     at the card's fastest fp32-exact rate (3xTF32, 165 TFLOP/s; the FFMA
+     bound at 66.9 beside it);
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
@@ -148,6 +158,24 @@ kernel on them:
      ``run_once`` of the four 128³ cases with host and device ingest in
      turns (host, device, device, host): vol/s, the card's idle share,
      host decode and normalize ms per case and the ingest's device ms;
+ 16b. fp32_train: ``compute_dtype='float32'``: 3 flagship steps from the
+     seed, each exactly 4 x (18 + 17) fp32 B1 and 4 x 18 fp32 B2 launches
+     and no bf16 one; step 1's loss and every gradient tensor (the
+     BN-preceded conv biases logged apart) no further from the float64 step
+     (dp_reference's) than FP32_STEP_MARGIN x the plain-conv fp32 step's +
+     FP32_STEP_SLACK; warm step ms, vol/s, peak memory, device time by
+     kernel; one epoch of an fp32 ``Trainer`` (no checkpoints) with exact
+     launches; one 128³ case served by an fp32 ``Predictor`` (18 fp32 B1),
+     its probabilities within FP32_MARGIN x the plain fp32 conv's distance
+     from float64 + FP32_SLACK;
+ 16c. param_dtype: ``param_dtype='bfloat16'``, bf16 compute: 4 flagship
+     steps (params and Adam moments bf16, count int32, BN statistics fp32,
+     the bf16 step's launches), the median ms of the 3 warm ones and the
+     peak memory beside the same steps with fp32 params; a 1-epoch bf16-param Trainer's ``best.pth``
+     (bf16) served by a bf16-param ``Predictor`` (18 bf16 B1), within
+     PLAIN_MAX_DP / PLAIN_MEAN_DP of the file served with fp32 params.
+     ``python3 chip_smoke.py --only fp32`` runs the kernel checks and
+     these two phases alone;
  17. dp: data parallelism across processes on the one card. (a) two ranks
      (``chip_smoke.py --dp-rank R 2 PORT WORK gloo``) in a gloo group on CUDA
      tensors (NCCL refuses two ranks on one device), 3 flagship steps from
@@ -215,19 +243,24 @@ call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
 ``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt``, ``ingest``,
 ``dp_a`` (both ranks), ``dp_b``, ``sp_serve``, ``sp_train``, ``sp_trainer``,
-``tp_train`` and ``tp_trainer`` (both ranks each) those of the phases of
-those names; ``slab_*`` the times at one D-slab's shapes, ``tp_*`` at one
-output-channel shard's),
+``tp_train`` and ``tp_trainer`` (both ranks each), ``param_dtype_*`` those
+of the phases of those names; ``slab_*`` the times at one D-slab's shapes,
+``tp_*`` at one output-channel shard's; the fp32 kernels' entries, with
+``launches`` of the fp32 step's first step and ``fp32_*`` paths, hold
+their errors from float64, the bound at 3xTF32's rate and, as
+``ffma_bound_ms``, at FFMA's),
 the nvidia-smi line, and the device JSON.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -260,6 +293,16 @@ PROFILE_FORWARDS = 5
 # rate and HBM3 bandwidth, for the least time a conv could take
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# fp32 on the same card: the fastest fp32-exact rate, 3xTF32 on the tensor
+# cores (495 TFLOP/s TF32 over three passes), which bounds an fp32 conv; and
+# FFMA on the CUDA cores (the rate of the fp32 kernels' exact products)
+PEAK_3XTF32_FLOPS = 494.7e12 / 3
+PEAK_FFMA_FLOPS = 66.9e12
+# an fp32 kernel's max |error| from a float64 conv of the same fp32 inputs
+# may be FP32_MARGIN times the plain fp32 version's (cuDNN, TF32 off) plus
+# FP32_SLACK of the largest |output|
+FP32_MARGIN = 2.0
+FP32_SLACK = 1e-6
 # the sp phase's spatial group: every rank holds one D-slab of its rows
 SP_RANKS = 2
 SLAB_NOTE = {False: "", True: f", one of {SP_RANKS} D-slabs with its halo"}
@@ -283,7 +326,8 @@ def card_label() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False, depth: int = 0):
+def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False, depth: int = 0, fp32: bool = False,
+               peak: float = 0.0):
     """(least ms, FLOP, whether the operations and not the bytes bound it)
     of one 3³ conv at these shapes (D = ``depth`` where given, else
     ``size``) on one H100: the larger of its FLOP at PEAK_FLOPS and its
@@ -291,11 +335,13 @@ def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False, depth:
     once. Forward and dx read x (or dy) and the bf16 weight and write y (or
     dx), plus the fp32 bias; dW reads x and dy and writes the fp32 (27, Ci,
     Co) gradient. Ci is the real channel count (5 at the input conv, not
-    the 8 the kernel reads)."""
+    the 8 the kernel reads). With ``fp32``: fp32 operands (4 bytes each)
+    and the FLOP at PEAK_3XTF32_FLOPS, or at ``peak`` where given."""
     vox = n * (depth or size) * size**2
     flop = 2 * 27 * ci * co * vox
-    moved = 2 * vox * (ci + co) + (4 * 27 * ci * co if dw else 2 * 27 * ci * co + 4 * co)
-    ops_s, bytes_s = flop / PEAK_FLOPS, moved / PEAK_BYTES
+    elem = 4 if fp32 else 2
+    moved = elem * vox * (ci + co) + (4 * 27 * ci * co if dw else elem * 27 * ci * co + 4 * co)
+    ops_s, bytes_s = flop / (peak or (PEAK_3XTF32_FLOPS if fp32 else PEAK_FLOPS)), moved / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, flop, ops_s >= bytes_s
 
 
@@ -794,6 +840,128 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict
     log(f"dx, 17 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
+    return out
+
+
+def fp32_error(got, ref64, plain, what: str) -> float:
+    """The fp32 kernel's max |error| from the float64 ``ref64``, checked
+    against FP32_MARGIN times the plain fp32 version's plus FP32_SLACK of
+    max |ref64|."""
+    import torch
+
+    err = (got.double() - ref64).abs().max().item()
+    plain_err = (plain.double() - ref64).abs().max().item()
+    bound = FP32_MARGIN * plain_err + FP32_SLACK * ref64.abs().max().item()
+    if not bool(torch.isfinite(got).all()) or err > bound:
+        raise AssertionError(f"{what}: the fp32 kernel is {err:.4g} from float64, the plain fp32 version "
+                             f"{plain_err:.4g} (bound {bound:.4g})")
+    log(f"{what}: max|err| from float64 {err:.4g}, plain fp32 (cuDNN, TF32 off) {plain_err:.4g}, bound {bound:.4g}")
+    return err
+
+
+def fp32_shape_line(k_ms: float, ci: int, co: int, s: int, dw: bool = False) -> tuple:
+    """(the log text of a timed fp32 shape, its bound ms, whether the
+    operations bound it, its bound ms at FFMA's rate): TFLOP/s and the share
+    of the bound (3xTF32), with the FFMA bound beside it."""
+    bound, flop, ops = conv_bound(ci, co, s, dw=dw, fp32=True)
+    ffma = conv_bound(ci, co, s, dw=dw, fp32=True, peak=PEAK_FFMA_FLOPS)[0]
+    return (f"{shape_line(k_ms, bound, flop)}, FFMA bound {ffma:.4f} ms ({ffma / k_ms:.3f} of it)",
+            bound, ops, ffma)
+
+
+def check_fp32_kernels(device, card: str) -> dict:
+    """The fp32 operand paths of B1 (the 14 forward and the 13 dx shapes of a
+    128³ base-64 microbatch's 18 and 17 layers) and B2 (its 14 shapes), at N=1, each against a
+    float64 conv of the same fp32 inputs within FP32_MARGIN times the plain
+    fp32 version's error (cuDNN with TF32 off) plus FP32_SLACK; B2's two
+    launches bitwise equal. Median times of the kernel, the plain version
+    and cuDNN's call alone (conv, dgrad, wgrad), TFLOP/s and the share of
+    the bound (3xTF32, with FFMA's beside it). Returns {"fwd", "dx", "dw"}:
+    the JSON record's numbers of each, ``ffma_bound_ms`` among them."""
+    import torch
+    import torch.nn.functional as F
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+
+    g = torch.Generator(device=device).manual_seed(3)
+    f32 = torch.float32
+    out = {}
+    max_err, rows, ffma = 0.0, [], 0.0
+    for ci, co, s, layers in CONV_SHAPES:
+        x = torch.randn((1, s, s, s, ci), generator=g, device=device)
+        w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
+        b = torch.randn((co,), generator=g, device=device) * 0.1
+        packed = conv3d.pack_weight(w, f32)
+        got = conv3d.conv3x3x3(x, packed, b, True)
+        torch.cuda.synchronize()
+        ref = conv3d.conv3x3x3_reference(x.double(), packed.double(), b, True)
+        plain = conv3d.conv3x3x3_reference(x, packed, b, True)
+        max_err = max(max_err, fp32_error(got, ref, plain, f"fp32 conv {ci}->{co} @{s}^3"))
+        del got, ref, plain
+        k_ms = median_ms(lambda: conv3d.conv3x3x3(x, packed, b, True))
+        p_ms = median_ms(lambda: conv3d.conv3x3x3_reference(x, packed, b, True))
+        w5 = conv3d.unpack_weight(packed, ci).contiguous(memory_format=torch.channels_last_3d)
+        xc = x.permute(0, 4, 1, 2, 3)
+        c_ms = median_ms(lambda: F.conv3d(xc, w5, padding=1))
+        text, bound, ops, f = fp32_shape_line(k_ms, ci, co, s)
+        ffma += layers * f
+        log(f"fp32 conv {ci}->{co} @{s}^3 x{layers}: {text}, plain {p_ms:.4f} ms, cudnn conv alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
+        del x, w, b, packed, w5, xc
+    out["fwd"] = {"max_abs_err": max_err, **summed(rows), "ffma_bound_ms": ffma}
+    max_err, rows, ffma = 0.0, [], 0.0
+    for ci, co, s, layers in DX_SHAPES:
+        dy = torch.randn((1, s, s, s, ci), generator=g, device=device)
+        w = torch.randn((ci, co, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
+        packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), f32)
+        got = conv3d.conv3x3x3(dy, packed, None, False)
+        torch.cuda.synchronize()
+        ref = conv3d.conv3x3x3_reference(dy.double(), packed.double(), None, False)
+        plain = conv3d.conv3x3x3_reference(dy, packed, None, False)
+        max_err = max(max_err, fp32_error(got, ref, plain, f"fp32 dx {ci}->{co} @{s}^3"))
+        del got, ref, plain
+        k_ms = median_ms(lambda: conv3d.conv3x3x3(dy, packed, None, False))
+        p_ms = median_ms(lambda: conv3d.conv3x3x3_reference(dy, packed, None, False))
+        wc = w.contiguous(memory_format=torch.channels_last_3d)
+        dyc = dy.permute(0, 4, 1, 2, 3)
+        xc = torch.empty((1, s, s, s, co), device=device).permute(0, 4, 1, 2, 3)
+        c_ms = median_ms(lambda: torch.ops.aten.convolution_backward(
+            dyc, xc, wc, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)))
+        text, bound, ops, f = fp32_shape_line(k_ms, ci, co, s)
+        ffma += layers * f
+        log(f"fp32 dx {ci}->{co} @{s}^3 x{layers}: {text}, plain {p_ms:.4f} ms, cudnn dgrad alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
+        del dy, w, packed, wc, dyc, xc
+    out["dx"] = {"max_abs_err": max_err, **summed(rows), "ffma_bound_ms": ffma}
+    max_err, rows, ffma = 0.0, [], 0.0
+    for ci, co, s, layers in CONV_SHAPES:
+        x = torch.randn((1, s, s, s, ci), generator=g, device=device)
+        dy = torch.randn((1, s, s, s, co), generator=g, device=device)
+        got = conv3d_grad.conv3x3_dw(x, dy)
+        again = conv3d_grad.conv3x3_dw(x, dy)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"fp32 dW {ci}->{co} @{s}^3: two launches differ")
+        ref = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+        plain = conv3d_grad.conv3x3_dw_reference(x, dy)
+        max_err = max(max_err, fp32_error(got, ref, plain, f"fp32 dW {ci}->{co} @{s}^3 (bitwise repeat)"))
+        del got, again, ref, plain
+        k_ms = median_ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
+        p_ms = median_ms(lambda: conv3d_grad.conv3x3_dw_reference(x, dy))
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        c_ms = median_ms(lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), dyc, padding=1))
+        text, bound, ops, f = fp32_shape_line(k_ms, ci, co, s, dw=True)
+        ffma += layers * f
+        log(f"fp32 dW {ci}->{co} @{s}^3 x{layers}: {text}, plain {p_ms:.4f} ms, cudnn wgrad alone {c_ms:.4f} ms [{card}]")
+        rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
+        del x, dy, xc, dyc
+    out["dw"] = {"max_abs_err": max_err, **summed(rows), "ffma_bound_ms": ffma}
+    for name, n in (("fwd", 18), ("dx", 17), ("dw", 18)):
+        r = out[name]
+        log(f"fp32 {name}, {n} layers of one 128^3 microbatch: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"cudnn alone {r['library_ms']:.3f} ms, bound (3xTF32) {r['bound_ms']:.3f} ms "
+            f"({r['bound_ms'] / r['ms']:.3f} of it), FFMA bound {r['ffma_bound_ms']:.3f} ms "
+            f"({r['ffma_bound_ms'] / r['ms']:.3f} of it) [{card}]")
     return out
 
 
@@ -2469,6 +2637,8 @@ def ingest(work: str, server, device, card: str):
 
 DP_RANKS = 2
 DP_STEPS = 3
+# param_dtype phase: flagship steps with each param dtype (the first is cold)
+PARAM_DTYPE_STEPS = 4
 DP_SEED = 11
 # (a) against the one-process steps: a rank's microbatches run the same
 # forward and backward as one process's, so the first step's loss and the
@@ -3160,6 +3330,293 @@ def one_process_exact(ref: dict) -> dict:
     return ref["exact"]
 
 
+# ---- fp32 compute and 16-bit parameters (slice 11) ---------------------------------
+
+# the fp32 step's loss and each gradient may be at most this many times
+# further from the float64 step than the plain-conv fp32 step's, plus FP32_STEP_SLACK
+FP32_STEP_MARGIN = 1.5
+FP32_STEP_SLACK = 1e-6
+
+
+def counts() -> tuple:
+    """(B1 bf16, B1 fp32, B2 bf16, B2 fp32) launches since the counts were set to 0."""
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+
+    return conv3d.launches, conv3d.launches_f32, conv3d_grad.launches, conv3d_grad.launches_f32
+
+
+def zero_counts() -> None:
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+
+    conv3d.launches = conv3d.launches_f32 = conv3d_grad.launches = conv3d_grad.launches_f32 = 0
+
+
+def train_tree(work: str, modalities) -> str:
+    """The train phase's 5 synthetic 128^3 cases (written here when that
+    phase has not run: ``--only fp32``)."""
+    data = os.path.join(work, "train_data")
+    if not os.path.isdir(os.path.join(data, "BPH-PCA")):
+        write_train_tree(data, modalities, TRAIN_CASES)
+    return data
+
+
+def rel_dist(a, b) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300)).item()
+
+
+def fp32_train(work: str, device, card: str, ref: dict) -> dict:
+    """``compute_dtype='float32'`` on the card through the fp32 kernels.
+    (a) 3 flagship steps (base 64, 128^3, batch 4 as 4 x 1, Dice, Adam
+    1e-4) from the seed on the dp batches: per step exactly 4 x (18 + 17)
+    fp32 B1 and 4 x 18 fp32 B2 launches and no bf16 launch; step 1's loss
+    and every gradient tensor (the BN-preceded conv biases, of true
+    gradient 0, logged apart) no further from the float64 step
+    (``one_process_exact``) than FP32_STEP_MARGIN times the plain-conv fp32
+    step's distance plus FP32_STEP_SLACK; the warm steps' ms, vol/s, peak
+    memory and device time by kernel. (b) One epoch of a fp32 ``Trainer``
+    (run_epochs, no checkpoints) on the train phase's 5 cases, exact
+    launches. (c) One 128^3 case served by an fp32 ``Predictor``: 18 fp32
+    B1 launches, its probabilities within FP32_MARGIN times the plain fp32
+    conv's distance from float64 plus FP32_SLACK. Returns the launches of
+    each part."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.train.checkpoints import save_pth
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    exact = one_process_exact(ref)
+    config = get_config(base_features=BASE_FEATURES, **{**TRAIN, "compute_dtype": "float32"})
+    batches = [{k: v.float() if v.is_floating_point() else v for k, v in b.items()} for b in dp_batches(device)]
+    # the plain-conv fp32 step 1, the yardstick
+    plain_grads = {}
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    with plain_train_conv(model, torch.float32), first_gradients(model, plain_grads):
+        plain_loss = float(step(state, batches[0])["loss"])
+    del model, state, step
+    # tensors of this and earlier phases that wait in reference cycles would
+    # count toward the kernel steps' peak
+    held = torch.cuda.memory_allocated(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fp32 step: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated before the model, "
+        f"{(held - torch.cuda.memory_allocated(device)) / 2**30:.2f} GiB freed by gc.collect()")
+    # the kernel steps
+    grads, times = {}, []
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    with first_gradients(model, grads):
+        for i, batch in enumerate(batches):
+            zero_counts()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got, want = counts(), (0, 4 * 35, 0, 4 * 18)
+            if got != want:
+                raise AssertionError(f"fp32 step {i + 1} launched (B1 bf16, B1 fp32, B2 bf16, B2 fp32) {got}, "
+                                     f"expected {want}")
+            if i == 0:
+                out["step"] = (got[1], got[3])
+                first_loss = loss
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    loss_k, loss_p = abs(first_loss - exact["loss"]), abs(plain_loss - exact["loss"])
+    log(f"fp32 step 1: loss {first_loss:.8g} (float64 {exact['loss']:.8g}, plain fp32 {plain_loss:.8g}): "
+        f"|dL| kernel {loss_k:.3g}, plain {loss_p:.3g}")
+    if not math.isfinite(first_loss) or loss_k > FP32_STEP_MARGIN * loss_p + FP32_STEP_SLACK:
+        raise AssertionError("the fp32 step's loss is further from float64 than the plain fp32 step's")
+    worst, cancelled = (0.0, ""), []
+    for k, g64 in exact["grads"].items():
+        d_k, d_p = rel_dist(grads[k], g64), rel_dist(plain_grads[k], g64)
+        if re.search(r"conv\.[03]\.bias$", k):
+            cancelled.append((d_k, d_p))
+            continue
+        worst = max(worst, (d_k / (FP32_STEP_MARGIN * d_p + FP32_STEP_SLACK), k))
+        if d_k > FP32_STEP_MARGIN * d_p + FP32_STEP_SLACK:
+            raise AssertionError(f"{k}: the fp32 step's gradient is {d_k:.3g} from float64 (relative), the plain "
+                                 f"fp32 step's {d_p:.3g}")
+    log(f"fp32 step 1 gradients, {len(exact['grads'])} tensors against float64: worst distance/bound "
+        f"{worst[0]:.3g} at {worst[1]}; the {len(cancelled)} BN-preceded conv biases (true gradient 0, logged "
+        f"only): relative distance kernel up to {max(c[0] for c in cancelled):.3g}, plain "
+        f"{max(c[1] for c in cancelled):.3g} [{card}]")
+    warm = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"fp32 flagship step (batch 4 = 4 x 1): warm {warm * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in times)}"
+        f" ms for steps 1-{len(times)}) = {TRAIN['batch_size'] / warm:.3f} vol/s, peak device memory {peak:.2f} GiB "
+        f"[{card}]")
+    profile_step(lambda: float(step(state, batches[-1])["loss"]), "one fp32 step", card)
+    del model, state, step, grads, plain_grads
+    torch.cuda.empty_cache()
+
+    # (b) one epoch of an fp32 Trainer
+    data = train_tree(work, config.modalities)
+    tconfig = config.replace(data_dir=data, save_dir=os.path.join(work, "fp32_ckpt"),
+                             cache_dir=os.path.join(work, "preproc"), seed=0, num_epochs=1)
+    trainer = Trainer(tconfig, device=device)
+    zero_counts()
+    t = time.perf_counter()
+    history = run_epochs(trainer, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    b1, b2 = expected_train_launches(tconfig, steps=1, eval_forwards=1)
+    got = counts()
+    log(f"fp32 Trainer, 1 epoch ({data_path(trainer, TRAIN_CASES)}): {wall:.1f} s, history {json.dumps(history)}; "
+        f"launches (B1 bf16, B1 fp32, B2 bf16, B2 fp32) {got} [{card}]")
+    if got != (0, b1, 0, b2):
+        raise AssertionError(f"fp32 Trainer launched {got}, expected {(0, b1, 0, b2)}")
+    if not all(math.isfinite(v) for vals in history.values() for v in vals):
+        raise AssertionError(f"non-finite fp32 history {history}")
+    out["trainer"] = (got[1], got[3])
+    pth = os.path.join(work, "fp32_model.pth")
+    save_pth(pth, trainer.state.model.state_dict(), tconfig.to_dict())
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) one case served in fp32
+    predictor = Predictor(get_config(base_features=BASE_FEATURES, compute_dtype="float32"), pth, device=device)
+    case = os.path.join(work, "fp32_case")
+    for m in config.modalities:
+        os.makedirs(os.path.join(case, m), exist_ok=True)
+        shutil.copy(os.path.join(data, "BPH-PCA", "BPH", m, "case000.nii.gz"), os.path.join(case, m, "t.nii.gz"))
+    image, _ = predictor.load_case(case)
+    zero_counts()
+    probs = predictor.predict_probs(image)
+    got = counts()
+    if got != (0, 18, 0, 0):
+        raise AssertionError(f"fp32 serving launched {got}, expected 18 fp32 B1")
+    with plain_conv(predictor.models, torch.float32):
+        plain = predictor.predict_probs(image)
+    with plain_conv(predictor.models, torch.float64):
+        exact64 = predictor.predict_probs(image)
+    err_k, err_p = np.abs(probs - exact64).max(), np.abs(plain - exact64).max()
+    log(f"fp32 serving, one 128^3 case: 18 fp32 B1 launches; max|p - p_float64| kernel {err_k:.4g}, plain fp32 "
+        f"{err_p:.4g} (bound {FP32_MARGIN * err_p + FP32_SLACK:.4g}), foreground {(probs > 0.5).mean():.4f}")
+    if not np.isfinite(probs).all() or err_k > FP32_MARGIN * err_p + FP32_SLACK:
+        raise AssertionError("the fp32 kernel's probabilities are further from float64 than the plain fp32 conv's")
+    out["serve"] = got[1]
+    del predictor
+    shutil.rmtree(os.path.join(work, "fp32_ckpt"), ignore_errors=True)
+    os.remove(pth)
+    torch.cuda.empty_cache()
+    return out
+
+
+def param_dtype_phase(work: str, device, card: str) -> dict:
+    """``param_dtype='bfloat16'`` on the card, bf16 compute. (a)
+    PARAM_DTYPE_STEPS flagship steps from the seed: parameters and Adam's
+    moments bf16 (``Adam16``, the count int32), BN running statistics fp32,
+    each step exactly the bf16 step's 4 x 35 B1 and 4 x 18 B2 launches,
+    finite losses; the median ms of the warm steps (all but the first) and
+    the peak memory beside the same steps with fp32 parameters. (b) A
+    1-epoch bf16-param Trainer on the train phase's 5 cases writes a bf16
+    ``best.pth``, which a bf16-param Predictor serves (18 bf16 B1, its
+    parameters bf16), within PLAIN_MAX_DP / PLAIN_MEAN_DP of the same file
+    served with fp32 parameters. Returns the launches of each part."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.train.checkpoints import load_pth
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    batches = dp_batches(device)
+    batches = [batches[i % len(batches)] for i in range(PARAM_DTYPE_STEPS)]
+    peaks, step_ms = {}, {}
+    for pdt in ("bfloat16", "float32"):
+        gc.collect()  # as in fp32_train: only this step's tensors in its peak
+        config = get_config(base_features=BASE_FEATURES, param_dtype=pdt, **TRAIN)
+        model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+        state, step = create_train_state(model, config), make_train_step(model, config)
+        warm = []
+        for i, batch in enumerate(batches):
+            zero_counts()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            if i:
+                warm.append((time.perf_counter() - t) * 1e3)
+            got = counts()
+            if got != (4 * 35, 0, 4 * 18, 0) or not math.isfinite(loss):
+                raise AssertionError(f"param_dtype={pdt} step {i + 1}: loss {loss}, launches {got}, expected "
+                                     f"{(4 * 35, 0, 4 * 18, 0)}")
+            if pdt == "bfloat16" and i == 0:
+                out["step"] = (got[0], got[2])
+        peaks[pdt] = torch.cuda.max_memory_allocated(device) / 2**30
+        step_ms[pdt] = float(np.median(warm))
+        if pdt == "bfloat16":
+            kinds = ({p.dtype for p in model.parameters()}, {m.dtype for s in state.optimizer.state.values()
+                                                               for m in (s["mu"], s["nu"])},
+                     {b.dtype for k, b in model.named_buffers() if "running" in k},
+                     {s["step"].dtype for s in state.optimizer.state.values()})
+            if kinds != ({torch.bfloat16}, {torch.bfloat16}, {torch.float32}, {torch.int32}):
+                raise AssertionError(f"bf16-param state dtypes (params, moments, BN statistics, count) {kinds}")
+            log(f"param_dtype=bfloat16: params and Adam moments bf16, BN running statistics fp32, count int32; "
+                f"{len(batches)} steps, {got[0]} B1 and {got[2]} B2 launches each [{card}]")
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"flagship step with bf16 params: median of {len(batches) - 1} warm steps {step_ms['bfloat16']:.1f} ms, peak "
+        f"device memory {peaks['bfloat16']:.2f} GiB; with fp32 params {step_ms['float32']:.1f} ms, "
+        f"{peaks['float32']:.2f} GiB [{card}]")
+
+    # (b) a bf16 best.pth, served by a bf16-param Predictor
+    data = train_tree(work, get_config().modalities)
+    tconfig = get_config(base_features=BASE_FEATURES, param_dtype="bfloat16", data_dir=data,
+                         save_dir=os.path.join(work, "bf16_ckpt"), cache_dir=os.path.join(work, "preproc"), seed=0,
+                         **{**TRAIN, "num_epochs": 1})
+    zero_counts()
+    history = Trainer(tconfig, device=device).train()
+    b1, b2 = expected_train_launches(tconfig, steps=1, eval_forwards=1)
+    got = counts()
+    if got != (b1, 0, b2, 0) or not all(math.isfinite(v) for vals in history.values() for v in vals):
+        raise AssertionError(f"bf16-param Trainer: history {history}, launches {got}, expected {(b1, 0, b2, 0)}")
+    out["trainer"] = (got[0], got[2])
+    pth = os.path.join(tconfig.save_dir, "best.pth")
+    sd, snap = load_pth(pth)
+    dtypes = {v.dtype for k, v in sd.items() if v.is_floating_point() and "running" not in k}
+    if dtypes != {torch.bfloat16} or snap.get("param_dtype") != "bfloat16":
+        raise AssertionError(f"best.pth holds {dtypes}, config param_dtype {snap.get('param_dtype')}")
+    case = os.path.join(work, "bf16_case")
+    for m in tconfig.modalities:
+        os.makedirs(os.path.join(case, m), exist_ok=True)
+        shutil.copy(os.path.join(data, "BPH-PCA", "BPH", m, "case001.nii.gz"), os.path.join(case, m, "t.nii.gz"))
+    low = Predictor(get_config(base_features=BASE_FEATURES, param_dtype="bfloat16"), pth, device=device)
+    if {p.dtype for m in low.models for p in m.parameters()} != {torch.bfloat16}:
+        raise AssertionError("the bf16-param Predictor's parameters are not bf16")
+    image, _ = low.load_case(case)
+    zero_counts()
+    probs = low.predict_probs(image)
+    got = counts()
+    if got != (18, 0, 0, 0):
+        raise AssertionError(f"bf16-param serving launched {got}, expected 18 bf16 B1")
+    out["serve"] = got[0]
+    wide = Predictor(get_config(base_features=BASE_FEATURES), pth, device=device).predict_probs(image)
+    dp = np.abs(probs - wide)
+    log(f"bf16 best.pth ({len(sd)} tensors, params bf16) served with bf16 params: 18 bf16 B1 launches; against "
+        f"fp32 params: max|dp| {dp.max():.4g} (bound {PLAIN_MAX_DP}), mean|dp| {dp.mean():.3g} (bound "
+        f"{PLAIN_MEAN_DP}) [{card}]")
+    if not np.isfinite(probs).all() or dp.max() > PLAIN_MAX_DP or dp.mean() > PLAIN_MEAN_DP:
+        raise AssertionError("the bf16-param Predictor's probabilities disagree with fp32 params'")
+    del low
+    shutil.rmtree(tconfig.save_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def sp_steps(work: str, ref: dict, card: str) -> list:
     """(b) SP_RANKS gloo ranks sharing the card through sp_rank, held against
     each other and against ``ref`` (dp_reference). Returns the (B1, B2)
@@ -3722,6 +4179,7 @@ def main() -> int:
     record = phase("kernels", check_kernels, device, card, (1, config.window_tile_batch))
     dx = phase("dx", check_dx_kernels, device, card)
     dw = phase("dw", check_dw_kernels, device, card)
+    fp32k = phase("fp32_kernels", check_fp32_kernels, device, card)
     phase("gradients", check_gradients, device, card)
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -3730,6 +4188,13 @@ def main() -> int:
     if sys.argv[1:] in (["--only", "dp"], ["--only", "sp"], ["--only", "tp"]):  # one phase alone, after the kernels'
         ref = phase("dp_reference", dp_reference, device)
         phase(sys.argv[2], {"dp": dp_phase, "sp": sp_phase, "tp": tp_phase}[sys.argv[2]], work, device, card, ref)
+        shutil.rmtree(work, ignore_errors=True)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--only", "fp32"]:  # the fp32 and param_dtype phases alone, after the kernels'
+        ref = phase("dp_reference", dp_reference, device)
+        phase("fp32_train", fp32_train, work, device, card, ref)
+        phase("param_dtype", param_dtype_phase, work, device, card)
         shutil.rmtree(work, ignore_errors=True)
         print(card)
         return 0
@@ -3752,6 +4217,8 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
     ref = phase("dp_reference", dp_reference, device)
+    fp32_launches = phase("fp32_train", fp32_train, work, device, card, ref)
+    pd_launches = phase("param_dtype", param_dtype_phase, work, device, card)
     dp_launches = phase("dp", dp_phase, work, device, card, ref)
     sp = phase("sp", sp_phase, work, device, card, ref)
     tp = phase("tp", tp_phase, work, device, card, ref)
@@ -3771,7 +4238,10 @@ def main() -> int:
                                  "async_ckpt": async_launches[0], "ingest": ingest_launches,
                                  "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0], "sp_serve": sp["serve"],
                                  "sp_train": sp["train"][0], "sp_trainer": sp["trainer"][0],
-                                 "tp_train": tp["train"][0], "tp_trainer": tp["trainer"][0]},
+                                 "tp_train": tp["train"][0], "tp_trainer": tp["trainer"][0],
+                                 "param_dtype_train": pd_launches["step"][0],
+                                 "param_dtype_trainer": pd_launches["trainer"][0],
+                                 "param_dtype_serve": pd_launches["serve"]},
             "max_abs_err": max(record["max_abs_err"], dx["max_abs_err"], sp["slab"]["fwd"]["max_abs_err"],
                                sp["slab"]["dx"]["max_abs_err"], tp["shard"]["fwd"]["max_abs_err"],
                                tp["shard"]["dx"]["max_abs_err"]),
@@ -3797,11 +4267,36 @@ def main() -> int:
                                  "async_ckpt": async_launches[1], "dp_a": dp_launches[0][1],
                                  "dp_b": dp_launches[1][1], "sp_train": sp["train"][1],
                                  "sp_trainer": sp["trainer"][1], "tp_train": tp["train"][1],
-                                 "tp_trainer": tp["trainer"][1]},
+                                 "tp_trainer": tp["trainer"][1], "param_dtype_train": pd_launches["step"][1],
+                                 "param_dtype_trainer": pd_launches["trainer"][1]},
             **dw,
             "max_abs_err": max(dw["max_abs_err"], sp["slab"]["dw"]["max_abs_err"], tp["shard"]["dw"]["max_abs_err"]),
             **{f"slab_{k}": sp["slab"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"tp_{k}": tp["shard"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        },
+        {
+            "name": "conv3x3x3_f32",
+            "route": "cuda",
+            "source": "pcmseg_tpu_torch/csrc/conv3x3x3_f32.cu",
+            "replaces": "pcmseg_tpu/ops/pallas/conv3d.py:121",
+            # the fp32 step's first step; the bf16-param phase launches none
+            "launches": fp32_launches["step"][0],
+            "launches_by_path": {"fp32_train": fp32_launches["step"][0], "fp32_trainer": fp32_launches["trainer"][0],
+                                 "fp32_serve": fp32_launches["serve"]},
+            # errors from float64 of the same fp32 inputs; the bound at 3xTF32's 165 TFLOP/s,
+            # ffma_bound_ms at FFMA's 66.9
+            "max_abs_err": max(fp32k["fwd"]["max_abs_err"], fp32k["dx"]["max_abs_err"]),
+            **{k: fp32k["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ffma_bound_ms")},
+            **{f"dx_{k}": fp32k["dx"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "ffma_bound_ms")},
+        },
+        {
+            "name": "conv3x3_dw_f32",
+            "route": "cuda",
+            "source": "pcmseg_tpu_torch/csrc/conv3x3_dw_f32.cu",
+            "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
+            "launches": fp32_launches["step"][1],
+            "launches_by_path": {"fp32_train": fp32_launches["step"][1], "fp32_trainer": fp32_launches["trainer"][1]},
+            **fp32k["dw"],
         },
     ]}))
     print(card)

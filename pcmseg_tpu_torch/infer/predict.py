@@ -80,7 +80,7 @@ from pcmseg_tpu_torch.infer.validate import (
     load_model_state,
     require_pth,
 )
-from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype
 from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.parallel.sharding import level_plan
 from pcmseg_tpu_torch.train.checkpoints import load_pth
@@ -311,12 +311,7 @@ class Predictor:
             config = adopt_checkpoint_config(config, paths[0], explicit, loaded)
         self.config = config
         self.device = resolve_device(device)
-        self.dtype = DTYPES[config.compute_dtype]
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"compute_dtype={config.compute_dtype!r} on CUDA: the conv kernel "
-                "computes in bfloat16"
-            )
+        self.dtype = compute_dtype(config.compute_dtype)
         if preloaded is not None:
             self.models = [self._serving_model(*preloaded)]
         else:

@@ -47,7 +47,7 @@ from pcmseg_tpu_torch.data.io import read_volume
 from pcmseg_tpu_torch.data.loader import DataLoader, to_device
 from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
 from pcmseg_tpu_torch.infer.postprocess import postprocess_from_config
-from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype, param_dtype, to_param_dtype
 from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.ops.surface import case_surface_metrics
 from pcmseg_tpu_torch.train.checkpoints import load_pth
@@ -126,12 +126,14 @@ def load_model_state(
 ) -> Tuple[UNet3D, Dict[str, torch.Tensor]]:
     """(model with the checkpoint's weights on the CPU, its state dict).
 
-    The model is built on the meta device and takes the loaded tensors
-    as its parameters (a strict load), so nothing is initialised twice.
-    ``loaded`` is as in ``adopt_checkpoint_config``.
+    The model is built on the meta device and takes the loaded tensors,
+    cast to ``config.param_dtype`` (BatchNorm's running statistics stay
+    fp32), as its parameters (a strict load), so nothing is initialised
+    twice. ``loaded`` is as in ``adopt_checkpoint_config``.
     """
     require_pth(checkpoint_path)
     state_dict, _ = loaded or load_pth(checkpoint_path)
+    state_dict = to_param_dtype(state_dict, param_dtype(config.param_dtype))
     model = UNet3D.from_config(config, device="meta")
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model, state_dict
@@ -170,7 +172,7 @@ class Validator:
         self.config = config
         self.log = get_logger("pcmseg.validate")
         self.device = resolve_device(device)
-        self.dtype = DTYPES[config.compute_dtype]
+        self.dtype = compute_dtype(config.compute_dtype)
         self.dataset = dataset if dataset is not None else ProstateDataset(
             data_dir=config.data_dir,
             data_type=config.data_type,

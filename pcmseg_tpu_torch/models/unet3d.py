@@ -25,7 +25,10 @@ With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
 (``unet3d.py:458-495``); they are not in the reference layout, and the
 ``.pth`` export drops them.
 
-Parameters are fp32; activations run in ``dtype`` (bf16 by default); the
+Parameters are in ``param_dtype`` (fp32 by default; bf16 or fp16 as JAX's
+``param_dtype``), BatchNorm's running statistics fp32 whatever it is (as
+``norm.py:47-52`` keeps them); activations run in ``dtype`` (bf16 by
+default, or fp32), each parameter cast to it where a layer uses it; the
 logits come back fp32.
 
 Spatial parallelism: under a ``collectives.spatial`` plan the forward runs
@@ -72,7 +75,36 @@ from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 MIN_INPUT_SIZE = 16  # four 2x max-pools
 NORM_LAYERS = ("batch", "group", "none")
 
+# the compute dtypes the port's kernels take, and the parameter dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``compute_dtype``. JAX takes any name
+    ``jnp.dtype`` takes (``unet3d.py:528``); a dtype the port's kernels do
+    not compute in (float16, float64, ...) raises ``NotImplementedError``
+    naming it."""
+    if name not in DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={name!r}: the port's conv kernels compute in {' or '.join(DTYPES)}")
+    return DTYPES[name]
+
+
+def param_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``param_dtype``; one outside
+    ``PARAM_DTYPES`` raises ``NotImplementedError`` naming it."""
+    if name not in PARAM_DTYPES:
+        raise NotImplementedError(f"param_dtype={name!r}: the port keeps parameters in {', '.join(PARAM_DTYPES)}")
+    return PARAM_DTYPES[name]
+
+
+def to_param_dtype(state_dict, dtype: torch.dtype) -> dict:
+    """``state_dict`` with its parameters in ``dtype``; BatchNorm's running
+    statistics (fp32 whatever the parameters are) and integer entries as
+    they are."""
+    return {k: v.to(dtype) if v.is_floating_point() and not k.endswith(("running_mean", "running_var")) else v
+            for k, v in state_dict.items()}
 
 
 class Conv3x3(nn.Module):
@@ -94,6 +126,8 @@ class Conv3x3(nn.Module):
         self._packed = None  # (key, packed weight)
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel's packed weight in the compute ``dtype``, from the
+        parameter in its own dtype."""
         w = self.weight
         # an inference-mode tensor has no version counter (and cannot be
         # changed in place outside inference mode)
@@ -172,7 +206,7 @@ class _BatchNormTrain(torch.autograd.Function):
         # mult = γ·r, shift = β − mean·mult, r = (var + eps)^-½
         dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc_all
         dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds_all / n
-        return dx.to(x.dtype), r * dxc, ds, None, None, None
+        return dx.to(x.dtype), (r * dxc).to(weight.dtype), ds.to(weight.dtype), None, None, None
 
 
 class BatchNorm(nn.BatchNorm3d):
@@ -266,9 +300,9 @@ class _GroupNormFn(torch.autograd.Function):
         dyg = _group_view(dy, g).to(r.dtype)
         dx = dw = db = None
         if ctx.needs_input_grad[1]:
-            dw = (dyg * xhat).sum((0, 1)).reshape(-1)
+            dw = (dyg * xhat).sum((0, 1)).reshape(-1).to(weight.dtype)
         if ctx.needs_input_grad[2]:
-            db = dyg.sum((0, 1)).reshape(-1)
+            db = dyg.sum((0, 1)).reshape(-1).to(weight.dtype)
         if ctx.needs_input_grad[0]:
             dxhat = dyg * _group_view(weight.to(r.dtype)[None], g)
             if ctx.comm is None:
@@ -307,8 +341,8 @@ class _GroupNormSpanFn(torch.autograd.Function):
         x, weight, mean, r, group_of = ctx.saved_tensors
         xhat = (x.reshape(x.shape[0], -1, x.shape[-1]).to(r.dtype) - mean[:, None]) * r[:, None]
         dyf = dy.reshape(xhat.shape).to(r.dtype)
-        dw = (dyf * xhat).sum((0, 1)) if ctx.needs_input_grad[1] else None
-        db = dyf.sum((0, 1)) if ctx.needs_input_grad[2] else None
+        dw = (dyf * xhat).sum((0, 1)).to(weight.dtype) if ctx.needs_input_grad[1] else None
+        db = dyf.sum((0, 1)).to(weight.dtype) if ctx.needs_input_grad[2] else None
         dx = None
         if ctx.needs_input_grad[0]:
             dxhat = dyf * weight.to(r.dtype)
@@ -535,8 +569,9 @@ class UNet3D(nn.Module):
     ``min(group_norm_groups, features)`` groups) or 'none' (BN folded).
 
     ``generator`` seeds the kaiming fan_out init (it must live on
-    ``device``); on the ``meta`` device nothing is initialised, which counts
-    parameters without allocating them. ``remat`` recomputes each block in
+    ``device``; drawn in fp32, then cast to ``param_dtype``); on the
+    ``meta`` device nothing is initialised, which counts parameters without
+    allocating them. ``remat`` recomputes each block in
     the backward instead of keeping its activations (training only).
     ``deep_supervision`` adds the aux heads: in training mode the forward
     then returns ``(logits, [aux_1/2, aux_1/4, aux_1/8])``, fine to coarse,
@@ -557,6 +592,7 @@ class UNet3D(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: bool = False,
         deep_supervision: bool = False,
+        param_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if norm_layer not in NORM_LAYERS:
@@ -590,23 +626,26 @@ class UNet3D(nn.Module):
                         m.level = level
         if torch.device(device or "cpu").type != "meta":
             self.reset_parameters(generator)
+        if param_dtype != torch.float32:
+            with torch.no_grad():
+                for p in self.parameters():  # the buffers (running statistics) stay fp32
+                    p.data = p.data.to(param_dtype)
 
     @classmethod
     def from_config(cls, config, norm_layer: Optional[str] = None, **kwargs) -> "UNet3D":
-        """The model a config describes. Parameters are fp32 here: a
-        ``param_dtype`` other than 'float32' (JAX's ``unet3d.py:529`` casts
-        its params to it) raises ``NotImplementedError`` naming it, so that
-        the Trainer, the Validator and the Predictor, which build their
-        models here, never train or serve fp32 weights in its place."""
-        if config.param_dtype != "float32":
-            raise NotImplementedError(f"not ported to the PyTorch package yet: param_dtype={config.param_dtype!r}")
+        """The model a config describes, with its parameters in
+        ``config.param_dtype`` (JAX's ``unet3d.py:529``) and computing in
+        ``config.compute_dtype``; a dtype the port does not take raises
+        ``NotImplementedError`` naming it (``compute_dtype``,
+        ``param_dtype``)."""
         return cls(
             n_modalities=config.n_modalities,
             n_classes=config.n_classes,
             base_features=config.base_features,
             norm_layer=norm_layer or config.norm_layer,
             group_norm_groups=config.group_norm_groups,
-            dtype=DTYPES[config.compute_dtype],
+            dtype=compute_dtype(config.compute_dtype),
+            param_dtype=param_dtype(config.param_dtype),
             remat=config.remat,
             **kwargs,
         )

@@ -9,8 +9,12 @@ The port of ``pcmseg_tpu/ops/hybrid_conv.py::conv3x3_hybrid`` with
     transposed, no bias, no ReLU; computed only when x needs a gradient
     (not for the input conv, whose x is the image);
   * dW: ``conv3x3_dw`` (kernel B2), brought back to the (Co, Ci, 3, 3, 3)
-    parameter layout;
-  * db: Σ dy in fp32.
+    parameter layout in the parameter's dtype;
+  * db: Σ dy in fp32, in the parameter's dtype.
+
+Each kernel runs in x's dtype: bf16 or fp32 operands (``compute_dtype``),
+whatever the parameters' dtype (``param_dtype``), from which the packed
+weight is cast.
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version.
 ``conv3x3_plain`` is the plain version of the whole Function: autograd of
@@ -51,6 +55,7 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, w_packed):
         ctx.save_for_backward(x, weight)
+        ctx.bias_dtype = bias.dtype
         return conv3x3x3(x, w_packed, bias, relu=False)
 
     @staticmethod
@@ -72,7 +77,7 @@ class _Conv3x3(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3x3_dw(x, dy).permute(4, 3, 0, 1, 2).to(weight.dtype).contiguous()
         if ctx.needs_input_grad[2]:
-            db = dy.sum((0, 1, 2, 3), dtype=torch.promote_types(dy.dtype, torch.float32))
+            db = dy.sum((0, 1, 2, 3), dtype=torch.promote_types(dy.dtype, torch.float32)).to(ctx.bias_dtype)
         return dx, dw, db, None
 
 
@@ -82,9 +87,9 @@ def conv3x3(
     """Differentiable 3³ SAME conv + bias over NDHWC.
 
     Args:
-      x: (N, D, H, W, Ci); bf16 on CUDA.
-      weight: (Co, Ci, 3, 3, 3) parameter (fp32).
-      bias: (Co,) fp32 parameter.
+      x: (N, D, H, W, Ci); bf16 or fp32 on CUDA.
+      weight: (Co, Ci, 3, 3, 3) parameter (fp32, bf16 or fp16).
+      bias: (Co,) parameter in the weight's dtype.
       w_packed: ``pack_weight(weight, x.dtype)``, the forward kernel's copy
         (gradients reach ``weight`` through the Function, not through it).
     Returns (N, D, H, W, Co) in x's dtype.

@@ -121,6 +121,14 @@ def load_library() -> ctypes.CDLL:
         lib.pcmseg_conv3x3_dw_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3_dw_bf16.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3_dw_bf16.restype = i
+        lib.pcmseg_conv3x3x3_f32_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.pcmseg_conv3x3x3_f32_workspace_bytes.restype = ll
+        lib.pcmseg_conv3x3x3_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3x3_f32.restype = i
+        lib.pcmseg_conv3x3_dw_f32_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.pcmseg_conv3x3_dw_f32_workspace_bytes.restype = ll
+        lib.pcmseg_conv3x3_dw_f32.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3_dw_f32.restype = i
         lib.pcmseg_cuda_error_string.argtypes = [i]
         lib.pcmseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

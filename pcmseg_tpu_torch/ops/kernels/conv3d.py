@@ -1,17 +1,22 @@
 """Fused 3³ SAME conv + bias + ReLU over NDHWC: CUDA kernel and plain version.
 
 ``conv3x3x3`` replaces the Pallas TPU kernel
-``pcmseg_tpu/ops/pallas/conv3d.py::conv3x3x3``. A CUDA tensor goes to the
-hand-written ``sm_90a`` kernel (``csrc/conv3x3x3.cu``); a CPU tensor goes to
-``conv3x3x3_reference``, the same function in plain PyTorch. There is no
-fallback from one to the other.
+``pcmseg_tpu/ops/pallas/conv3d.py::conv3x3x3``, which computes in x's dtype,
+bf16 or fp32. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
+dtype: bf16 x and weight to ``csrc/conv3x3x3.cu`` (wgmma), fp32 x and weight
+to ``csrc/conv3x3x3_f32.cu`` (exact fp32 products on the CUDA cores); a CPU
+tensor goes to ``conv3x3x3_reference``, the same function in plain PyTorch.
+There is no fallback from one to the other. x and the packed weight share a
+dtype on every device; the bias is fp32 (another float dtype is cast to it,
+as the Pallas wrapper casts it).
 
 Weights are packed once per load (``pack_weight``) from the module layout
 (Co, Ci, 3, 3, 3) into the kernel's (Co, 27 * ci_pad(Ci)) GEMM matrix:
 column ``tap * ci_pad(Ci) + ci`` with ``tap = (kd * 3 + kh) * 3 + kw``. The
-kernel reads x in 64-channel chunks, or as one 8-channel slab: the channels
-are padded with zeros to 8 (Ci <= 8, the 5-modality input conv) or to a
-multiple of 64, in the packed weight and, by the wrapper, in x.
+bf16 kernel reads x in 64-channel chunks, or as one 8-channel slab, and the
+fp32 kernel in 8-channel chunks: for both the channels are padded with zeros
+to 8 (Ci <= 8, the 5-modality input conv) or to a multiple of 64, in the
+packed weight and, by the wrapper, in x.
 """
 
 from __future__ import annotations
@@ -22,10 +27,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-# kernel launches since the count was last set to 0 (CPU calls not counted);
-# a sharded Predictor launches from one thread a shard
+# kernel launches since the count was last set to 0 (CPU calls not counted),
+# of the bf16 kernel (``launches``) and of the fp32 one (``launches_f32``); a
+# sharded Predictor launches from one thread a shard
 launches = 0
+launches_f32 = 0
 _count_lock = threading.Lock()
+# the C entry point of each operand dtype's kernel
+_ENTRY = {torch.bfloat16: "pcmseg_conv3x3x3_bf16", torch.float32: "pcmseg_conv3x3x3_f32"}
+_WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3x3_workspace_bytes",
+              torch.float32: "pcmseg_conv3x3x3_f32_workspace_bytes"}
 
 
 def ci_pad(ci: int) -> int:
@@ -91,10 +102,8 @@ def _check_cuda_args(x, w_packed, b):
     co = w_packed.shape[0]
     if co % 8:
         raise ValueError(f"the CUDA kernel needs Co % 8 == 0, got Co={co}")
-    if x.dtype != torch.bfloat16 or w_packed.dtype != torch.bfloat16:
-        raise TypeError(
-            f"the CUDA kernel takes bf16 x and weight, got {x.dtype} / {w_packed.dtype}"
-        )
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"the CUDA kernels take bf16 or fp32 x and weight, got {x.dtype}")
     tensors = [x, w_packed]
     if b is not None:
         if b.dtype != torch.float32 or tuple(b.shape) != (co,):
@@ -120,16 +129,20 @@ def conv3x3x3(
     """``max(conv3d_same(x, W) + b, 0)`` over NDHWC.
 
     Args:
-      x: (N, D, H, W, Ci); bf16 on CUDA, any float dtype on the CPU.
+      x: (N, D, H, W, Ci); bf16 or fp32 on CUDA, any float dtype on the CPU.
       w_packed: ``pack_weight`` output in x's dtype.
-      b: (Co,) fp32 bias, or None.
+      b: (Co,) bias, or None; added in fp32 (float64 for a float64 x on the CPU).
       relu: apply the ReLU in the epilogue.
     Returns (N, D, H, W, Co) in x's dtype.
     """
+    if x.dtype != w_packed.dtype:
+        raise TypeError(f"x and the packed weight must share a dtype, got {x.dtype} / {w_packed.dtype}")
     if x.device.type == "cpu":
         return conv3x3x3_reference(x, w_packed, b, relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if b is not None and b.dtype != torch.float32 and b.dtype.is_floating_point:
+        b = b.float()  # as the Pallas wrapper's b.astype(jnp.float32)
     _check_cuda_args(x, w_packed, b)
     from pcmseg_tpu_torch.ops.kernels.build import load_library
 
@@ -141,9 +154,9 @@ def conv3x3x3(
     out = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
     # fp32 split-K partials, for the deep layers whose output alone is too
     # few tiles to fill the card
-    ws_bytes = lib.pcmseg_conv3x3x3_workspace_bytes(n, d, h, w, ci, co, dev)
+    ws_bytes = getattr(lib, _WORKSPACE[x.dtype])(n, d, h, w, ci, co, dev)
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
-    rc = lib.pcmseg_conv3x3x3_bf16(
+    rc = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), w_packed.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), None if workspace is None else workspace.data_ptr(), ws_bytes,
         n, d, h, w, ci, co, int(relu), torch.cuda.current_stream(x.device).cuda_stream, dev,
@@ -153,7 +166,10 @@ def conv3x3x3(
             f"conv3x3x3 launch failed: {lib.pcmseg_cuda_error_string(rc).decode()} "
             f"(x {tuple(x.shape)}, Co={co})"
         )
-    global launches
+    global launches, launches_f32
     with _count_lock:
-        launches += 1
+        if x.dtype == torch.float32:
+            launches_f32 += 1
+        else:
+            launches += 1
     return out

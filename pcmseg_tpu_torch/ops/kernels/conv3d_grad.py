@@ -1,12 +1,15 @@
 """Weight gradient of the 3³ SAME conv over NDHWC: CUDA kernel and plain version.
 
 ``conv3x3_dw`` replaces the Pallas TPU kernel
-``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``. A CUDA tensor goes to
-the hand-written ``sm_90a`` kernel (``csrc/conv3x3_dw.cu``); a CPU tensor
-goes to ``conv3x3_dw_reference``, the same function in plain PyTorch. There
-is no fallback from one to the other. The kernel reads x's channels padded
-with zeros as the forward kernel does (``conv3d.ci_pad``); the wrapper pads
-x and returns the rows of the real channels.
+``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``, which takes bf16 or
+fp32 x and dy. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
+dtype: bf16 to ``csrc/conv3x3_dw.cu`` (wgmma), fp32 to
+``csrc/conv3x3_dw_f32.cu`` (exact fp32 products on the CUDA cores); a CPU
+tensor goes to ``conv3x3_dw_reference``, the same function in plain PyTorch.
+There is no fallback from one to the other; x and dy share a dtype on every
+device. The kernels read x's channels padded with zeros as the forward
+kernels do (``conv3d.ci_pad``); the wrapper pads x and returns the rows of
+the real channels.
 """
 
 from __future__ import annotations
@@ -15,8 +18,14 @@ import torch
 
 from pcmseg_tpu_torch.ops.kernels.conv3d import pad_channels
 
-# kernel launches since the count was last set to 0 (CPU calls not counted)
+# kernel launches since the count was last set to 0 (CPU calls not counted),
+# of the bf16 kernel (``launches``) and of the fp32 one (``launches_f32``)
 launches = 0
+launches_f32 = 0
+# the C entry point of each operand dtype's kernel, and of its workspace size
+_ENTRY = {torch.bfloat16: "pcmseg_conv3x3_dw_bf16", torch.float32: "pcmseg_conv3x3_dw_f32"}
+_WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3_dw_workspace_bytes",
+              torch.float32: "pcmseg_conv3x3_dw_f32_workspace_bytes"}
 
 
 def conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -37,8 +46,8 @@ def _check_cuda_args(x: torch.Tensor, dy: torch.Tensor) -> None:
             f"x (N, D, H, W, Ci) and dy (N, D, H, W, Co) must share N, D, H, W; "
             f"got {tuple(x.shape)} and {tuple(dy.shape)}"
         )
-    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 x and dy, got {x.dtype} / {dy.dtype}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"the CUDA kernels take bf16 or fp32 x and dy, got {x.dtype}")
     co = dy.shape[-1]
     if co % 8:
         raise ValueError(f"the CUDA kernel needs Co % 8 == 0, got Co={co}")
@@ -58,11 +67,14 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """``dW`` of ``y = conv3d_same(x, W)`` given ``dy``.
 
     Args:
-      x: (N, D, H, W, Ci) forward input; bf16 on CUDA, any float dtype on the CPU.
+      x: (N, D, H, W, Ci) forward input; bf16 or fp32 on CUDA, any float dtype
+        on the CPU.
       dy: (N, D, H, W, Co) output gradient in x's dtype.
-    Returns (3, 3, 3, Ci, Co) fp32 (the JAX kernel's layout), summed over
-    every voxel of the batch.
+    Returns (3, 3, 3, Ci, Co) fp32 (the JAX kernel's layout; float64 for a
+    float64 x on the CPU), summed over every voxel of the batch.
     """
+    if x.dtype != dy.dtype:
+        raise TypeError(f"x and dy must share a dtype, got {x.dtype} / {dy.dtype}")
     if x.device.type == "cpu":
         return conv3x3_dw_reference(x, dy)
     if x.device.type != "cuda":
@@ -79,9 +91,9 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
     # fp32 split-K partials, for the layers whose (27·Ci, Co) output alone is
     # too few tiles to fill the card
-    ws_bytes = lib.pcmseg_conv3x3_dw_workspace_bytes(n, d, h, w, ci, co, dev)
+    ws_bytes = getattr(lib, _WORKSPACE[x.dtype])(n, d, h, w, ci, co, dev)
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
-    rc = lib.pcmseg_conv3x3_dw_bf16(
+    rc = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(),
         None if workspace is None else workspace.data_ptr(), ws_bytes,
         n, d, h, w, ci, co, torch.cuda.current_stream(x.device).cuda_stream, dev,
@@ -91,6 +103,9 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             f"conv3x3_dw launch failed: {lib.pcmseg_cuda_error_string(rc).decode()} "
             f"(x {tuple(x.shape)}, Co={co})"
         )
-    global launches
-    launches += 1
+    global launches, launches_f32
+    if x.dtype == torch.float32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out if ci == real_ci else out[:, :, :, :real_ci].contiguous()

@@ -513,7 +513,8 @@ class ChannelShard:
 class GradientAllReduce:
     """Sums the gradients of ``params`` over ``comm`` (default: every rank;
     on a tensor-parallel mesh the ranks that hold the same channels) with
-    one all-reduce of a flat fp32 buffer, kept between steps."""
+    one all-reduce of a flat fp32 buffer, kept between steps: 16-bit
+    gradients (``param_dtype``) are summed in fp32 and rounded back once."""
 
     def __init__(self, params: List[torch.nn.Parameter], comm: Optional[Comm] = None):
         self.params = [p for p in params if p.requires_grad]

@@ -38,7 +38,13 @@ _DS_HEAD = re.compile(r"ds\d+\.")
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)).copy())
+    """A copy of the numpy array ``a`` in its own dtype. A bfloat16 array
+    (ml_dtypes' type, recognised by name: this package does not import it),
+    which ``torch.from_numpy`` does not take, goes through its uint16 bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 def _conv_weight(kernel) -> torch.Tensor:
@@ -52,13 +58,42 @@ def _conv_transpose_weight(kernel) -> torch.Tensor:
     return _tensor(np.transpose(a, (3, 4, 0, 1, 2)))
 
 
+# The one map between the JAX package's parameter tree and the port's names.
+# A double conv's layers: the port's index in its Sequential, the JAX module.
+_DOUBLE_CONV = {"0": "conv0", "1": "norm0", "3": "conv1", "4": "norm1"}
+# Each double conv: its path in the JAX tree, the port's module prefix.
+_DOUBLE_CONVS = (
+    (("inc",), "inc.conv"),
+    *(((f"down{i}", "double_conv"), f"down{i}.maxpool_conv.1.conv") for i in range(1, 5)),
+    *(((f"up{i}", "double_conv"), f"up{i}.conv.conv") for i in range(1, 5)),
+)
+_JAX_PATH = {prefix: path for path, prefix in _DOUBLE_CONVS}
+# leaf names: a conv's and a norm's, the port's to JAX's
+_CONV_LEAF = {"weight": "kernel", "bias": "bias"}
+_NORM_LEAF = {"weight": "scale", "bias": "bias"}
+
+
+def jax_leaf_path(name: str) -> tuple:
+    """The path in the JAX package's parameter tree of the port's parameter
+    ``name`` (the map :func:`state_dict_from_jax_params` reads forwards):
+    sorted, the paths give ``jax.tree.leaves``' order. Every other module
+    (``up{i}.up``, ``outc``, ``ds{i}``) has the same path on both sides."""
+    module, leaf = name.rsplit(".", 1)
+    prefix, _, idx = module.rpartition(".")
+    if prefix in _JAX_PATH:
+        layer = _DOUBLE_CONV[idx]
+        return (*_JAX_PATH[prefix], layer, (_CONV_LEAF if layer.startswith("conv") else _NORM_LEAF)[leaf])
+    return (*module.split("."), _CONV_LEAF[leaf])
+
+
 def state_dict_from_jax_params(
     params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
 ) -> Dict[str, torch.Tensor]:
     """The port's state dict from the JAX package's params as numpy trees.
 
     Mirrors ``pcmseg_tpu.train.checkpoints.params_to_torch_state_dict``
-    without importing JAX. BN-folded trees (no ``norm{i}`` entries) give a
+    without importing JAX. Each tensor keeps its leaf's dtype (fp32, bf16 or
+    fp16 parameters; fp32 batch statistics). BN-folded trees (no ``norm{i}`` entries) give a
     state dict for ``UNet3D(norm_layer='none')``; GroupNorm trees (``norm{i}``
     without batch statistics) one for ``UNet3D(norm_layer='group')``. A deep-supervision tree's
     aux heads ``ds{i}``, which that exporter leaves out, become ``ds{i}.weight``
@@ -67,37 +102,28 @@ def state_dict_from_jax_params(
     batch_stats = batch_stats or {}
     sd: Dict[str, torch.Tensor] = {}
 
-    def double_conv(prefix: str, ours: Mapping, stats: Optional[Mapping]) -> None:
-        for ti, (cname, nname) in ((0, ("conv0", "norm0")), (3, ("conv1", "norm1"))):
-            sd[f"{prefix}.{ti}.weight"] = _conv_weight(ours[cname]["kernel"])
-            sd[f"{prefix}.{ti}.bias"] = _tensor(ours[cname]["bias"])
-            if nname not in ours:
-                continue
-            sd[f"{prefix}.{ti + 1}.weight"] = _tensor(ours[nname]["scale"])
-            sd[f"{prefix}.{ti + 1}.bias"] = _tensor(ours[nname]["bias"])
-            if stats and nname in stats:
-                sd[f"{prefix}.{ti + 1}.running_mean"] = _tensor(stats[nname]["mean"])
-                sd[f"{prefix}.{ti + 1}.running_var"] = _tensor(stats[nname]["var"])
-                sd[f"{prefix}.{ti + 1}.num_batches_tracked"] = torch.zeros(
-                    (), dtype=torch.int64
-                )
+    def at(tree: Mapping, path: tuple) -> Optional[Mapping]:
+        for key in path:
+            tree = (tree or {}).get(key)
+        return tree
 
-    double_conv("inc.conv", params["inc"], batch_stats.get("inc"))
+    for path, prefix in _DOUBLE_CONVS:
+        ours, stats = at(params, path), at(batch_stats, path)
+        for idx, layer in _DOUBLE_CONV.items():
+            if layer not in ours:  # a BN-folded tree's norms
+                continue
+            conv = layer.startswith("conv")
+            leaves = ours[layer]
+            sd[f"{prefix}.{idx}.weight"] = _conv_weight(leaves["kernel"]) if conv else _tensor(leaves["scale"])
+            sd[f"{prefix}.{idx}.bias"] = _tensor(leaves["bias"])
+            if not conv and stats and layer in stats:
+                sd[f"{prefix}.{idx}.running_mean"] = _tensor(stats[layer]["mean"])
+                sd[f"{prefix}.{idx}.running_var"] = _tensor(stats[layer]["var"])
+                sd[f"{prefix}.{idx}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     for i in range(1, 5):
-        double_conv(
-            f"down{i}.maxpool_conv.1.conv",
-            params[f"down{i}"]["double_conv"],
-            (batch_stats.get(f"down{i}") or {}).get("double_conv"),
-        )
-    for i in range(1, 5):
-        up = params[f"up{i}"]
-        sd[f"up{i}.up.weight"] = _conv_transpose_weight(up["up"]["kernel"])
-        sd[f"up{i}.up.bias"] = _tensor(up["up"]["bias"])
-        double_conv(
-            f"up{i}.conv.conv",
-            up["double_conv"],
-            (batch_stats.get(f"up{i}") or {}).get("double_conv"),
-        )
+        up = params[f"up{i}"]["up"]
+        sd[f"up{i}.up.weight"] = _conv_transpose_weight(up["kernel"])
+        sd[f"up{i}.up.bias"] = _tensor(up["bias"])
     for name in ["outc"] + [f"ds{i}" for i in range(1, 4) if f"ds{i}" in params]:
         sd[f"{name}.weight"] = _conv_weight(params[name]["kernel"])
         sd[f"{name}.bias"] = _tensor(params[name]["bias"])

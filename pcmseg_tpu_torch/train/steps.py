@@ -18,11 +18,18 @@ and of the backward runs a hand-written kernel on CUDA tensors
 
 Optimizer parity with the JAX chain (``steps.py:57-73``):
 ``clip_by_global_norm → add_decayed_weights → scale_by_adam → −lr``. The
-clip is applied to the gradients before ``torch.optim.Adam`` runs, with
-optax's formula ``g / ‖g‖ · max_norm`` when ‖g‖ ≥ max_norm (no ``+ 1e-6`` as
-in ``clip_grad_norm_``); Adam's ``weight_decay`` adds ``wd·p`` to the clipped
+clip is applied to the gradients before the Adam step runs, with optax's
+formula ``g / ‖g‖ · max_norm`` when ‖g‖ ≥ max_norm (no ``+ 1e-6`` as in
+``clip_grad_norm_``); Adam's ``weight_decay`` adds ``wd·p`` to the clipped
 gradient before the moments, which is optax's ``add_decayed_weights`` (coupled
-L2, not AdamW). The learning rate lives in the param group.
+L2, not AdamW). The learning rate lives in the param group. fp32 parameters
+take ``torch.optim.Adam``. 16-bit parameters (``param_dtype`` 'bfloat16' or
+'float16': the gradients, the Adam moments and every update in that dtype,
+as optax keeps them) take ``Adam16``, which follows optax's operations one
+by one with a rounding to the dtype after each, with the learning rate held
+in the dtype as ``inject_hyperparams`` holds it; ``global_norm`` then sums
+as ``optax.global_norm`` sums 16-bit leaves. The EMA of 16-bit parameters is
+fp32, as JAX's is from its first step on (``d`` there is an fp32 array).
 
 Metrics stay device tensors so the trainer can fetch a step's loss after
 the next step is queued.
@@ -78,6 +85,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -86,6 +94,7 @@ from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
 from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
 from pcmseg_tpu_torch.parallel.collectives import SpatialPlan
+from pcmseg_tpu_torch.train.checkpoints import jax_leaf_path
 
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
@@ -104,22 +113,133 @@ class TrainState:
     step: int = 0
 
 
-def make_optimizer(model: nn.Module, config) -> torch.optim.Adam:
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+class Adam16(torch.optim.Optimizer):
+    """optax's ``add_decayed_weights → scale_by_adam → scale(−1) →
+    scale(lr)`` then ``apply_updates``, for parameters in a 16-bit dtype T,
+    with optax's arithmetic: every operation in T, rounded to T as it is
+    computed, the Python-float constants (wd, b1, 1 − b1, b2, 1 − b2, eps)
+    rounded to T first as JAX's weak types round them, the bias corrections
+    ``1 − b^count`` computed in fp32 from the int32 count and then cast to
+    T (``tree_bias_correction``), and the learning rate held in T
+    (``inject_hyperparams`` casts it to the params' dtype): get and set it
+    through ``round`` so that the param group holds that value. Moments
+    ``mu`` and ``nu`` are in T; each parameter's state keeps the int32
+    count as 'step' (on the CPU, as ``torch.optim.Adam`` keeps its own).
+
+    bf16 follows XLA's arithmetic on the CPU bit for bit (measured on given
+    gradients over 3 steps, clipped and not): it rounds after every
+    operation. fp16 follows XLA's fused CPU code as its HLO reads: of each
+    sum of two products, LLVM fuses one product with the sum into one fp32
+    fma (``_fused``: ``g·(1 − b1)`` is rounded and ``b1·mu`` fused, ``b2·nu``
+    rounded and ``g²·(1 − b2)`` fused), and the update's
+    ``(mu / bc1) / den`` is ``mu / (bc1 · den)``. bf16's path would put
+    fp16 parameters up to 6 ulps from XLA's after one step
+    (``tests/test_torch_param_dtype.py`` gives the readings).
+
+    ``order``: the parameters in the order in which ``apply_gradients``
+    sums their gradients' norm (``jax_order``; by default as given)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0,
+                 order: Optional[List[nn.Parameter]] = None):
+        params = list(params)
+        self.order = params if order is None else order
+        self.dtype = params[0].dtype
+        if self.dtype not in LOW_PRECISION or any(p.dtype != self.dtype for p in params):
+            raise TypeError(f"Adam16 takes parameters of one 16-bit dtype, got {sorted({str(p.dtype) for p in params})}")
+        super().__init__(params, dict(lr=self.round(lr), betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+
+    def round(self, value: float) -> float:
+        """``value`` as a hyperparameter in the parameters' dtype holds it."""
+        return float(torch.tensor(value, dtype=self.dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam16 takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            wd = group["weight_decay"]
+            consts = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                key = p.device
+                if key not in consts:
+                    t = lambda v: torch.tensor(v, dtype=p.dtype, device=p.device)  # noqa: E731
+                    consts[key] = (t(wd), t(b1), t(1 - b1), t(b2), t(1 - b2), t(group["eps"]), t(group["lr"]))
+                c_wd, c_b1, c_1b1, c_b2, c_1b2, c_eps, c_lr = consts[key]
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.int32)
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                g = p.grad
+                fma = _fused if p.dtype == torch.float16 else _unfused
+                if wd > 0:
+                    g = fma(c_wd, p, g)
+                mu = state["mu"]
+                mu.copy_(fma(c_b1, mu, g * c_1b1))
+                nu = state["nu"]
+                nu.copy_(fma(c_1b2, g * g, nu * c_b2))
+                state["step"] += 1
+                key = (p.device, int(state["step"]))
+                if key not in consts:
+                    count = state["step"].float()
+                    consts[key] = [(1 - torch.tensor(b, dtype=torch.float32) ** count).to(p.device, p.dtype)
+                                   for b in (b1, b2)]
+                bc1, bc2 = consts[key]
+                if p.dtype == torch.float16:
+                    # XLA rewrites (mu / bc1) / den as mu / (bc1 · den) there
+                    p.copy_(fma(mu / (bc1 * (torch.sqrt(nu / bc2) + c_eps)), -c_lr, p))
+                else:
+                    p.add_(c_lr * -((mu / bc1) / (torch.sqrt(nu / bc2) + c_eps)))
+        return None
+
+
+def _unfused(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c with the product rounded to the dtype, then the sum: XLA's
+    bf16 arithmetic, which rounds after every operation."""
+    return a * b + c
+
+
+def _fused(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c rounded once from fp32: XLA's fp16 arithmetic on the CPU,
+    where LLVM contracts a multiply feeding an add into one fp32 fma (the
+    product of two fp16 values is exact in fp32)."""
+    return (a.float() * b.float() + c.float()).to(c.dtype)
+
+
+def make_optimizer(model: nn.Module, config) -> torch.optim.Optimizer:
+    """Adam with coupled L2 from the config: ``torch.optim.Adam`` for fp32
+    parameters, ``Adam16`` for 16-bit ones."""
     if config.optimizer != "adam":
         raise ValueError(f"unsupported optimizer: {config.optimizer!r}")
-    return torch.optim.Adam(
-        model.parameters(),
-        lr=config.learning_rate,
-        betas=tuple(config.betas),
-        eps=config.eps,
-        weight_decay=config.weight_decay,
-    )
+    params = list(model.parameters())
+    kwargs = dict(lr=config.learning_rate, betas=tuple(config.betas), eps=config.eps,
+                  weight_decay=config.weight_decay)
+    if params and params[0].dtype in LOW_PRECISION:
+        return Adam16(params, order=jax_order(model), **kwargs)
+    return torch.optim.Adam(params, **kwargs)
+
+
+def jax_order(model: nn.Module) -> List[nn.Parameter]:
+    """``model``'s trainable parameters in ``jax.tree.leaves``' order of the
+    JAX package's tree (``checkpoints.jax_leaf_path``): the order in which
+    ``optax.global_norm`` sums 16-bit leaves."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    return [p for _, p in sorted(named, key=lambda kv: jax_leaf_path(kv[0]))]
 
 
 def create_train_state(model: nn.Module, config) -> TrainState:
     ema = None
     if config.ema_decay > 0:
-        ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+        # fp32 for 16-bit parameters: JAX's EMA leaves are fp32 from its
+        # first step on (its init copy holds the same values in bf16)
+        ema = {k: p.detach().clone() if p.dtype not in LOW_PRECISION else p.detach().float()
+               for k, p in model.named_parameters()}
     return TrainState(model=model, optimizer=make_optimizer(model, config), ema=ema)
 
 
@@ -128,12 +248,36 @@ def get_learning_rate(state: TrainState) -> float:
 
 
 def set_learning_rate(state: TrainState, lr: float) -> None:
+    if isinstance(state.optimizer, Adam16):
+        lr = state.optimizer.round(lr)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
 
 
+def _square_sum(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(t * t)`` of a 16-bit leaf: the squares rounded to its
+    dtype, their sum accumulated in fp32 (returned in fp32: the caller
+    rounds it to the dtype once)."""
+    return (t * t).float().sum()
+
+
+def _sum_in_order(sums: List[torch.Tensor]) -> torch.Tensor:
+    """``sum(sums)`` as Python's ``sum`` adds them: left to right, each
+    addition in the leaves' dtype."""
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
+    return total
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ ‖t‖²) over the list, as optax's ``global_norm``."""
+    """sqrt(Σ ‖t‖²) over the list, as optax's ``global_norm``: of fp32
+    leaves with fp32 sums; of 16-bit leaves in their dtype, as optax sums
+    them (each leaf's squares summed, the leaves' sums added in the list's
+    order, which for optax's result is ``jax.tree.leaves``' order, and the
+    square root taken, each in the dtype)."""
+    if tensors[0].dtype in LOW_PRECISION:
+        return torch.sqrt(_sum_in_order([_square_sum(t).to(t.dtype) for t in tensors]))
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
@@ -147,25 +291,36 @@ def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm
         g.div_(den).mul_(num)
 
 
-def sharded_global_norm(model: nn.Module) -> Optional[torch.Tensor]:
+def sharded_global_norm(model: nn.Module, order: Optional[List[nn.Parameter]] = None) -> Optional[torch.Tensor]:
     """The global norm of the gradients of a tensor-parallel ``model``
     (``sharding.shard_model``), the same on every rank: the squares of the
     sharded parameters' gradients summed over the model group, those of the
-    replicated ones (whole on every rank) counted once. None for a model
-    without shards."""
-    comm, sharded, whole = None, [], []
+    replicated ones (whole on every rank) counted once. 16-bit gradients
+    are summed in ``order``, the parameters in ``jax.tree.leaves``' order
+    (``jax_order``), which they need. None for a model without shards."""
+    comm, leaves = None, []  # (parameter, sharded)
     for m in model.modules():
         tp = getattr(m, "tp", None)
-        own = [p.grad for p in m.parameters(recurse=False) if p.requires_grad]
-        if tp is not None and tp.sharded:
-            comm = tp.comm
-            sharded += own
-        else:
-            whole += own
+        sharded = tp is not None and tp.sharded
+        comm = tp.comm if sharded else comm
+        leaves += [(p, sharded) for p in m.parameters(recurse=False) if p.requires_grad]
     if comm is None:
         return None
+    if leaves[0][0].dtype in LOW_PRECISION:
+        if order is None:
+            raise ValueError("the norm of 16-bit gradients needs the parameters' order (jax_order)")
+        # optax's order in the leaves' dtype: a sharded leaf's fp32 sum of
+        # squares summed over the group, then rounded once as a whole leaf's
+        of_shards = {id(p) for p, sharded in leaves if sharded}
+        sums = [_square_sum(p.grad) for p in order]
+        sharded = [i for i, p in enumerate(order) if id(p) in of_shards]
+        total = comm.all_reduce(torch.stack([sums[i] for i in sharded]))
+        for i, t in zip(sharded, total.unbind()):
+            sums[i] = t
+        return torch.sqrt(_sum_in_order([t.to(order[0].dtype) for t in sums]))
     squares = lambda grads: torch.stack([torch.linalg.vector_norm(g).square() for g in grads]).sum()  # noqa: E731
-    total = comm.all_reduce(squares(sharded))
+    total = comm.all_reduce(squares([p.grad for p, sharded in leaves if sharded]))
+    whole = [p.grad for p, sharded in leaves if not sharded]
     return torch.sqrt(total + squares(whole)) if whole else torch.sqrt(total)
 
 
@@ -176,9 +331,10 @@ def apply_gradients(state: TrainState, max_norm: float) -> torch.Tensor:
     Counts the step. Returns the global norm before clipping (of the whole
     gradient on a tensor-parallel model: ``sharded_global_norm``)."""
     grads = [p.grad for p in state.model.parameters() if p.requires_grad]
-    norm = sharded_global_norm(state.model)
+    order = state.optimizer.order if isinstance(state.optimizer, Adam16) else None
+    norm = sharded_global_norm(state.model, order)
     if norm is None:
-        norm = global_norm(grads)
+        norm = global_norm(grads if order is None else [p.grad for p in order])
     if max_norm > 0:
         clip_by_global_norm_(grads, norm, max_norm)
     state.optimizer.step()
@@ -391,9 +547,14 @@ def make_train_step(
             # Polyak average with tf-style warmup; t counts steps after this one
             t = state.step
             d = min(ema_decay, (1.0 + t) / (10.0 + t))
+            d32 = np.float32(d)
             with torch.no_grad():
                 for name, p in model.named_parameters():
-                    state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+                    e = state.ema[name]
+                    if e.dtype == p.dtype:
+                        e.mul_(d).add_(p, alpha=1.0 - d)
+                    else:  # an fp32 EMA of 16-bit params: JAX's fp32 d·e + (1 − d)·p
+                        e.mul_(float(d32)).add_(p.float().mul_(float(np.float32(1.0) - d32)))
         return {"loss": loss, "grad_norm": norm}
 
     return train_step

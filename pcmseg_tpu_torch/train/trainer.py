@@ -100,7 +100,7 @@ from pcmseg_tpu_torch.data import device_cache
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan, prefetch_to_device
 from pcmseg_tpu_torch.infer.predict import resolve_device
-from pcmseg_tpu_torch.models.unet3d import DTYPES, UNet3D
+from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype
 from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.parallel.sharding import (
     Mesh,
@@ -151,11 +151,7 @@ class Trainer:
         self.tag = tag
         self.log = get_logger(f"pcmseg.trainer{('.' + tag) if tag else ''}")
         self.device = resolve_device(device)
-        self.dtype = DTYPES[config.compute_dtype]
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"compute_dtype={config.compute_dtype!r} on CUDA: the conv kernels compute in bfloat16"
-            )
+        self.dtype = compute_dtype(config.compute_dtype)
 
         self.dataset = dataset if dataset is not None else ProstateDataset(
             data_dir=config.data_dir,

@@ -77,11 +77,86 @@ def test_kernel_without_bias(cuda_device):
     assert _within_bf16_bound(got, conv3d.conv3x3x3_reference(x.float(), packed.float(), None, False))
 
 
+FP32_SHAPES = [
+    (1, (16, 16, 16), 5, 64),  # the input conv: Ci = 5 padded to 8, one chunk
+    (2, (9, 7, 13), 8, 24),  # ragged tiles in every dimension, Co below one N tile
+    (1, (5, 5, 5), 3, 136),  # a ragged last N tile
+    (1, (6, 5, 7), 40, 16),  # Ci padded to 64
+    (1, (16, 16, 16), 256, 512),  # K split over chunk ranges
+    (4, (8, 8, 8), 1024, 1024),  # the bottleneck, split K
+    (1, (40, 37, 20), 64, 64),
+]
+
+
+def _fp32_bound(got, ref64, plain):
+    """The fp32 kernel no further from float64 than twice the plain fp32
+    version (cuDNN, TF32 off), plus 1e-6 of the largest output."""
+    err = (got.double() - ref64).abs().max().item()
+    return err <= 2 * (plain.double() - ref64).abs().max().item() + 1e-6 * ref64.abs().max().item()
+
+
+@pytest.mark.parametrize("n,spatial,ci,co", FP32_SHAPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_fp32_kernel_matches_float64(cuda_device, n, spatial, ci, co, relu):
+    g = torch.Generator(device=cuda_device).manual_seed(ci * co + 1)
+    x = torch.randn((n, *spatial, ci), generator=g, device=cuda_device)
+    w = torch.randn((co, ci, 3, 3, 3), generator=g, device=cuda_device) * math.sqrt(2.0 / (27 * ci))
+    b = torch.randn((co,), generator=g, device=cuda_device)
+    packed = conv3d.pack_weight(w, torch.float32)
+    before = (conv3d.launches, conv3d.launches_f32)
+    got = conv3d.conv3x3x3(x, packed, b, relu)
+    torch.cuda.synchronize()
+    assert (conv3d.launches, conv3d.launches_f32) == (before[0], before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (n, *spatial, co)
+    ref = conv3d.conv3x3x3_reference(x.double(), packed.double(), b, relu)
+    assert _fp32_bound(got, ref, conv3d.conv3x3x3_reference(x, packed, b, relu))
+
+
+@pytest.mark.parametrize("n,spatial,ci,co", FP32_SHAPES)
+def test_fp32_dw_kernel_matches_float64(cuda_device, n, spatial, ci, co):
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co + 1)
+    x = torch.randn((n, *spatial, ci), generator=g, device=cuda_device)
+    dy = torch.randn((n, *spatial, co), generator=g, device=cuda_device)
+    before = (conv3d_grad.launches, conv3d_grad.launches_f32)
+    got = conv3d_grad.conv3x3_dw(x, dy)
+    again = conv3d_grad.conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert (conv3d_grad.launches, conv3d_grad.launches_f32) == (before[0], before[1] + 2)
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, ci, co)
+    assert torch.equal(got, again)  # the split partials are summed in a fixed order
+    ref = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+    assert _fp32_bound(got, ref, conv3d_grad.conv3x3_dw_reference(x, dy))
+
+
+def test_fp32_train_step_on_the_card_launches_only_fp32_kernels(cuda_device):
+    """compute_dtype='float32' with bf16 params: every conv of the step runs
+    the fp32 kernels, none the bf16 ones."""
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    config = get_config(base_features=8, batch_size=2, accum_steps=1, compute_dtype="float32",
+                        param_dtype="bfloat16", target_size=(32, 32, 32))
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    state = create_train_state(model, config)
+    batch = {"image": torch.randn((2, 32, 32, 32, 5), device=cuda_device),
+             "label": (torch.rand((2, 32, 32, 32, 1), device=cuda_device) > 0.5).to(torch.uint8)}
+    conv3d.launches = conv3d.launches_f32 = conv3d_grad.launches = conv3d_grad.launches_f32 = 0
+    m = make_train_step(model, config)(state, batch)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(m["loss"])) and m["grad_norm"].dtype == torch.bfloat16
+    assert (conv3d.launches, conv3d.launches_f32, conv3d_grad.launches, conv3d_grad.launches_f32) == (0, 35, 0, 18)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros(1, 4, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16)
     packed = torch.zeros(8, conv3d.packed_k(8), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):
-        conv3d.conv3x3x3(x.float(), packed.float())
+    with pytest.raises(TypeError):  # x and weight of two dtypes
+        conv3d.conv3x3x3(x.float(), packed)
+    with pytest.raises(TypeError):  # a dtype no kernel computes in
+        conv3d.conv3x3x3(x.half(), packed.half())
     with pytest.raises(ValueError):
         conv3d.conv3x3x3(x, packed[:4])  # Co % 8 != 0
     with pytest.raises(ValueError):
@@ -89,8 +164,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         # (packed K does not match Ci)
     with pytest.raises(ValueError):
         conv3d.conv3x3x3(x.transpose(1, 2), packed)  # not contiguous
-    with pytest.raises(ValueError):
-        conv3d.conv3x3x3(x, packed, torch.zeros(8, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # a bias of another length (a bf16 one is cast to fp32, as JAX casts it)
+        conv3d.conv3x3x3(x, packed, torch.zeros(4, device=cuda_device, dtype=torch.bfloat16))
 
 
 def test_folded_model_on_the_card_matches_fp32_cpu(cuda_device):
@@ -160,8 +235,10 @@ def test_dw_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
 
     x = torch.zeros(1, 4, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(TypeError):
-        conv3d_grad.conv3x3_dw(x.float(), x.float())
+    with pytest.raises(TypeError):  # x and dy of two dtypes
+        conv3d_grad.conv3x3_dw(x.float(), x)
+    with pytest.raises(TypeError):  # a dtype no kernel computes in
+        conv3d_grad.conv3x3_dw(x.half(), x.half())
     with pytest.raises(ValueError):
         conv3d_grad.conv3x3_dw(x, x[..., :4].contiguous())  # Co % 8 != 0
     with pytest.raises(ValueError):

@@ -131,15 +131,26 @@ def test_guards():
 
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float16"])
 def test_param_dtype_other_than_float32_is_refused_by_name(param_dtype):
-    """JAX casts its params to ``param_dtype`` (``unet3d.py:529``); the port
-    keeps fp32 params, so any other value is refused where every entry
-    point builds its model, not trained or served as fp32 in silence."""
+    """JAX casts its params to ``param_dtype`` (``unet3d.py:529``), and so
+    does the port now: every parameter (conv, transposed conv, head, norm
+    scale and bias) in that dtype, BatchNorm's running statistics fp32 as
+    ``norm.py:47-52`` keeps them, the same init values as the fp32 model
+    rounded once. What is still refused by name is a dtype outside the
+    ported ones."""
     from pcmseg_tpu_torch.core.config import get_config
 
-    with pytest.raises(NotImplementedError, match=f"param_dtype='{param_dtype}'"):
-        UNet3D.from_config(get_config(base_features=4, param_dtype=param_dtype), device="meta")
-    model = UNet3D.from_config(get_config(base_features=4, param_dtype="float32"), device="meta")
-    assert all(p.dtype == torch.float32 for p in model.parameters())
+    dtype = getattr(torch, param_dtype)
+    model = UNet3D.from_config(get_config(base_features=4, param_dtype=param_dtype), device="meta")
+    assert all(p.dtype == dtype for p in model.parameters())
+    assert all(b.dtype == (torch.int64 if k.endswith("num_batches_tracked") else torch.float32)
+               for k, b in model.named_buffers())
+    fp32 = UNet3D.from_config(get_config(base_features=4), generator=torch.Generator().manual_seed(3))
+    low = UNet3D.from_config(get_config(base_features=4, param_dtype=param_dtype),
+                             generator=torch.Generator().manual_seed(3))
+    for (name, p), q in zip(low.named_parameters(), fp32.parameters()):
+        assert torch.equal(p, q.to(dtype)), name
+    with pytest.raises(NotImplementedError, match="param_dtype='float64'"):
+        UNet3D.from_config(get_config(base_features=4, param_dtype="float64"), device="meta")
 
 
 def test_packed_weight_follows_loads_and_edits():

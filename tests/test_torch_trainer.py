@@ -121,8 +121,11 @@ def test_periodic_checkpoints_are_pruned(tree, tmp_path):
     ids=lambda o: next(iter(o)),
 )
 def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
-    """``param_dtype`` other than 'float32', which the port has not ported,
-    is refused by name; deep supervision, K-class heads, GroupNorm,
+    """``param_dtype`` 'bfloat16', ported since
+    (tests/test_torch_param_dtype.py holds it against JAX), builds a
+    trainer with bf16 parameters and moments and fp32 running statistics;
+    a compute dtype the kernels do not take is what is refused by name
+    now. Deep supervision, K-class heads, GroupNorm,
     asynchronous checkpoints, profiling and data, spatial and tensor
     parallelism, ported since, build a trainer that has them
     (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
@@ -161,8 +164,13 @@ def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
         model = Trainer(_config(tree, tmp_path, **option), device="cpu").state.model
         assert model.norm_layer == "group" and not [k for k in model.state_dict() if "running" in k]
         return
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        Trainer(_config(tree, tmp_path, **option), device="cpu")
+    if "param_dtype" in option:
+        state = Trainer(_config(tree, tmp_path, **option), device="cpu").state
+        assert {p.dtype for p in state.model.parameters()} == {torch.bfloat16}
+        assert {b.dtype for k, b in state.model.named_buffers() if "running" in k} == {torch.float32}
+        assert type(state.optimizer).__name__ == "Adam16"
+    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
+        Trainer(_config(tree, tmp_path, **option, compute_dtype="float16"), device="cpu")
 
 
 def test_cli_refuses_cross_validation(tree, capsys, monkeypatch):

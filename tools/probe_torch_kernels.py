@@ -1,6 +1,6 @@
 """Quick check of the port's conv kernels on one NVIDIA GPU, for kernel work.
 
-    python tools/probe_torch_kernels.py [--ptxas] [--time]
+    python tools/probe_torch_kernels.py [--ptxas] [--time] [--f32]
 
 Builds the kernels (with --ptxas, first prints each source's registers,
 spills and warnings from ``nvcc -Xptxas -v``), checks B1 and B2 against
@@ -9,8 +9,10 @@ their plain versions at small and ragged shapes that cover every code path
 and on a failure names the taps that are wrong alone. A watchdog ends the
 process if the card does not finish a kernel within 30 s, so that a hung
 kernel fails the run instead of holding the card. With --time, times
-forward and weight gradient at 7 of the model's shapes. The last line is
-ALL OK or SOME FAILED.
+forward and weight gradient at 7 of the model's shapes. With --f32, the
+fp32 kernels instead of the bf16 ones, each held against a float64 conv of
+the same fp32 inputs: its error at most twice cuDNN's fp32 error (TF32 off)
+plus 1e-6 of the largest output. The last line is ALL OK or SOME FAILED.
 """
 import os
 import subprocess
@@ -27,6 +29,8 @@ if not torch.cuda.is_available():
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
+F32 = "--f32" in sys.argv
+DT = torch.float32 if F32 else torch.bfloat16
 
 
 def sync(label, limit=30.0):
@@ -56,15 +60,21 @@ log(build.build(), f"{time.time() - t0:.1f}s")
 
 def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
     g = torch.Generator(device=dev).manual_seed(ci * 7 + co)
-    x = torch.randn((n, *sp, ci), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((n, *sp, ci), generator=g, device=dev).to(DT)
     w = torch.randn((co, ci, 3, 3, 3), generator=g, device=dev) * (2.0 / (27 * ci)) ** 0.5
     b = torch.randn((co,), generator=g, device=dev) * 0.1
-    packed = conv3d.pack_weight(w, torch.bfloat16)
+    packed = conv3d.pack_weight(w, DT)
     got = conv3d.conv3x3x3(x, packed, b, relu)
     sync(f"B1 {label}")
-    ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), b, relu)
-    err = (got.float() - ref).abs()
-    bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+    if F32:
+        ref = conv3d.conv3x3x3_reference(x.double(), packed.double(), b, relu)
+        plain = (conv3d.conv3x3x3_reference(x, packed, b, relu).double() - ref).abs().max()
+        err = (got.double() - ref).abs()
+        bound = 2 * plain + 1e-6 * ref.abs().max()
+    else:
+        ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), b, relu)
+        err = (got.float() - ref).abs()
+        bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
     bad = err > bound
     ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
     log(f"B1 {label} n={n} {sp} {ci}->{co} relu={relu}: {'OK' if ok else 'FAIL'} max_err {err.max().item():.4g} "
@@ -79,10 +89,10 @@ def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
             wt = torch.zeros_like(w)
             kd, kh, kw = tap // 9, (tap // 3) % 3, tap % 3
             wt[:, :, kd, kh, kw] = w[:, :, kd, kh, kw]
-            pk = conv3d.pack_weight(wt, torch.bfloat16)
+            pk = conv3d.pack_weight(wt, DT)
             got_t = conv3d.conv3x3x3(x, pk, None, False)
             sync(f"B1 diag tap {tap}")
-            ref_t = conv3d.conv3x3x3_reference(x.float(), pk.float(), None, False)
+            ref_t = conv3d.conv3x3x3_reference(x.double(), pk.double(), None, False)
             e = (got_t.float() - ref_t).abs().max().item()
             if e > 1e-2 * ref_t.abs().max().item() + 1e-6 or not torch.isfinite(got_t).all():
                 wrong.append((tap, round(e, 4)))
@@ -92,14 +102,20 @@ def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
 
 def b2_check(n, sp, ci, co, label="", diag=True):
     g = torch.Generator(device=dev).manual_seed(ci * 3 + co)
-    x = torch.randn((n, *sp, ci), generator=g, device=dev).to(torch.bfloat16)
-    dy = torch.randn((n, *sp, co), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((n, *sp, ci), generator=g, device=dev).to(DT)
+    dy = torch.randn((n, *sp, co), generator=g, device=dev).to(DT)
     got = conv3d_grad.conv3x3_dw(x, dy)
     again = conv3d_grad.conv3x3_dw(x, dy)
     sync(f"B2 {label}")
-    ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
-    err = (got - ref).abs()
-    bound = 2e-3 * ref.abs().max().item()
+    if F32:
+        ref = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+        plain = (conv3d_grad.conv3x3_dw_reference(x, dy).double() - ref).abs().max().item()
+        err = (got.double() - ref).abs()
+        bound = 2 * plain + 1e-6 * ref.abs().max().item()
+    else:
+        ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
+        err = (got - ref).abs()
+        bound = 2e-3 * ref.abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err.max().item() <= bound and torch.equal(got, again)
     log(f"B2 {label} n={n} {sp} {ci}->{co}: {'OK' if ok else 'FAIL'} max_err {err.max().item():.4g} bound {bound:.4g} "
         f"bitwise {torch.equal(got, again)} finite {bool(torch.isfinite(got).all())}")
@@ -146,13 +162,14 @@ for args, label in B2:
 if "--time" in sys.argv:
     for ci, co, s in ((5, 64, 128), (64, 64, 128), (128, 64, 128), (128, 128, 64), (256, 256, 32), (512, 512, 16),
                       (1024, 1024, 8)):
-        x = torch.randn((1, s, s, s, ci), device=dev).to(torch.bfloat16)
+        x = torch.randn((1, s, s, s, ci), device=dev).to(DT)
         w = torch.randn((co, ci, 3, 3, 3), device=dev) * 0.02
-        packed = conv3d.pack_weight(w, torch.bfloat16)
-        dy = torch.randn((1, s, s, s, co), device=dev).to(torch.bfloat16)
+        packed = conv3d.pack_weight(w, DT)
+        dy = torch.randn((1, s, s, s, co), device=dev).to(DT)
         flop = 2 * 27 * ci * co * s ** 3
         f = ms(lambda: conv3d.conv3x3x3(x, packed, None, True))
         d = ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
-        log(f"time {ci}->{co}@{s}: fwd {f:.4f} ms {flop / f / 1e9:.0f} TF/s; dW {d:.4f} ms {flop / d / 1e9:.0f} TF/s")
+        log(f"time {DT} {ci}->{co}@{s}: fwd {f:.4f} ms {flop / f / 1e9:.1f} TF/s; dW {d:.4f} ms "
+            f"{flop / d / 1e9:.1f} TF/s")
 log("ALL OK" if all(results) else "SOME FAILED")
 sys.exit(0 if all(results) else 1)
