@@ -34,8 +34,10 @@ kernel on them:
      version's (cuDNN, TF32 off) + FP32_SLACK·max|ref|; B2 two launches
      bitwise equal; median times of the kernel, the plain version and
      cuDNN's conv / dgrad / wgrad alone, TFLOP/s and the share of the bound
-     at the card's fastest fp32-exact rate (3xTF32, 165 TFLOP/s; the FFMA
-     bound at 66.9 beside it);
+     at the card's fastest fp32-exact rate (3xTF32, 165 TFLOP/s, the
+     kernels' own route; the FFMA bound at 66.9 beside it); then, error
+     only, the FP32_CONTRACT shapes (an output-channel shard, a D-slab with
+     its halo, N = 2) for all three;
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
@@ -295,7 +297,8 @@ PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # fp32 on the same card: the fastest fp32-exact rate, 3xTF32 on the tensor
 # cores (495 TFLOP/s TF32 over three passes), which bounds an fp32 conv; and
-# FFMA on the CUDA cores (the rate of the fp32 kernels' exact products)
+# FFMA on the CUDA cores (the rate of an fp32 kernel with exact products on
+# the CUDA cores, the fp32 kernels' earlier design; kept as its yardstick)
 PEAK_3XTF32_FLOPS = 494.7e12 / 3
 PEAK_FFMA_FLOPS = 66.9e12
 # an fp32 kernel's max |error| from a float64 conv of the same fp32 inputs
@@ -303,6 +306,13 @@ PEAK_FFMA_FLOPS = 66.9e12
 # FP32_SLACK of the largest |output|
 FP32_MARGIN = 2.0
 FP32_SLACK = 1e-6
+# the fp32 kernels' contract beyond the model's N = 1 shapes, held to the same
+# bound and timed in no sum: (label, N, D, size, Ci, Co, a D-slab with its
+# halo): one output-channel shard of two (64 -> 32) at 128^3, one D-slab of
+# two with its halo slices at 128^2, and N = 2 at 64^3
+FP32_CONTRACT = (("64->32 @128^3, one of 2 output-channel shards", 1, 128, 128, 64, 32, False),
+                 ("64->64 @66x128^2, one of 2 D-slabs with its halo", 1, 66, 128, 64, 64, True),
+                 ("128->128 @64^3, N=2", 2, 64, 64, 128, 128, False))
 # the sp phase's spatial group: every rank holds one D-slab of its rows
 SP_RANKS = 2
 SLAB_NOTE = {False: "", True: f", one of {SP_RANKS} D-slabs with its halo"}
@@ -876,8 +886,10 @@ def check_fp32_kernels(device, card: str) -> dict:
     fp32 version's error (cuDNN with TF32 off) plus FP32_SLACK; B2's two
     launches bitwise equal. Median times of the kernel, the plain version
     and cuDNN's call alone (conv, dgrad, wgrad), TFLOP/s and the share of
-    the bound (3xTF32, with FFMA's beside it). Returns {"fwd", "dx", "dw"}:
-    the JSON record's numbers of each, ``ffma_bound_ms`` among them."""
+    the bound (3xTF32, with FFMA's beside it). Then the FP32_CONTRACT
+    shapes, each of the three within the same bound, untimed. Returns
+    {"fwd", "dx", "dw"}: the JSON record's numbers of each (the model's
+    shapes), ``ffma_bound_ms`` among them."""
     import torch
     import torch.nn.functional as F
 
@@ -956,6 +968,30 @@ def check_fp32_kernels(device, card: str) -> dict:
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, dy, xc, dyc
     out["dw"] = {"max_abs_err": max_err, **summed(rows), "ffma_bound_ms": ffma}
+    for label, n, d, s, ci, co, slab in FP32_CONTRACT:
+        x = torch.randn((n, d, s, s, ci), generator=g, device=device)
+        w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
+        b = torch.randn((co,), generator=g, device=device) * 0.1
+        dy = torch.randn((n, d, s, s, co), generator=g, device=device)
+        if slab:  # the halo slices' outputs are dropped: their cotangent is zero
+            dy[:, 0] = dy[:, -1] = 0
+        packed = conv3d.pack_weight(w, f32)
+        got = conv3d.conv3x3x3(x, packed, b, True)
+        torch.cuda.synchronize()
+        fp32_error(got, conv3d.conv3x3x3_reference(x.double(), packed.double(), b, True),
+                   conv3d.conv3x3x3_reference(x, packed, b, True), f"fp32 conv {label}")
+        packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), f32)
+        got = conv3d.conv3x3x3(dy, packed, None, False)
+        torch.cuda.synchronize()
+        fp32_error(got, conv3d.conv3x3x3_reference(dy.double(), packed.double(), None, False),
+                   conv3d.conv3x3x3_reference(dy, packed, None, False), f"fp32 dx {label}")
+        got, again = conv3d_grad.conv3x3_dw(x, dy), conv3d_grad.conv3x3_dw(x, dy)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"fp32 dW {label}: two launches differ")
+        fp32_error(got, conv3d_grad.conv3x3_dw_reference(x.double(), dy.double()),
+                   conv3d_grad.conv3x3_dw_reference(x, dy), f"fp32 dW {label} (bitwise repeat)")
+        del x, w, b, dy, packed, got, again
     for name, n in (("fwd", 18), ("dx", 17), ("dw", 18)):
         r = out[name]
         log(f"fp32 {name}, {n} layers of one 128^3 microbatch: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "

@@ -71,6 +71,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                             int c1, int c2, int c3, int c4) {
   asm volatile(
@@ -148,6 +157,86 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
 }
 
+// ---- TF32 wgmma with A from registers (3xTF32 fp32 products) ----------------
+//
+// D(64 x N, fp32, registers) (+)= A(64 x 8, tf32, registers) . B(8 x N, tf32,
+// K-major in shared memory). TF32 wgmma takes K-major operands only (the
+// transpose bits exist for f16 / bf16). A fragment: thread t of the
+// warpgroup holds rows r = (t / 32) * 16 + (t % 32) / 4 and r + 8, columns
+// c = t % 4 and c + 4, as a[0] (r, c), a[1] (r + 8, c), a[2] (r, c + 4),
+// a[3] (r + 8, c + 4) (the layout of mma.m16n8k8's tf32 A, one per warp).
+// D's layout is the bf16 instructions' above. scale_d 0: D = A.B (a fresh
+// accumulator), 1: D += A.B. A K-major no-swizzle B core matrix is 8 rows
+// x 16 bytes (4 tf32 values): `lbo` is the stride between the two 4-value
+// K halves of a k8 step, `sbo` the stride between 8-row groups; with the
+// 128-byte swizzle a k8 step is 32 bytes of a 128-byte row, sbo 1024.
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// cvt.rna.tf32.f32: a rounded to 10 mantissa bits, to nearest with ties away
+// from zero, the low 13 bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = hi + lo + O(2^-22 |a|): hi = tf32(a), lo = tf32(a - hi) (a - hi is
+// exact in fp32). hi.hi + hi.lo + lo.hi is a's product to fp32 accuracy.
+__device__ __forceinline__ void tf32_split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
+}
+
+// Make the generic proxy's shared-memory writes visible to the async proxy
+// (wgmma's operand reads, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Give a warpgroup's registers back to the pool (a producer) or take more
+// (consumers): every thread of the warpgroup runs it; N a multiple of 8.
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` (1..15) over `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- host ------------------------------------------------------------------
 
 int sm_count(int device) {
@@ -191,34 +280,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 tensor: `rank` dims, dims[0] innermost and
-// contiguous, byte strides of dims 1..rank-1, `box` elements per dim
-// loaded at a time, optionally 128-byte swizzled.
+// Tensor map of a bf16 (or, with `f32`, fp32) tensor: `rank` dims, dims[0]
+// innermost and contiguous, byte strides of dims 1..rank-1, `box` elements
+// per dim loaded at a time, optionally 128-byte swizzled.
 cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128) {
+                            const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128, bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 5-D map of an NDHWC bf16 tensor (dims C, W, H, D, N) loading boxes of
-// {bc channels, bx, by, bz, 1}: the kernels use bc = 8 (16-byte rows, no
-// swizzle) and bc = 64 with `swizzle128` (128-byte rows, swizzled).
+// A 5-D map of an NDHWC bf16 (or, with `f32`, fp32) tensor (dims C, W, H,
+// D, N) loading boxes of {bc channels, bx, by, bz, 1}: the bf16 kernels use
+// bc = 8 (16-byte rows, no swizzle) and bc = 64 with `swizzle128` (128-byte
+// rows, swizzled), the fp32 ones unswizzled rows of 4, 8 and 64 channels.
 cudaError_t make_ndhwc_map(CUtensorMap* map, const void* base, int N, int D, int H, int W, int C, int bc,
-                           int bx, int by, int bz, bool swizzle128) {
+                           int bx, int by, int bz, bool swizzle128, bool f32 = false) {
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(N)};
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * sizeof(bf16);
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * (f32 ? sizeof(float) : sizeof(bf16));
   const cuuint64_t strides[4] = {row, row * W, row * W * H, row * W * H * D};
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bx),
                              static_cast<cuuint32_t>(by), static_cast<cuuint32_t>(bz), 1};
-  return make_tensor_map(map, base, 5, dims, strides, box, swizzle128);
+  return make_tensor_map(map, base, 5, dims, strides, box, swizzle128, f32);
 }
 
 }  // namespace

@@ -4,8 +4,11 @@
 ``pcmseg_tpu/ops/pallas/conv3d.py::conv3x3x3``, which computes in x's dtype,
 bf16 or fp32. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
 dtype: bf16 x and weight to ``csrc/conv3x3x3.cu`` (wgmma), fp32 x and weight
-to ``csrc/conv3x3x3_f32.cu`` (exact fp32 products on the CUDA cores); a CPU
-tensor goes to ``conv3x3x3_reference``, the same function in plain PyTorch.
+to ``csrc/conv3x3x3_f32.cu`` (3xTF32 wgmma: each operand split as
+``tf32_split`` splits it, the three products hi·hi, hi·lo and lo·hi, fp32's
+accuracy on the tensor cores; the wrapper splits the packed weight, the
+kernel x); a CPU tensor goes to ``conv3x3x3_reference``, the same function
+in plain PyTorch.
 There is no fallback from one to the other. x and the packed weight share a
 dtype on every device; the bias is fp32 (another float dtype is cast to it,
 as the Pallas wrapper casts it).
@@ -13,16 +16,16 @@ as the Pallas wrapper casts it).
 Weights are packed once per load (``pack_weight``) from the module layout
 (Co, Ci, 3, 3, 3) into the kernel's (Co, 27 * ci_pad(Ci)) GEMM matrix:
 column ``tap * ci_pad(Ci) + ci`` with ``tap = (kd * 3 + kh) * 3 + kw``. The
-bf16 kernel reads x in 64-channel chunks, or as one 8-channel slab, and the
-fp32 kernel in 8-channel chunks: for both the channels are padded with zeros
-to 8 (Ci <= 8, the 5-modality input conv) or to a multiple of 64, in the
-packed weight and, by the wrapper, in x.
+bf16 kernel reads x in 64-channel chunks and the fp32 kernel in 32-channel
+chunks, each or as one 8-channel slab: for both the channels are padded
+with zeros to 8 (Ci <= 8, the 5-modality input conv) or to a multiple of
+64, in the packed weight and, by the wrapper, in x.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,26 @@ _count_lock = threading.Lock()
 _ENTRY = {torch.bfloat16: "pcmseg_conv3x3x3_bf16", torch.float32: "pcmseg_conv3x3x3_f32"}
 _WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3x3_workspace_bytes",
               torch.float32: "pcmseg_conv3x3x3_f32_workspace_bytes"}
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    bits = a.view(torch.int32)
+    # int32 arithmetic on the bit pattern: adding half of the dropped 13
+    # bits' unit to the magnitude and truncating rounds ties away from zero
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(a), a, rounded)
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 ``a`` as the fp32 kernels split their operands:
+    ``hi = tf32(a)``, ``lo = tf32(a - hi)``, where tf32 is PTX's
+    ``cvt.rna.tf32.f32``: round to nearest, ties away from zero, to 10
+    mantissa bits (the low 13 bits of the fp32 word zero). ``a - hi`` is
+    exact in fp32, and ``hi + lo`` is within 2^-21 |a| of a."""
+    if a.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes fp32, got {a.dtype}")
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
 
 
 def ci_pad(ci: int) -> int:
@@ -156,8 +179,10 @@ def conv3x3x3(
     # few tiles to fill the card
     ws_bytes = getattr(lib, _WORKSPACE[x.dtype])(n, d, h, w, ci, co, dev)
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
+    # the fp32 kernel reads the weight as its (hi, lo) TF32 pair
+    weight = torch.stack(tf32_split(w_packed)) if x.dtype == torch.float32 else w_packed
     rc = getattr(lib, _ENTRY[x.dtype])(
-        x.data_ptr(), w_packed.data_ptr(), None if b is None else b.data_ptr(),
+        x.data_ptr(), weight.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), None if workspace is None else workspace.data_ptr(), ws_bytes,
         n, d, h, w, ci, co, int(relu), torch.cuda.current_stream(x.device).cuda_stream, dev,
     )

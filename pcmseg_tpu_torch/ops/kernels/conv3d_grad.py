@@ -4,8 +4,9 @@
 ``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``, which takes bf16 or
 fp32 x and dy. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
 dtype: bf16 to ``csrc/conv3x3_dw.cu`` (wgmma), fp32 to
-``csrc/conv3x3_dw_f32.cu`` (exact fp32 products on the CUDA cores); a CPU
-tensor goes to ``conv3x3_dw_reference``, the same function in plain PyTorch.
+``csrc/conv3x3_dw_f32.cu`` (3xTF32 wgmma, x and dy split in the kernel as
+``conv3d.tf32_split`` splits them); a CPU tensor goes to
+``conv3x3_dw_reference``, the same function in plain PyTorch.
 There is no fallback from one to the other; x and dy share a dtype on every
 device. The kernels read x's channels padded with zeros as the forward
 kernels do (``conv3d.ci_pad``); the wrapper pads x and returns the rows of

@@ -34,7 +34,9 @@ written out.
   * :class:`GradientAllReduce`: the gradients of every parameter (this
     rank's shards of the sharded ones), copied into one flat fp32 buffer in
     parameter order, summed by one collective a step over the ranks that
-    hold the same channels, and copied back. A fixed order and one collective keep the step
+    hold the same channels, and copied back (16-bit parameters on a mesh
+    whose microbatches span ranks: their fp32 gradients, one collective a
+    microbatch, ``train/steps.py``). A fixed order keeps the step
     deterministic and the result bitwise equal on every rank.
   * :func:`exchange`: the sum of contributions that are zero on all ranks
     but one element by element (rows written by their owner into a zeroed
@@ -514,24 +516,27 @@ class GradientAllReduce:
     """Sums the gradients of ``params`` over ``comm`` (default: every rank;
     on a tensor-parallel mesh the ranks that hold the same channels) with
     one all-reduce of a flat fp32 buffer, kept between steps: 16-bit
-    gradients (``param_dtype``) are summed in fp32 and rounded back once."""
+    gradients (``param_dtype``) are summed in fp32 and rounded back once.
+    A call may name other tensors of the same sizes (``grads``, e.g. the
+    fp32 gradients of 16-bit parameters) and another group."""
 
     def __init__(self, params: List[torch.nn.Parameter], comm: Optional[Comm] = None):
         self.params = [p for p in params if p.requires_grad]
         self.comm = comm
         self._flat: Optional[torch.Tensor] = None
 
-    def __call__(self) -> None:
+    def __call__(self, grads: Optional[List[torch.Tensor]] = None, comm: Optional[Comm] = None) -> None:
         if not active():
             return
-        grads = [p.grad for p in self.params]
+        if grads is None:
+            grads = [p.grad for p in self.params]
         if self._flat is None or self._flat.device != grads[0].device:
             self._flat = torch.empty(sum(g.numel() for g in grads), dtype=torch.float32, device=grads[0].device)
         offset = 0
         for g in grads:
             self._flat[offset: offset + g.numel()].copy_(g.reshape(-1))
             offset += g.numel()
-        (self.comm or world_comm()).all_reduce(self._flat)
+        (comm or self.comm or world_comm()).all_reduce(self._flat)
         offset = 0
         for g in grads:
             g.copy_(self._flat[offset: offset + g.numel()].view_as(g))

@@ -56,7 +56,12 @@ carry, ``steps.py:264-275``), from the per-microbatch statistics
 exchanged over the data ranks. Then one all-reduce over every rank sums
 the gradients (``collectives.GradientAllReduce``: other rows' and other
 slabs' partial sums alike), divided by ``accum_steps``; the norm, clip,
-Adam and EMA follow on identical values on every rank. The loss is the
+Adam and EMA follow on identical values on every rank. With 16-bit
+parameters, where a microbatch spans ranks (its D-slabs, or in layout (a)
+its rows), its gradients stay fp32 until one all-reduce a microbatch has
+summed them over those ranks, and only then round to the parameters' dtype
+and add up in it, in JAX's order (``_fp32_backward``); in layout (b) the
+data ranks' sums are then summed as above. The loss is the
 mean of the global microbatch losses, summed in microbatch order.
 
 On a spatial mesh the forward and the loss run under a
@@ -404,6 +409,39 @@ def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[
     return table[:, 0]
 
 
+def _fp32_backward(params: List[nn.Parameter], microbatch: Callable[[], torch.Tensor],
+                   comm: collectives.Comm, sync: collectives.GradientAllReduce) -> torch.Tensor:
+    """``microbatch()`` (a forward and backward, returning its loss) with
+    each parameter holding its 16-bit values in fp32 meanwhile, so that
+    autograd leaves its gradient in fp32; those gradients summed over
+    ``comm`` (the ranks holding the other parts of the microbatch), then
+    rounded to the parameter's dtype once and added to its ``.grad`` in that
+    dtype. That is JAX's order: GSPMD sums a microbatch's fp32 partial
+    gradients over the devices before the cast back to the parameter's
+    dtype, and the microbatch scan adds the rounded gradients in that dtype
+    (``steps.py:264-269``). Returns the loss."""
+    saved = [(p, p.data, p.grad) for p in params]
+    try:
+        for p, data, _ in saved:
+            p.grad = None
+            p.data = data.float()
+        part = microbatch()
+        grads = [p.grad for p in params]
+    finally:
+        for p, data, grad in saved:
+            p.grad = None
+            p.data = data
+            p.grad = grad
+    sync(grads, comm)
+    for p, g in zip(params, grads):
+        g = g.to(p.dtype)
+        if p.grad is None:
+            p.grad = g
+        else:
+            p.grad.add_(g)
+    return part
+
+
 class _MeshStep:
     """What a step knows of its mesh: the groups of this rank (None without
     a process group), its data coordinate, and the D-slab plan of a batch."""
@@ -438,6 +476,15 @@ class _MeshStep:
         if plan.slab(0) != (start, stop):
             raise ValueError(f"a batch of D-slab [{start}, {stop}) on the rank of slab {plan.slab(0)}")
         return batch, plan
+
+    def microbatch_comm(self, layout: str) -> Optional[collectives.Comm]:
+        """The ranks that each hold a part of every microbatch in
+        ``layout`` (the batch group of :meth:`synchronized`), or None
+        where this rank holds its microbatches whole."""
+        if self.comms is None:
+            return None
+        comm = self.comms.replica if layout == "a" else self.comms.spatial
+        return comm if comm.size > 1 else None
 
     def synchronized(self, layout: str = "a"):
         """The ``synchronized_batch`` of a microbatch in ``layout``: (a) the
@@ -474,6 +521,8 @@ def make_train_step(
     on = _MeshStep(config, mesh)
     dp = on.mesh.data
     sync_grads = collectives.GradientAllReduce(list(model.parameters()), on.comms.replica if on.comms else None)
+    params = sync_grads.params
+    low_precision = any(p.dtype in LOW_PRECISION for p in params)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
 
     def objective(out, labels, weight, plan):
@@ -492,13 +541,16 @@ def make_train_step(
         return total
 
     def data_parallel_loss(images, labels, weight, plan) -> torch.Tensor:
-        """This rank's microbatches, forward and backward; the gradients
-        still this rank's own (without a process group: every microbatch,
+        """This rank's microbatches, forward and backward, and the gradients
+        summed over the ranks (without a process group: every microbatch,
         layout (a) with one rank). Returns the mean of the global
         microbatch losses."""
         layout = sharding.microbatch_layout(images.shape[0] * dp, accum, dp)
         n_micro = accum if layout == "a" else accum // dp
         micro = images.shape[0] // n_micro
+        # 16-bit parameters whose microbatches span ranks: each microbatch's
+        # fp32 gradients summed over them before the rounding (_fp32_backward)
+        spans = on.microbatch_comm(layout) if low_precision else None
         if weight is None and accum > 1:
             # as JAX's scan over microbatches (steps.py:259-263)
             weight = torch.ones(images.shape[0], device=images.device)
@@ -512,13 +564,22 @@ def make_train_step(
                 for i in range(n_micro):
                     sl = slice(i * micro, (i + 1) * micro)
                     w = None if weight is None else weight[sl]
-                    part = objective(model(images[sl]), labels[sl], w, plan)
-                    (part * scale).backward()
-                    parts.append(part.detach())
+
+                    def microbatch():
+                        part = objective(model(images[sl]), labels[sl], w, plan)
+                        (part * scale).backward()
+                        return part.detach()
+
+                    parts.append(microbatch() if spans is None
+                                 else _fp32_backward(params, microbatch, spans, sync_grads))
         finally:
             logs = [m.stat_log for m in norms]
             for m in norms:
                 m.stat_log = None
+        if spans is None:
+            sync_grads()
+        elif layout == "b" and dp > 1:  # each data rank's sums of its own microbatches
+            sync_grads(comm=on.comms.data)
         if layout == "b":
             owned = sharding.owned_microbatches(accum, dp, on.data_index)
             data_comm = on.comms.data if on.comms is not None else None
@@ -534,11 +595,9 @@ def make_train_step(
         labels = align_labels(images[..., :1], batch["label"])
         weight = batch.get("weight")
         model.train()
-        params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
         loss = data_parallel_loss(images, labels, weight, plan)
-        sync_grads()
         if accum > 1:
             for p in params:
                 p.grad.div_(accum)

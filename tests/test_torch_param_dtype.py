@@ -732,25 +732,31 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# mesh (data, spatial, model) of each gloo cluster of 2 processes
-MESHES = {"dp2": (2, 1, 1), "sp2": (1, 2, 1), "tp2": (1, 1, 2)}
+# mesh (data, spatial, model) and accum_steps of each step on the gloo
+# clusters, by cluster size: with batch 2, accum 2 on 'data' runs layout
+# (b) (each data rank its own microbatch), accum 1 layout (a) (each
+# microbatch over both data ranks)
+MESHES = {2: {"dp2": ((2, 1, 1), 2), "sp2": ((1, 2, 1), 2), "tp2": ((1, 1, 2), 2), "dp2a": ((2, 1, 1), 1)},
+          4: {"dp2sp2": ((2, 2, 1), 2)}}
 # the share of Adam's moments more than one ulp from one process's after the
-# step (measured: dp 0.007%, tp 0.02%; sp 6.4%: each rank's weight gradient
-# of a conv is rounded to bf16 before the two slabs' partials are summed,
-# where JAX sums the fp32 partials and rounds once, ROADMAP queue C)
-MOMENT_SHARE = {"dp2": 1e-3, "sp2": 0.1, "tp2": 1e-3}
+# step (measured: dp2 0.007%, tp2 0.02%, sp2 0.03%, dp2a 0.02%, dp2sp2 0.03%:
+# each microbatch's fp32 gradients are summed over the ranks that hold parts
+# of it before the rounding to bf16, as JAX sums them; rounded on each rank
+# first, sp2, dp2a and dp2sp2 read 6.4%, 5.6% and 5.3%)
+MOMENT_SHARE = {"dp2": 1e-3, "sp2": 1e-3, "tp2": 1e-3, "dp2a": 1e-3, "dp2sp2": 1e-3}
 
 
-def _cluster_step(given, mesh=None, rank=0):
-    """The port's bf16-param step from ``given`` on ``mesh`` (None: one
-    process): (its whole state dict, Adam's moments by name, metrics)."""
+def _cluster_step(given, mesh=None, rank=0, accum=2):
+    """The port's bf16-param step from ``given`` in ``accum`` microbatches on
+    ``mesh`` (None: one process): (its whole state dict, Adam's moments by
+    name, metrics)."""
     from pcmseg_tpu_torch.parallel import collectives
     from pcmseg_tpu_torch.parallel.sharding import shard_batch, shard_state, whole_payload
     from pcmseg_tpu_torch.train import steps
 
     from pcmseg_tpu_torch.models.unet3d import UNet3D
 
-    config = _config(for_port=True, compute_dtype="float32", param_dtype="bfloat16", batch_size=2, accum_steps=2)
+    config = _config(for_port=True, compute_dtype="float32", param_dtype="bfloat16", batch_size=2, accum_steps=accum)
 
     model = UNet3D.from_config(config, device="meta")
     model.load_state_dict({k: v.clone() for k, v in given["state_dict"].items()}, strict=True, assign=True)
@@ -778,44 +784,43 @@ def _worker(pid: int, nproc: int, port: int, inputs: str, out: str) -> int:
     multihost.initialize(f"localhost:{port}", num_processes=nproc, process_id=pid, backend="gloo")
     multihost.establish_collectives()
     given = torch.load(inputs, weights_only=True)
-    results = {name: _cluster_step(given, Mesh(*mesh), pid) for name, mesh in MESHES.items()}
+    results = {name: _cluster_step(given, Mesh(*mesh), pid, accum) for name, (mesh, accum) in MESHES[nproc].items()}
     torch.save(results, f"{out}.{pid}.pt")
     multihost.shutdown()
     return 0
 
 
-def test_bf16_params_on_dp_sp_tp_clusters_match_one_process(tmp_path):
-    """One bf16-param step (fp32 compute, batch 2 as 2 microbatches, 32³)
-    on gloo clusters of 2 processes, a data, a spatial and a model axis of
-    2, against the same step in one process: the loss within 1e-5 and the
-    clip norm in bf16 within one ulp, every parameter and Adam moment bf16
-    and within one bf16 ulp (each rank's bf16 gradients are summed over
-    the ranks in fp32 and rounded again, one process's accumulate its
-    microbatches in bf16: the roundings meet at other points), Adam's
-    moments beyond one ulp on at
-    most ``MOMENT_SHARE`` of the elements, the running statistics within
-    1e-5, and both ranks' states bitwise equal."""
+def _cluster_states(tmp_path, nproc: int):
+    """(the inputs, every rank's results of ``MESHES[nproc]``) of one gloo
+    cluster of ``nproc`` processes."""
     from pcmseg_tpu_torch.train.checkpoints import state_dict_from_jax_params
 
     variables, batch = _init("bfloat16")
-
     given = {"state_dict": state_dict_from_jax_params(variables["params"], variables["batch_stats"]),
              "batch": {k: torch.from_numpy(v) for k, v in batch.items()}}
     inputs, out = str(tmp_path / "inputs.pt"), str(tmp_path / "out")
     torch.save(given, inputs)
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), "2", str(port), inputs, out], cwd=REPO, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(nproc), str(port), inputs, out], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(nproc)]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
-    ranks = [torch.load(f"{out}.{r}.pt", weights_only=True) for r in range(2)]
-    ref_sd, ref_mom, ref_metrics = _cluster_step(given)
-    for name in MESHES:
-        (sd0, mom0, m0), (sd1, mom1, m1) = ranks[0][name], ranks[1][name]
-        for k in sd0:
-            assert torch.equal(sd0[k], sd1[k]), (name, k)
-        assert float(m0["loss"]) == float(m1["loss"]) and float(m0["grad_norm"]) == float(m1["grad_norm"])
+    return given, [torch.load(f"{out}.{r}.pt", weights_only=True) for r in range(nproc)]
+
+
+def _check_clusters(given, ranks, nproc: int) -> None:
+    refs = {}
+    for name, (_, accum) in MESHES[nproc].items():
+        if accum not in refs:
+            refs[accum] = _cluster_step(given, accum=accum)
+        ref_sd, ref_mom, ref_metrics = refs[accum]
+        sd0, mom0, m0 = ranks[0][name]
+        for sd, _, m in (r[name] for r in ranks[1:]):
+            for k in sd0:
+                assert torch.equal(sd0[k], sd[k]), (name, k)
+            assert float(m0["loss"]) == float(m["loss"]) and float(m0["grad_norm"]) == float(m["grad_norm"])
         np.testing.assert_allclose(float(m0["loss"]), float(ref_metrics["loss"]), rtol=1e-5, err_msg=name)
         assert m0["grad_norm"].dtype == torch.bfloat16
         assert int(ulps(m0["grad_norm"].reshape(1), ref_metrics["grad_norm"].reshape(1)).max()) <= 1, name
@@ -826,6 +831,33 @@ def test_bf16_params_on_dp_sp_tp_clusters_match_one_process(tmp_path):
                 assert sd0[k].dtype == torch.bfloat16 and int(ulps(sd0[k], v).max()) <= 1, (name, k)
         d = torch.cat([ulps(mom0[k], v).reshape(-1) for k, v in ref_mom.items() if not BN_PRECEDED_BIAS.search(k)])
         assert int((d > 1).sum()) <= MOMENT_SHARE[name] * d.numel(), (name, int((d > 1).sum()), d.numel())
+
+
+def test_bf16_params_on_dp_sp_tp_clusters_match_one_process(tmp_path):
+    """One bf16-param step (fp32 compute, batch 2, 32³) on gloo clusters of
+    2 processes, a data, a spatial and a model axis of 2 (2 microbatches),
+    and a data axis with 1 microbatch over both ranks, against the same step
+    in one process: the loss within 1e-5 and the clip norm in bf16 within
+    one ulp, every parameter and Adam moment bf16 and within one bf16 ulp
+    (on the data axis each rank's bf16 gradients of its own microbatch are
+    summed over the ranks in fp32 and rounded again, where one process
+    accumulates its microbatches in bf16: the roundings meet at other
+    points; where a microbatch spans ranks, slabs or rows, its fp32
+    gradients are summed over them before their one rounding, as one
+    process rounds them), Adam's moments beyond one ulp on at most
+    ``MOMENT_SHARE`` of the elements, the running statistics within 1e-5,
+    and both ranks' states bitwise equal."""
+    given, ranks = _cluster_states(tmp_path, 2)
+    _check_clusters(given, ranks, 2)
+
+
+def test_bf16_params_on_a_data_by_spatial_cluster_match_one_process(tmp_path):
+    """The same on a 2 × 2 data × spatial mesh of 4 processes, 2
+    microbatches (layout (b)): each microbatch's fp32 gradients are summed
+    over its two slabs and rounded, then the data ranks' bf16 sums are
+    summed in fp32 and rounded again; every rank's state bitwise equal."""
+    given, ranks = _cluster_states(tmp_path, 4)
+    _check_clusters(given, ranks, 4)
 
 
 # ---- the kernels' dtype dispatch and the dtypes refused by name -----------------------

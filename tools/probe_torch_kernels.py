@@ -3,16 +3,19 @@
     python tools/probe_torch_kernels.py [--ptxas] [--time] [--f32]
 
 Builds the kernels (with --ptxas, first prints each source's registers,
-spills and warnings from ``nvcc -Xptxas -v``), checks B1 and B2 against
+spills and warnings from ``nvcc -Xptxas -v``, and with --f32 the fp32
+kernels' dynamic shared memory a block), checks B1 and B2 against
 their plain versions at small and ragged shapes that cover every code path
 (the 8-channel input path, split K, partial tiles, Co below one N tile),
 and on a failure names the taps that are wrong alone. A watchdog ends the
 process if the card does not finish a kernel within 30 s, so that a hung
 kernel fails the run instead of holding the card. With --time, times
-forward and weight gradient at 7 of the model's shapes. With --f32, the
-fp32 kernels instead of the bf16 ones, each held against a float64 conv of
-the same fp32 inputs: its error at most twice cuDNN's fp32 error (TF32 off)
-plus 1e-6 of the largest output. The last line is ALL OK or SOME FAILED.
+forward and weight gradient at 7 of the model's shapes, each with its share
+of the card's bound for its operands (bf16: 989 TFLOP/s; fp32: 3xTF32,
+494.7 / 3 TFLOP/s), and prints the card's name and power limit. With --f32,
+the fp32 kernels instead of the bf16 ones, each held against a float64 conv
+of the same fp32 inputs: its error at most twice cuDNN's fp32 error (TF32
+off) plus 1e-6 of the largest output. The last line is ALL OK or SOME FAILED.
 """
 import os
 import subprocess
@@ -53,9 +56,16 @@ if "--ptxas" in sys.argv:
         r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull, str(src)],
                            capture_output=True, text=True)
         log(src.name, "rc", r.returncode)
-        log("\n".join(l for l in (r.stdout + r.stderr).splitlines() if "ptxas" in l or "error" in l or "warning" in l)[-5000:])
+        log("\n".join(l for l in (r.stdout + r.stderr).splitlines()
+                       if "ptxas" in l or "spill" in l or "error" in l or "warning" in l)[-5000:])
 t0 = time.time()
 log(build.build(), f"{time.time() - t0:.1f}s")
+if F32 and "--ptxas" in sys.argv:  # the fp32 kernels' dynamic shared memory (ptxas shows static only)
+    lib = build.load_library()
+    for ci, co in ((8, 64), (64, 64), (64, 128)):
+        log(f"B1 fp32 Ci={ci} Co={co}: {lib.pcmseg_conv3x3x3_f32_smem_bytes(ci, co)} bytes of shared memory a block")
+    for ci in (8, 64):
+        log(f"B2 fp32 Ci={ci}: {lib.pcmseg_conv3x3_dw_f32_smem_bytes(ci)} bytes of shared memory a block")
 
 
 def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
@@ -160,6 +170,10 @@ for args, label in B2:
     results.append(b2_check(*args, label=label))
 
 if "--time" in sys.argv:
+    peak = 494.7e12 / 3 if F32 else 989e12
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    log(f"card: {card}")
     for ci, co, s in ((5, 64, 128), (64, 64, 128), (128, 64, 128), (128, 128, 64), (256, 256, 32), (512, 512, 16),
                       (1024, 1024, 8)):
         x = torch.randn((1, s, s, s, ci), device=dev).to(DT)
@@ -169,7 +183,8 @@ if "--time" in sys.argv:
         flop = 2 * 27 * ci * co * s ** 3
         f = ms(lambda: conv3d.conv3x3x3(x, packed, None, True))
         d = ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
-        log(f"time {DT} {ci}->{co}@{s}: fwd {f:.4f} ms {flop / f / 1e9:.1f} TF/s; dW {d:.4f} ms "
-            f"{flop / d / 1e9:.1f} TF/s")
+        least = flop / peak * 1e3
+        log(f"time {DT} {ci}->{co}@{s}: fwd {f:.4f} ms {flop / f / 1e9:.1f} TF/s ({least / f:.3f} of the bound); "
+            f"dW {d:.4f} ms {flop / d / 1e9:.1f} TF/s ({least / d:.3f} of the bound)")
 log("ALL OK" if all(results) else "SOME FAILED")
 sys.exit(0 if all(results) else 1)
