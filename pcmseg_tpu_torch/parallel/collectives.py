@@ -193,6 +193,14 @@ def mesh_comms(mesh: Mesh) -> MeshComms:
     return MeshComms(world_comm(), *(ProcessComm(*groups[axis]) for axis in ("data", "spatial", "model", "replica")))
 
 
+def microbatch_comms(mesh: Mesh, q: int) -> Tuple[Comm, Comm]:
+    """Layout (c) with q data ranks a microbatch: (the ranks that hold the
+    parts of this rank's microbatches, those of them that hold its D-slab)
+    (``multihost.mesh_groups``' 'microbatch' and 'microbatch_rows')."""
+    groups = multihost.mesh_groups(mesh.data, mesh.spatial, mesh.model, microbatch=q)
+    return ProcessComm(*groups["microbatch"]), ProcessComm(*groups["microbatch_rows"])
+
+
 # ---- batch-wide sums -------------------------------------------------------------
 
 

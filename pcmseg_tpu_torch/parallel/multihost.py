@@ -230,7 +230,7 @@ def mesh_coordinates(rank: int, data: int, spatial: int, model: int = 1) -> tupl
 _groups: dict = {}
 
 
-def mesh_groups(data: int, spatial: int, model: int = 1) -> dict:
+def mesh_groups(data: int, spatial: int, model: int = 1, microbatch: int = 1) -> dict:
     """This rank's process groups on a data × spatial × model mesh over the
     whole job, each as ``(group, ranks)`` with the group as ``dist.new_group``
     made it (None: the whole job):
@@ -243,29 +243,58 @@ def mesh_groups(data: int, spatial: int, model: int = 1) -> dict:
         D-slab of the same rows;
       * 'replica': every rank that holds the same channels (the data ×
         spatial ranks of one model coordinate), over which the gradients
-        are summed.
+        are summed;
+      * with ``microbatch`` = q, 1 < q < ``data`` (layout (c),
+        ``sharding.microbatch_layout``), 'microbatch': the q data ranks of
+        this rank's group (data coordinate // q) times the spatial ranks,
+        with one model coordinate, the ranks that hold the parts of the
+        same microbatches; and 'microbatch_rows': those of them that hold
+        this rank's D-slab.
 
     Every rank makes every group, in one order (spatial groups by (d, m),
-    data groups by (s, m), model groups by (d, s), replica groups by m), as
-    ``new_group`` asks; made once per mesh shape and process group."""
+    data groups by (s, m), model groups by (d, s), replica groups by m,
+    microbatch groups by (group, m), their rows by (group, s, m)), as
+    ``new_group`` asks; made once per mesh shape and process group, the
+    microbatch groups once per q."""
     if data * spatial * model != process_count():
         raise ValueError(f"a {data}x{spatial}x{model} mesh over {process_count()} processes")
+    if microbatch > 1 and (data % microbatch or microbatch == data):
+        raise ValueError(f"microbatch groups of {microbatch} of {data} data ranks")
+
+    def rank(d, s, m):
+        return (d * spatial + s) * model + m
+
+    d, s, m = mesh_coordinates(process_index(), data, spatial, model)
     key = (data, spatial, model)
     if key not in _groups:
-        def rank(d, s, m):
-            return (d * spatial + s) * model + m
-
         every = {
             "spatial": [[rank(d, s, m) for s in range(spatial)] for d in range(data) for m in range(model)],
             "data": [[rank(d, s, m) for d in range(data)] for s in range(spatial) for m in range(model)],
             "model": [[rank(d, s, m) for m in range(model)] for d in range(data) for s in range(spatial)],
             "replica": [[rank(d, s, m) for d in range(data) for s in range(spatial)] for m in range(model)],
         }
-        d, s, m = mesh_coordinates(process_index(), data, spatial, model)
         pick = {"spatial": d * model + m, "data": s * model + m, "model": d * spatial + s, "replica": m}
-        mine = {}
-        for axis, lists in every.items():
-            made = [None if len(r) == process_count() else dist.new_group(r) for r in lists]
-            mine[axis] = (made[pick[axis]], lists[pick[axis]])
-        _groups[key] = mine
-    return _groups[key]
+        _groups[key] = _make_groups(every, pick)
+    if microbatch <= 1:
+        return _groups[key]
+    if key + (microbatch,) not in _groups:
+        q, groups = microbatch, data // microbatch
+        every = {
+            "microbatch": [[rank(j * q + i, s, m) for i in range(q) for s in range(spatial)]
+                           for j in range(groups) for m in range(model)],
+            "microbatch_rows": [[rank(j * q + i, s, m) for i in range(q)]
+                                for j in range(groups) for s in range(spatial) for m in range(model)],
+        }
+        j = d // q
+        pick = {"microbatch": j * model + m, "microbatch_rows": (j * spatial + s) * model + m}
+        _groups[key + (microbatch,)] = dict(_groups[key], **_make_groups(every, pick))
+    return _groups[key + (microbatch,)]
+
+
+def _make_groups(every: dict, pick: dict) -> dict:
+    """Every group of every axis made, in order; this rank's of each."""
+    mine = {}
+    for axis, lists in every.items():
+        made = [None if len(r) == process_count() else dist.new_group(r) for r in lists]
+        mine[axis] = (made[pick[axis]], lists[pick[axis]])
+    return mine

@@ -16,13 +16,21 @@ s)·model + m`` holds rows ``d``, slab ``s`` and shard ``m``.
 
 A padded global batch of B rows, run as A microbatches of m = B / A rows
 (JAX's ``lax.scan`` over ``reshape(A, m, ...)``), is spread over P data
-ranks in one of two layouts (:func:`microbatch_layout`):
+ranks in one of three layouts (:func:`microbatch_layout`):
 
   (a) P divides m: every rank holds m / P rows of every microbatch, and
       BatchNorm and the loss are synchronised inside each microbatch;
   (b) P divides A: every rank runs A / P whole microbatches, the
       contiguous block ``rank·A/P .. (rank+1)·A/P − 1``, with no collective
-      between data ranks inside a microbatch.
+      between data ranks inside a microbatch;
+  (c) neither: with g = gcd(P, A) and q = P / g, the ranks form g groups
+      of q (group j = rank // q); group j runs the A / g microbatches
+      ``j·A/g .. (j+1)·A/g − 1``, each of its ranks m / q rows of each, and
+      BatchNorm and the loss are synchronised over the group (the
+      microbatch group, ``multihost.mesh_groups``). The padded B is a
+      multiple of lcm(P, A) = P·A / g, so q divides m. (a) is the case
+      g = 1 and (b) the case q = 1; JAX's contiguous data sharding groups
+      the ranks so (at P = 4, A = 2 microbatch 0 is rows 0-1 on ranks 0-1).
 
 :func:`local_rows` gives a rank's rows in the order its step runs them, so
 a loader or a gather hands each rank exactly those rows. With A = 1 it is
@@ -109,10 +117,11 @@ def padded_batch_size(batch_size: int, data: int, processes: int, accum: int) ->
 
 
 def microbatch_layout(global_batch: int, accum: int, world: int) -> str:
-    """'a' or 'b' (module docstring) for a padded global batch of
+    """'a', 'b' or 'c' (module docstring) for a padded global batch of
     ``global_batch`` rows in ``accum`` microbatches over ``world`` ranks;
-    'a' when both fit. Anything else raises ``NotImplementedError`` naming
-    the numbers."""
+    'a' when both (a) and (b) fit. A batch that ``accum`` does not divide,
+    or whose microbatch the ranks of a group do not divide, raises
+    ``ValueError``."""
     accum = max(1, int(accum))
     if global_batch % accum:
         raise ValueError(f"batch size {global_batch} not divisible by accum_steps={accum}")
@@ -121,30 +130,47 @@ def microbatch_layout(global_batch: int, accum: int, world: int) -> str:
         return "a"
     if accum % world == 0:
         return "b"
-    raise NotImplementedError(
-        f"{world} data-parallel ranks divide neither the microbatch of {micro} samples nor "
-        f"accum_steps={accum} (a batch of {global_batch} in {accum} microbatches)"
-    )
+    q = world // math.gcd(world, accum)
+    if micro % q:
+        raise ValueError(
+            f"{world} data-parallel ranks in groups of {q} do not divide the microbatch of {micro} samples "
+            f"(a batch of {global_batch} in {accum} microbatches; pad it to a multiple of "
+            f"{world * accum // math.gcd(world, accum)})")
+    return "c"
+
+
+def group_size(accum: int, world: int) -> int:
+    """q: the data ranks that share each microbatch in layout (c), the
+    ``world`` ranks in layout (a), 1 in layout (b); ``world`` / gcd(world,
+    ``accum``) in every layout that fits."""
+    return world // math.gcd(world, max(1, int(accum)))
 
 
 def local_rows(global_batch: int, accum: int, world: int, rank: int) -> List[int]:
     """The rows of a padded global batch that ``rank`` trains, in the order
-    its step runs them: its microbatches one after another."""
+    its step runs them: its microbatches one after another, of each its
+    part (all of it in layout (b))."""
     if world == 1:
         return list(range(global_batch))
     accum = max(1, int(accum))
     micro = global_batch // accum
-    if microbatch_layout(global_batch, accum, world) == "a":
-        part = micro // world
-        return [j * micro + rank * part + k for j in range(accum) for k in range(part)]
-    share = global_batch // world
-    return list(range(rank * share, (rank + 1) * share))
+    layout = microbatch_layout(global_batch, accum, world)
+    q = world if layout == "a" else group_size(accum, world)
+    part, pos = micro // q, rank % q
+    return [j * micro + pos * part + k for j in owned_microbatches(accum, world, rank, layout)
+            for k in range(part)]
 
 
-def owned_microbatches(accum: int, world: int, rank: int) -> range:
-    """Layout (b): the global microbatch indices ``rank`` runs."""
-    per = max(1, int(accum)) // world
-    return range(rank * per, (rank + 1) * per)
+def owned_microbatches(accum: int, world: int, rank: int, layout: str = "b") -> range:
+    """The global microbatch indices ``rank`` runs (a part of each in
+    layouts (a) and (c)): every one in (a); in (b) and (c) the contiguous
+    block of its group, group ``rank // q`` of gcd(world, ``accum``)."""
+    accum = max(1, int(accum))
+    if layout == "a":
+        return range(accum)
+    groups = math.gcd(world, accum)
+    per, group = accum // groups, rank // (world // groups)
+    return range(group * per, (group + 1) * per)
 
 
 def batch_sharding(mesh: Mesh, global_batch: int, accum: int = 1, rank: Optional[int] = None) -> List[int]:

@@ -53,15 +53,20 @@ BatchNorm forward's statistics instead of moving the running statistics,
 and after the last microbatch every rank replays the running-statistics
 chain of all microbatches in their global order (JAX's ``lax.scan``
 carry, ``steps.py:264-275``), from the per-microbatch statistics
-exchanged over the data ranks. Then one all-reduce over every rank sums
+exchanged over the data ranks; (c) when P divides neither, the data ranks
+form groups of q = P / gcd(P, A), each group runs its own block of
+microbatches as (a) runs all of them, synchronised over the group (the
+microbatch group: its data ranks times the spatial ranks), and the
+running statistics are replayed as in (b). Then one all-reduce over every rank sums
 the gradients (``collectives.GradientAllReduce``: other rows' and other
 slabs' partial sums alike), divided by ``accum_steps``; the norm, clip,
 Adam and EMA follow on identical values on every rank. With 16-bit
 parameters, where a microbatch spans ranks (its D-slabs, or in layout (a)
 its rows), its gradients stay fp32 until one all-reduce a microbatch has
 summed them over those ranks, and only then round to the parameters' dtype
-and add up in it, in JAX's order (``_fp32_backward``); in layout (b) the
-data ranks' sums are then summed as above. The loss is the
+and add up in it, in JAX's order (``_fp32_backward``); in layouts (b) and
+(c) the groups' sums (one rank's of each group) are then summed over the
+data ranks. The loss is the
 mean of the global microbatch losses, summed in microbatch order.
 
 On a spatial mesh the forward and the loss run under a
@@ -388,17 +393,19 @@ def slab_targets(out: torch.Tensor, labels: torch.Tensor, plan: SpatialPlan, lev
 
 
 def _replay_running_stats(norms: List[BatchNorm], logs: List[list], parts: List[torch.Tensor],
-                          accum: int, owned: range, comm) -> torch.Tensor:
-    """Layout (b): every data rank's per-microbatch BatchNorm statistics and
-    losses, exchanged exactly over ``comm`` (the data ranks), then the
-    running statistics moved through all ``accum`` microbatches in their
-    global order, as one process moves them. Returns the (accum,)
-    microbatch losses in that order."""
+                          accum: int, owned: range, comm, write: bool = True) -> torch.Tensor:
+    """Layouts (b) and (c): every group's per-microbatch BatchNorm
+    statistics and losses, written by one rank of the group (``write``)
+    and exchanged exactly over ``comm`` (the data ranks), then the running
+    statistics moved through all ``accum`` microbatches in their global
+    order, as one process moves them. Returns the (accum,) microbatch
+    losses in that order."""
     local = torch.stack([
         torch.cat([parts[i].reshape(1)] + [torch.cat(log[i]) for log in logs]) for i in range(len(owned))
     ])
     table = torch.zeros((accum, local.shape[1]), dtype=local.dtype, device=local.device)
-    table[owned.start: owned.stop] = local
+    if write:
+        table[owned.start: owned.stop] = local
     collectives.exchange(table, comm)
     for j in range(accum):
         offset = 1
@@ -461,6 +468,8 @@ class _MeshStep:
             if active else 0
         )
         self._levels: Dict[int, sharding.LevelPlan] = {}
+        self.group_size = 1  # q of layout (c), set by the train step
+        self._micro = None
 
     def slab_plan(self, batch: dict):
         """(the batch as this rank holds it, its ``SpatialPlan`` or None): on
@@ -483,18 +492,31 @@ class _MeshStep:
         where this rank holds its microbatches whole."""
         if self.comms is None:
             return None
-        comm = self.comms.replica if layout == "a" else self.comms.spatial
+        comm = {"a": self.comms.replica, "b": self.comms.spatial}.get(layout) or self._microbatch()[0]
         return comm if comm.size > 1 else None
+
+    def _microbatch(self):
+        """Layout (c): this rank's microbatch group and its rows
+        (``collectives.microbatch_comms``), made at first use, when every
+        rank's step reaches it."""
+        if self._micro is None:
+            self._micro = collectives.microbatch_comms(self.mesh, self.group_size)
+        return self._micro
 
     def synchronized(self, layout: str = "a"):
         """The ``synchronized_batch`` of a microbatch in ``layout``: (a) the
         voxels over every rank that holds the same channels (every rank
         without a model axis) and the samples over the data ranks; (b) the
-        voxels over the other D-slabs only (none without them)."""
+        voxels over the other D-slabs only (none without them); (c) the
+        voxels over the microbatch group and the samples over its data
+        ranks."""
         if self.comms is None:
             return collectives.synchronized_batch(False)
         if layout == "a":
             return collectives.synchronized_batch(batch=self.comms.replica, rows=self.comms.data)
+        if layout == "c":
+            batch, rows = self._microbatch()
+            return collectives.synchronized_batch(batch=batch, rows=rows)
         return collectives.synchronized_batch(self.mesh.spatial > 1, batch=self.comms.spatial)
 
 
@@ -546,8 +568,12 @@ def make_train_step(
         layout (a) with one rank). Returns the mean of the global
         microbatch losses."""
         layout = sharding.microbatch_layout(images.shape[0] * dp, accum, dp)
-        n_micro = accum if layout == "a" else accum // dp
-        micro = images.shape[0] // n_micro
+        owned = sharding.owned_microbatches(accum, dp, on.data_index, layout)
+        micro = images.shape[0] // len(owned)
+        # layout (c): the q data ranks of a microbatch group; the first of
+        # them writes the group's statistics and fp32-summed gradients once
+        on.group_size = sharding.group_size(accum, dp) if layout == "c" else 1
+        first = on.data_index % on.group_size == 0
         # 16-bit parameters whose microbatches span ranks: each microbatch's
         # fp32 gradients summed over them before the rounding (_fp32_backward)
         spans = on.microbatch_comm(layout) if low_precision else None
@@ -555,13 +581,13 @@ def make_train_step(
             # as JAX's scan over microbatches (steps.py:259-263)
             weight = torch.ones(images.shape[0], device=images.device)
         parts = []
-        if layout == "b":
+        if layout != "a":
             for m in norms:
                 m.stat_log = []
         try:
             with on.synchronized(layout), collectives.spatial(plan):
                 scale = collectives.backward_scale()
-                for i in range(n_micro):
+                for i in range(len(owned)):
                     sl = slice(i * micro, (i + 1) * micro)
                     w = None if weight is None else weight[sl]
 
@@ -578,12 +604,14 @@ def make_train_step(
                 m.stat_log = None
         if spans is None:
             sync_grads()
-        elif layout == "b" and dp > 1:  # each data rank's sums of its own microbatches
+        elif layout != "a" and dp > 1:  # each group's sums of its own microbatches
+            if not first:
+                for p in params:
+                    p.grad.zero_()
             sync_grads(comm=on.comms.data)
-        if layout == "b":
-            owned = sharding.owned_microbatches(accum, dp, on.data_index)
+        if layout != "a":
             data_comm = on.comms.data if on.comms is not None else None
-            parts = list(_replay_running_stats(norms, logs, parts, accum, owned, data_comm))
+            parts = list(_replay_running_stats(norms, logs, parts, accum, owned, data_comm, first))
         loss = torch.zeros((), device=images.device)
         for part in parts:
             loss = loss + part

@@ -107,7 +107,6 @@ from pcmseg_tpu_torch.parallel.sharding import (
     cut_d_slab,
     local_payload,
     make_mesh,
-    microbatch_layout,
     padded_batch_size,
     shard_state,
     whole_payload,
@@ -211,7 +210,6 @@ class Trainer:
         # of one data coordinate load the same ones) and the accumulation steps
         accum = max(1, int(config.accum_steps))
         self._pad_to = padded_batch_size(config.batch_size, self.mesh.data, self.mesh.data, accum)
-        microbatch_layout(self._pad_to, accum, self.mesh.data)  # raises on a layout the step cannot run
         # in a process group (of one rank too) the loaders and the cache
         # shard by this process's data coordinate
         data_index = multihost.mesh_coordinates(self.process_index, *self.mesh.shape.values())[0]

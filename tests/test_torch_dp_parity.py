@@ -1,26 +1,32 @@
-"""The port's data-parallel train step on 2 gloo processes against the JAX
-package's train step on a 2-device 'data' mesh (``make_mesh(2, 1, 1)`` over
-the conftest's virtual CPU devices), float32, one step from the same
-JAX-initialised weights on the same seeded numpy batch.
+"""The port's data-parallel train step on 2 (and 4) gloo processes against
+the JAX package's train step on a 2-device (4-device) 'data' mesh
+(``make_mesh(2, 1, 1)`` over the conftest's virtual CPU devices), float32,
+one step from the same JAX-initialised weights on the same seeded numpy
+batch.
 
 The port's workers are this file itself, started by ``subprocess``
-(``python tests/test_torch_dp_parity.py PID PORT INPUTS OUT``, one cluster
-for every variant, with a timeout); each rank takes its rows of the global
-batch (``sharding.shard_batch``) and runs ``make_train_step``.
+(``python tests/test_torch_dp_parity.py PID NPROC PORT INPUTS OUT``, one
+cluster for the variants of each size, with a timeout); each rank takes
+its rows of the global batch (``sharding.shard_batch``) and runs
+``make_train_step``.
 
 Variants: layout (a) with batch 4, accum 1 (2 rows a rank), the same with a
 padded ragged batch (weights 1, 1, 1, 0: rank 1 holds the padded row);
 layout (b) with batch 4, accum 4 (each rank 2 whole microbatches of one
 sample, the BatchNorm running statistics replayed over all 4 in order: a
 chain that a rank's own two microbatches, or the wrong order, would leave
-elsewhere); and a K = 3 model in layout (a) with 2 microbatches (a rank's
-rows interleaved).
+elsewhere); a K = 3 model in layout (a) with 2 microbatches (a rank's
+rows interleaved); and layout (c) on 4 processes with batch 4, accum 2
+(4 ranks divide neither the microbatch of 2 nor the 2 microbatches: two
+groups of 2 ranks, each group one microbatch, a row a rank, BatchNorm and
+the loss summed over the group, the running statistics replayed over both
+microbatches in order), against JAX on ``make_mesh(4, 1, 1)``.
 
 Tolerances, as ``tests/test_torch_train_step.py`` sets them and for the same
 reasons (32³, Adam eps 1e-2, lr 1e-3): the loss to rtol 1e-5, the pre-clip
 grad norm to rtol 2e-4, every parameter and BN running statistic to atol
 2e-5, the biases of the BN-preceded 3³ convs (true gradient 0) to 2·lr.
-Both ranks hold bitwise-equal states and metrics.
+Every rank holds bitwise-equal states and metrics.
 """
 
 import os
@@ -42,16 +48,21 @@ VARIANTS = {
     "a_padded": dict(batch_size=4, weight=(1.0, 1.0, 1.0, 0.0)),
     "b_accum4": dict(batch_size=4, accum_steps=4),
     "k3_a_accum2": dict(batch_size=4, accum_steps=2, n_classes=3, loss="bce_dice"),
+    "c_accum2": dict(batch_size=4, accum_steps=2, ranks=4),
 }
 
 
+def _ranks(variant) -> int:
+    return VARIANTS[variant].get("ranks", 2)
+
+
 def _kwargs(variant):
-    kw = {k: v for k, v in VARIANTS[variant].items() if k != "weight"}
+    kw = {k: v for k, v in VARIANTS[variant].items() if k not in ("weight", "ranks")}
     return dict(base_features=4, remat=False, compute_dtype="float32", target_size=(SIZE,) * 3,
                 learning_rate=LR, eps=1e-2, weight_decay=1e-2, **kw)
 
 
-def _worker(pid: int, port: int, inputs: str, out: str) -> int:
+def _worker(pid: int, nproc: int, port: int, inputs: str, out: str) -> int:
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -61,15 +72,17 @@ def _worker(pid: int, port: int, inputs: str, out: str) -> int:
     from pcmseg_tpu_torch.train import steps
 
     torch.set_num_threads(2)
-    multihost.initialize(f"localhost:{port}", num_processes=2, process_id=pid, backend="gloo")
+    multihost.initialize(f"localhost:{port}", num_processes=nproc, process_id=pid, backend="gloo")
     multihost.establish_collectives()
     results = {}
     for variant, given in torch.load(inputs, weights_only=True).items():
+        if _ranks(variant) != nproc:
+            continue
         config = get_config(**_kwargs(variant))
         model = UNet3D.from_config(config, device="meta")
         model.load_state_dict(given["state_dict"], strict=True, assign=True)
         state = steps.create_train_state(model, config)
-        local = shard_batch(given["batch"], Mesh(2), rank=pid, accum=config.accum_steps)
+        local = shard_batch(given["batch"], Mesh(nproc), rank=pid, accum=config.accum_steps)
         metrics = steps.make_train_step(model, config)(state, local)
         results[variant] = {"state_dict": model.state_dict(), **{k: v.detach() for k, v in metrics.items()}}
     torch.save(results, f"{out}.{pid}.pt")
@@ -115,7 +128,7 @@ def _batch(n_classes, rng, weight):
 
 
 def _jax_step(variant, variables, batch):
-    """(state dict after one step, metrics) of JAX's step on a 2-device mesh."""
+    """(state dict after one step, metrics) of JAX's step on the variant's 'data' mesh."""
     import jax
     import jax.numpy as jnp
 
@@ -132,7 +145,7 @@ def _jax_step(variant, variables, batch):
         batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]), ema_params={},
         tx=jax_steps.make_optimizer(config),
     )
-    mesh = make_mesh(2, 1, 1, devices=jax.devices()[:2])
+    mesh = make_mesh(_ranks(variant), 1, 1, devices=jax.devices()[: _ranks(variant)])
     state = shard_state(state, mesh)
     state, metrics = jax.jit(jax_steps.make_train_step(model, config))(state, shard_batch(batch, mesh))
     got = jax.device_get((state.params, state.batch_stats))
@@ -147,7 +160,8 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def stepped(tmp_path_factory):
-    """Per variant: (JAX's state dict and metrics, rank 0's and rank 1's results)."""
+    """Per variant: (JAX's state dict and metrics, every rank's results, the
+    initial state dict, the batch)."""
     import torch
 
     from pcmseg_tpu_torch.train.checkpoints import state_dict_from_jax_params
@@ -164,14 +178,18 @@ def stepped(tmp_path_factory):
             "batch": {key: torch.from_numpy(v) for key, v in batches[variant].items()},
         }
     torch.save(inputs, str(tmp / "inputs.pt"))
-    port, out = _free_port(), str(tmp / "out")
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(pid), str(port),
-                               str(tmp / "inputs.pt"), out],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for pid in range(2)]
+    sizes = sorted({_ranks(v) for v in VARIANTS})
+    out = {n: str(tmp / f"out{n}") for n in sizes}
+    procs = []
+    for n in sizes:  # one cluster of each size, all at once
+        port = _free_port()
+        procs += [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(pid), str(n), str(port),
+                                    str(tmp / "inputs.pt"), out[n]],
+                                   cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                  for pid in range(n)]
     try:
-        # JAX's steps compile and run while the port's cluster works
+        # JAX's steps compile and run while the port's clusters work
         want = {v: _jax_step(v, inits[VARIANTS[v].get("n_classes", 1)], batches[v]) for v in VARIANTS}
         outs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
@@ -181,25 +199,26 @@ def stepped(tmp_path_factory):
                 p.communicate()
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o[-4000:]
-    ranks = [torch.load(f"{out}.{pid}.pt", weights_only=True) for pid in range(2)]
-    return {v: (want[v], ranks[0][v], ranks[1][v], inputs[v]["state_dict"], batches[v]) for v in VARIANTS}
+    ranks = {n: [torch.load(f"{out[n]}.{pid}.pt", weights_only=True) for pid in range(n)] for n in sizes}
+    return {v: (want[v], [r[v] for r in ranks[_ranks(v)]], inputs[v]["state_dict"], batches[v]) for v in VARIANTS}
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_ranks_hold_bitwise_equal_states(stepped, variant):
     import torch
 
-    _, r0, r1, _, _ = stepped[variant]
-    assert sorted(r0) == sorted(r1)
-    for key in ("loss", "grad_norm"):
-        assert torch.equal(r0[key], r1[key]), key
-    for k in r0["state_dict"]:
-        assert torch.equal(r0["state_dict"][k], r1["state_dict"][k]), k
+    _, (r0, *others), _, _ = stepped[variant]
+    for r1 in others:
+        assert sorted(r0) == sorted(r1)
+        for key in ("loss", "grad_norm"):
+            assert torch.equal(r0[key], r1[key]), key
+        for k in r0["state_dict"]:
+            assert torch.equal(r0["state_dict"][k], r1["state_dict"][k]), k
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_loss_and_grad_norm_match_jax(stepped, variant):
-    (_, metrics), r0, _, _, _ = stepped[variant]
+    (_, metrics), (r0, *_), _, _ = stepped[variant]
     np.testing.assert_allclose(float(r0["loss"]), metrics["loss"], rtol=1e-5)
     np.testing.assert_allclose(float(r0["grad_norm"]), metrics["grad_norm"], rtol=2e-4)
 
@@ -210,7 +229,7 @@ def test_params_and_running_stats_match_jax(stepped, variant):
     running statistics included; every conv kernel and running statistic
     moved by at least 5x the atol in the step, so a leaf left at its start
     shows (a bias whose gradient is small may move less in one step)."""
-    (want, _), r0, _, init, _ = stepped[variant]
+    (want, _), (r0, *_), init, _ = stepped[variant]
     got = dict(r0["state_dict"])
     accum = VARIANTS[variant].get("accum_steps", 1)
     for k in [k for k in got if k.endswith("num_batches_tracked")]:
@@ -238,7 +257,7 @@ def test_layout_b_running_stats_are_the_global_chain(stepped):
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
 
-    (want, _), r0, _, init, batch = stepped["b_accum4"]
+    (want, _), (r0, *_), init, batch = stepped["b_accum4"]
     key = "inc.conv.1.running_mean"
     model = UNet3D.from_config(get_config(**_kwargs("b_accum4")), device="meta")
     model.load_state_dict(init, strict=True, assign=True)
@@ -260,4 +279,4 @@ def test_layout_b_running_stats_are_the_global_chain(stepped):
 
 
 if __name__ == "__main__":
-    sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    sys.exit(_worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))

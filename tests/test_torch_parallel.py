@@ -160,9 +160,17 @@ def test_local_rows_partition_each_microbatch():
     for b, a, w in ((12, 3, 2), (12, 4, 4), (16, 4, 2), (8, 8, 4)):
         rows = sorted(sum((local_rows(b, a, w, r) for r in range(w)), []))
         assert rows == list(range(b))
-    # 4 ranks, accum 6: the padded batch of 12 has microbatches of 2
-    with pytest.raises(NotImplementedError, match="4 data-parallel ranks .* 2 samples nor accum_steps=6"):
-        microbatch_layout(12, 6, 4)
+    # (c) 4 ranks, accum 6: the padded batch of 12 has microbatches of 2;
+    # gcd(4, 6) = 2 groups of q = 2 ranks, group j runs microbatches
+    # 3j .. 3j + 2, each of its ranks one row of each
+    assert microbatch_layout(12, 6, 4) == "c"
+    rows = [local_rows(12, 6, 4, r) for r in range(4)]
+    assert rows == [[0, 2, 4], [1, 3, 5], [6, 8, 10], [7, 9, 11]]
+    for r in range(4):
+        owned = list(owned_microbatches(6, 4, r, "c"))
+        assert owned == [3 * (r // 2) + i for i in range(3)]
+        group = rows[r - r % 2] + rows[r - r % 2 + 1]
+        assert sorted(group) == [2 * j + k for j in owned for k in range(2)]  # every row of each, once
 
 
 def test_shard_batch_slices_arrays_tensors_and_lists():
