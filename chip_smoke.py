@@ -38,6 +38,14 @@ kernel on them:
      kernels' own route; the FFMA bound at 66.9 beside it); then, error
      only, the FP32_CONTRACT shapes (an output-channel shard, a D-slab with
      its halo, N = 2) for all three;
+ 5c. fp16_kernels: the fp16 operand paths of B1 and B2 (the same sources
+     as bf16's, entry points ``pcmseg_conv3x3x3_f16`` and
+     ``pcmseg_conv3x3_dw_f16``): phases 3-5 on fp16 operands, each bound
+     scaled by F16_REL (fp16's unit roundoff over bf16's), timed beside the
+     plain version (fp32 from the fp16 inputs) and cuDNN's fp16 conv /
+     dgrad / wgrad alone; the F16_CONTRACT shapes (a 64->32 shard, a
+     66x128^2 slab) error only; fp16's edges: subnormal outputs kept, ±inf
+     past 65504, B2 on a subnormal dy;
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
@@ -178,6 +186,18 @@ kernel on them:
      PLAIN_MAX_DP / PLAIN_MEAN_DP of the file served with fp32 params.
      ``python3 chip_smoke.py --only fp32`` runs the kernel checks and
      these two phases alone;
+ 16d. fp16_train: ``compute_dtype='float16'``, fp32 params: 3 flagship
+     steps from the seed, each exactly 4 x (18 + 17) fp16 B1 and 4 x 18
+     fp16 B2 launches and no bf16 or fp32 one; step 1's loss and every
+     gradient tensor no further from the float64 step than
+     FP16_STEP_MARGIN x the plain-conv fp16 step's + FP16_STEP_SLACK; the
+     share of the head's fp16 output gradient that is zero or subnormal
+     (no loss scaling, as in JAX); warm step ms, vol/s, peak memory,
+     device time by kernel; one epoch of an fp16 ``Trainer`` (no
+     checkpoints) with exact launches; one 128^3 case served by an fp16
+     ``Predictor`` (18 fp16 B1), as close to fp32 as check_probs holds
+     bf16, the slack scaled by F16_REL. ``python3 chip_smoke.py --only
+     fp16`` runs the kernel checks and this phase alone;
  17. dp: data parallelism across processes on the one card. (a) two ranks
      (``chip_smoke.py --dp-rank R 2 PORT WORK gloo``) in a gloo group on CUDA
      tensors (NCCL refuses two ranks on one device), 3 flagship steps from
@@ -195,7 +215,11 @@ kernel on them:
      from the device cache sharded over the one rank, with asynchronous
      checkpoints, every collective through NCCL; exact launch counts,
      latest and best.pth, the history bitwise equal to the same run without
-     a group. ``python3 chip_smoke.py --only dp`` runs the kernel
+     a group. (c) layout (c): DP_C_RANKS gloo ranks (``--dp-c-rank``),
+     batch 4 in 2 microbatches, which 4 ranks divide neither way: two
+     groups of 2 ranks, one microbatch each; one step, every rank's state
+     bitwise equal, 35 B1 / 18 B2 a rank, the loss within DP_LOSS_RTOL of
+     one process's. ``python3 chip_smoke.py --only dp`` runs the kernel
      checks and this phase alone.
  18. sp: spatial parallelism, the volume's D axis split over SP_RANKS
      D-slabs, on the one card. B1 (forward and dx) and B2 at the shapes of
@@ -231,8 +255,8 @@ kernel on them:
      losses and gradients, 140 B1 / 72 B2 a rank-step (each conv once a
      microbatch on its shard); each rank's step time, peak memory, and the
      time and bytes of the channel gathers and of their backward's
-     gradient sums; (c) a 2-rank tp Trainer (``--tp-trainer``) for 2
-     epochs with validation from the device cache on the 12 cases:
+     gradient sums; (c) a 2-rank tp Trainer (``--tp-trainer``) for 1
+     epoch with validation from the device cache on the 12 cases:
      histories bitwise equal, the primary's one checkpoint set in the whole
      reference layout, exact launches. ``python3 chip_smoke.py --only tp``
      runs the kernel checks and this phase alone.
@@ -244,13 +268,16 @@ kernel the 128³-microbatch sums of the kernel, its plain version, cuDNN's
 call (``library_ms``) and the bound; B1's ``dx_*`` keys are its dx use;
 ``launches_by_path`` counts each path's run, ``cache_a``, ``cache_b``,
 ``cache_c``, ``ds``, ``kclass``, ``profiling``, ``async_ckpt``, ``ingest``,
-``dp_a`` (both ranks), ``dp_b``, ``sp_serve``, ``sp_train``, ``sp_trainer``,
+``dp_a`` (both ranks), ``dp_b``, ``dp_c`` (all ranks), ``sp_serve``, ``sp_train``, ``sp_trainer``,
 ``tp_train`` and ``tp_trainer`` (both ranks each), ``param_dtype_*`` those
 of the phases of those names; ``slab_*`` the times at one D-slab's shapes,
 ``tp_*`` at one output-channel shard's; the fp32 kernels' entries, with
 ``launches`` of the fp32 step's first step and ``fp32_*`` paths, hold
 their errors from float64, the bound at 3xTF32's rate and, as
-``ffma_bound_ms``, at FFMA's),
+``ffma_bound_ms``, at FFMA's; the fp16 entries, ``conv3x3x3_f16`` and
+``conv3x3_dw_f16``, the same sources' fp16 entry points, with ``launches``
+of the fp16 step's first step and ``fp16_*`` paths, errors from fp32 of
+the same fp16 inputs and cuDNN's fp16 calls as ``library_ms``),
 the nvidia-smi line, and the device JSON.
 """
 
@@ -313,6 +340,16 @@ FP32_SLACK = 1e-6
 FP32_CONTRACT = (("64->32 @128^3, one of 2 output-channel shards", 1, 128, 128, 64, 32, False),
                  ("64->64 @66x128^2, one of 2 D-slabs with its halo", 1, 66, 128, 64, 64, True),
                  ("128->128 @64^3, N=2", 2, 64, 64, 128, 128, False))
+# fp16 operands (compute_dtype='float16'): each bf16 kernel bound scaled by
+# fp16's unit roundoff over bf16's, 2^-11 / 2^-8 = 1/8: B1 within 1e-3·|ref|
+# + 1.25e-4·max|ref| of fp32 of the same fp16 inputs (bf16: 8e-3, 1e-3),
+# B2 within 2.5e-4·max|ref| (bf16: DW_BOUND 2e-3)
+F16_REL = 2.0**-11 / 2.0**-8
+# the fp16 kernels' contract beyond the model's shapes (N = 4, the serving
+# tile batch, is in the forward check), error only: (label, D, size, Ci, Co,
+# a D-slab with its halo)
+F16_CONTRACT = (("64->32 @128^3, one of 2 output-channel shards", 128, 128, 64, 32, False),
+                ("64->64 @66x128^2, one of 2 D-slabs with its halo", 66, 128, 64, 64, True))
 # the sp phase's spatial group: every rank holds one D-slab of its rows
 SP_RANKS = 2
 SLAB_NOTE = {False: "", True: f", one of {SP_RANKS} D-slabs with its halo"}
@@ -392,35 +429,49 @@ def slab_depth(size: int, slab: bool) -> int:
     return size // SP_RANKS + 2 if slab else size
 
 
-def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1) -> dict:
+def operand_dtype(dtype) -> tuple:
+    """(the operands' dtype, the bound's scale, the log tag) of a kernel
+    check: bf16 by default; fp16 with its bound scaled by F16_REL."""
+    import torch
+
+    if dtype in (None, torch.bfloat16):
+        return torch.bfloat16, 1.0, ""
+    if dtype != torch.float16:
+        raise ValueError(f"the 16-bit kernel checks take bf16 or fp16, got {dtype}")
+    return dtype, F16_REL, "fp16 "
+
+
+def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1, dtype=None) -> dict:
     """Kernel vs plain version at each shape and each batch size in
     ``batches``, timed at the first; returns the JSON record's numbers.
     With ``slab``, at a D-slab's shape (``slab_depth``); with ``tp`` > 1, at
-    one output-channel shard's (Co / tp)."""
+    one output-channel shard's (Co / tp). Operands bf16, or ``dtype``
+    (fp16: the bound scaled by F16_REL, logged with an "fp16 " tag)."""
     import torch
     import torch.nn.functional as F
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
+    dtype, rel, tag = operand_dtype(dtype)
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(0)
     for ci, co, s, layers in CONV_SHAPES:
         d, co = slab_depth(s, slab), co // tp
         w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
         b = torch.randn((co,), generator=g, device=device) * 0.1
-        packed = conv3d.pack_weight(w, torch.bfloat16)
+        packed = conv3d.pack_weight(w, dtype)
         shape_err = 0.0
         for n in reversed(batches):  # the last x made is the timed one
-            x = torch.randn((n, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+            x = torch.randn((n, d, s, s, ci), generator=g, device=device).to(dtype)
             for relu in (True, False):
                 got = conv3d.conv3x3x3(x, packed, b, relu)
                 torch.cuda.synchronize()
                 ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), b, relu)
                 err = (got.float() - ref).abs()
-                bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+                bound = rel * (8e-3 * ref.abs() + 1e-3 * ref.abs().max())
                 if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
                     raise AssertionError(
-                        f"conv {ci}->{co} @{d}x{s}^2 N={n} relu={relu}: kernel disagrees with the "
+                        f"{tag}conv {ci}->{co} @{d}x{s}^2 N={n} relu={relu}: kernel disagrees with the "
                         f"plain version (max err {err.max().item():.4g}, worst err/bound "
                         f"{(err / bound).max().item():.3g})"
                     )
@@ -433,13 +484,13 @@ def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1) -
         xc = x.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: F.conv3d(xc, w5, padding=1))
         bound, flop, ops = conv_bound(ci, co, s, batches[0], depth=d)
-        log(f"conv {ci}->{co} @{d}x{s}^2 x{layers}: ok at N={'/'.join(map(str, batches))}, "
+        log(f"{tag}conv {ci}->{co} @{d}x{s}^2 x{layers}: ok at N={'/'.join(map(str, batches))}, "
             f"max_abs_err {shape_err:.4g}; N={batches[0]}: {shape_line(k_ms, bound, flop)}, "
             f"plain {p_ms:.4f} ms, cudnn conv alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, w, b, packed
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"forward, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
+    log(f"{tag}forward, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn conv alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
@@ -753,23 +804,25 @@ TIME_STEPS = 5
 GRAD_SLACK = 1e-3
 
 
-def check_dw_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict:
+def check_dw_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=None) -> dict:
     """B2 against its plain version at the 14 shapes (N=1, bf16 inputs, fp32
     reference with TF32 off), two launches bitwise equal; median times of
     the kernel, the plain version and cuDNN's weight gradient alone. With
     ``slab``, at a D-slab's shape with its halo, dy zero on the halo slices
     as the sharded conv's backward gives it. With ``tp`` > 1, at one
-    output-channel shard's shape: the whole Ci, Co / tp."""
+    output-channel shard's shape: the whole Ci, Co / tp. Operands bf16, or
+    ``dtype`` (as in check_kernels)."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
 
+    dtype, rel, tag = operand_dtype(dtype)
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(1)
     for ci, co, s, layers in CONV_SHAPES:
         d, co = slab_depth(s, slab), co // tp
-        x = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
-        dy = torch.randn((1, d, s, s, co), generator=g, device=device).to(torch.bfloat16)
+        x = torch.randn((1, d, s, s, ci), generator=g, device=device).to(dtype)
+        dy = torch.randn((1, d, s, s, co), generator=g, device=device).to(dtype)
         if slab:
             dy[:, 0] = dy[:, -1] = 0
         got = conv3d_grad.conv3x3_dw(x, dy)
@@ -777,12 +830,12 @@ def check_dw_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict
         torch.cuda.synchronize()
         ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
         err = (got - ref).abs().max().item()
-        bound = DW_BOUND * ref.abs().max().item()
+        bound = rel * DW_BOUND * ref.abs().max().item()
         if not bool(torch.isfinite(got).all()) or err > bound:
-            raise AssertionError(f"dW {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
+            raise AssertionError(f"{tag}dW {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
                                  f"(max err {err:.4g}, bound {bound:.4g})")
         if not torch.equal(got, again):
-            raise AssertionError(f"dW {ci}->{co} @{d}x{s}^2: two launches differ")
+            raise AssertionError(f"{tag}dW {ci}->{co} @{d}x{s}^2: two launches differ")
         max_err = max(max_err, err)
         del got, again, ref
         k_ms = median_ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
@@ -790,45 +843,47 @@ def check_dw_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict
         xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), dyc, padding=1))
         least, flop, ops = conv_bound(ci, co, s, dw=True, depth=d)
-        log(f"dW {ci}->{co} @{d}x{s}^2 x{layers}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise "
+        log(f"{tag}dW {ci}->{co} @{d}x{s}^2 x{layers}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise "
             f"repeat; {shape_line(k_ms, least, flop)}, plain {p_ms:.4f} ms, cudnn wgrad alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, least, least if ops else 0.0))
         del x, dy
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dW, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
+    log(f"{tag}dW, 18 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn wgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
 
 
-def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict:
+def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=None) -> dict:
     """B1 as dx (relu off, no bias) at the 17 transposed shapes, N=1, against
     its plain version, with B1's bound; median times of the kernel, the
     plain version and cuDNN's data gradient alone. With ``slab``, at a
     D-slab's shape with its halo, dy zero on the halo slices. With ``tp`` >
     1, on one output-channel shard of dy (its Ci is the layer's Co / tp,
     zero-padded to what the kernel reads: 32 to 64 at level 1 for tp 2);
-    the bound counts the real channels."""
+    the bound counts the real channels. Operands bf16, or ``dtype`` (as in
+    check_kernels)."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d
 
+    dtype, rel, tag = operand_dtype(dtype)
     max_err, rows = 0.0, []
     g = torch.Generator(device=device).manual_seed(2)
     for ci, co, s, layers in DX_SHAPES:
         d, ci = slab_depth(s, slab), ci // tp
-        dy = torch.randn((1, d, s, s, ci), generator=g, device=device).to(torch.bfloat16)
+        dy = torch.randn((1, d, s, s, ci), generator=g, device=device).to(dtype)
         if slab:
             dy[:, 0] = dy[:, -1] = 0
         w = torch.randn((ci, co, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
-        packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16)
+        packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), dtype)
         got = conv3d.conv3x3x3(dy, packed, None, False)
         torch.cuda.synchronize()
         ref = conv3d.conv3x3x3_reference(dy.float(), packed.float(), None, False)
         err = (got.float() - ref).abs()
-        bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+        bound = rel * (8e-3 * ref.abs() + 1e-3 * ref.abs().max())
         if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-            raise AssertionError(f"dx {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
+            raise AssertionError(f"{tag}dx {ci}->{co} @{d}x{s}^2: kernel disagrees with the plain version "
                                  f"(max err {err.max().item():.4g})")
         max_err = max(max_err, err.max().item())
         del got, ref, err, bound
@@ -836,18 +891,18 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1) -> dict
         p_ms = median_ms(lambda: conv3d.conv3x3x3_reference(dy, packed, None, False))
         # cuDNN's data gradient of the layer (ci <- co here), as autograd
         # calls it: the layer's own weight and a real channels-last input
-        w_bf = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        w_bf = w.to(dtype).contiguous(memory_format=torch.channels_last_3d)
         dyc = dy.permute(0, 4, 1, 2, 3)
-        xc = torch.empty((1, d, s, s, co), dtype=torch.bfloat16, device=device).permute(0, 4, 1, 2, 3)
+        xc = torch.empty((1, d, s, s, co), dtype=dtype, device=device).permute(0, 4, 1, 2, 3)
         c_ms = median_ms(lambda: torch.ops.aten.convolution_backward(
             dyc, xc, w_bf, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)))
         bound, flop, ops = conv_bound(ci, co, s, depth=d)
-        log(f"dx {ci}->{co} @{d}x{s}^2 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
+        log(f"{tag}dx {ci}->{co} @{d}x{s}^2 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
             f"cudnn dgrad alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del dy, w, packed, w_bf, dyc, xc
     out = {"max_abs_err": max_err, **summed(rows)}
-    log(f"dx, 17 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
+    log(f"{tag}dx, 17 layers of one 128^3 microbatch{shape_note(slab, tp)}: kernel {out['ms']:.3f} ms, "
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
@@ -2696,6 +2751,9 @@ DP_LOSS_RTOL = 2e-5
 # 1 epoch (2 until the tp phase joined: the script's time and the machine's
 # disk, which counts every checkpoint written, needed the room)
 DP_EPOCHS = 1
+# (c): layout (c), 4 ranks and batch 4 in 2 microbatches of 2
+DP_C_RANKS = 4
+DP_C_ACCUM = 2
 
 
 def dp_batches(device):
@@ -3005,15 +3063,100 @@ def dp_trainers(work: str, world: int, backend: str, card: str, what: str) -> li
     return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
 
 
+def dp_c_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
+    """One rank of dp (c) (``chip_smoke.py --dp-c-rank RANK WORLD PORT WORK
+    BACKEND``): the flagship model from the seed, one step on this rank's
+    rows of the first dp batch in DP_C_ACCUM microbatches, in the layout
+    ``sharding.microbatch_layout`` gives (c at WORLD 4), launches counted;
+    its state written to WORK/dp_c_rank{RANK}.pt."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.parallel import multihost
+    from pcmseg_tpu_torch.parallel.sharding import Mesh, microbatch_layout, shard_batch, shard_state
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    multihost.initialize(f"localhost:{port}", num_processes=world, process_id=rank, backend=backend)
+    device = torch.device("cuda", 0)
+    multihost.establish_collectives()
+    config = get_config(base_features=BASE_FEATURES, **{**TRAIN, "accum_steps": DP_C_ACCUM})
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    shard_state(model, Mesh(world))
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    local = shard_batch(dp_batches(device)[0], Mesh(world), rank=rank, accum=DP_C_ACCUM)
+    torch.cuda.synchronize(device)
+    conv3d.launches = conv3d_grad.launches = 0
+    t = time.perf_counter()
+    metrics = step(state, local)
+    torch.cuda.synchronize(device)
+    out = {"rank": rank, "rows": len(local["image"]), "step_s": time.perf_counter() - t,
+           "layout": microbatch_layout(TRAIN["batch_size"], DP_C_ACCUM, world),
+           "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+           "launches": [conv3d.launches, conv3d_grad.launches]}
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, os.path.join(work, f"dp_c_rank{rank}.pt"))
+    multihost.shutdown()
+    return out
+
+
+def dp_layout_c(work: str, device, card: str) -> list:
+    """(c) DP_C_RANKS gloo ranks sharing the card, batch 4 in DP_C_ACCUM
+    microbatches: the ranks divide neither the microbatch of 2 nor the 2
+    microbatches (layout (c)): two groups of 2 ranks, each group one
+    microbatch, a row a rank, BatchNorm and the loss summed over the
+    group. One step: every rank's state, loss and grad norm bitwise equal,
+    35 B1 and 18 B2 launches a rank (its one microbatch), the loss within
+    DP_LOSS_RTOL of one process's same step (the group sums BatchNorm's
+    statistics in another order) and the grad norm reported beside it.
+    Returns the (B1, B2) launches of all ranks."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+
+    config = get_config(base_features=BASE_FEATURES, **{**TRAIN, "accum_steps": DP_C_ACCUM})
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    one = step(state, dp_batches(device)[0])
+    one = {k: float(v) for k, v in one.items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    port, t0 = free_port(), time.perf_counter()
+    ranks = spawn_ranks(lambda r: ["--dp-c-rank", str(r), str(DP_C_RANKS), str(port), work, "gloo"], DP_C_RANKS)
+    wall = time.perf_counter() - t0
+    states = [torch.load(os.path.join(work, f"dp_c_rank{r}.pt"), weights_only=True) for r in range(DP_C_RANKS)]
+    bitwise = all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in states[0])
+    same = all((r["loss"], r["grad_norm"]) == (ranks[0]["loss"], ranks[0]["grad_norm"]) for r in ranks)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    log(f"dp (c) {DP_C_RANKS} gloo ranks on one card, batch {TRAIN['batch_size']} in {DP_C_ACCUM} microbatches, "
+        f"layout {ranks[0]['layout']} ({ranks[0]['rows']} row a rank): loss {ranks[0]['loss']:.8g}, grad norm "
+        f"{ranks[0]['grad_norm']:.8g}; one process {one['loss']:.8g} / {one['grad_norm']:.8g}: loss rel "
+        f"{rel(ranks[0]['loss'], one['loss']):.3g} (bound {DP_LOSS_RTOL}), grad norm rel "
+        f"{rel(ranks[0]['grad_norm'], one['grad_norm']):.3g} (reported); every rank's state bitwise equal {bitwise}, "
+        f"metrics equal {same}; launches {[r['launches'] for r in ranks]}; step "
+        f"{', '.join(f'{r['step_s'] * 1e3:.0f}' for r in ranks)} ms (cold); processes {wall:.1f} s [{card}]")
+    if not bitwise or not same or any(r["layout"] != "c" or r["launches"] != [35, 18] for r in ranks):
+        raise AssertionError("dp (c): the ranks differ, or a rank ran other than one microbatch in layout (c)")
+    if not math.isfinite(ranks[0]["loss"]) or rel(ranks[0]["loss"], one["loss"]) > DP_LOSS_RTOL:
+        raise AssertionError("dp (c): the loss is off one process's")
+    for r in range(DP_C_RANKS):
+        os.remove(os.path.join(work, f"dp_c_rank{r}.pt"))
+    return [sum(r["launches"][i] for r in ranks) for i in (0, 1)]
+
+
 def dp_phase(work: str, device, card: str, ref: dict):
     """Data parallelism across processes on the one card: (a) DP_RANKS
     processes in a gloo group on CUDA tensors (NCCL refuses two ranks on
     one device) through ``dp_steps`` (gloo's all-reduce goes through the
     host: its times on a shared card are not NCCL's) against ``ref``
-    (dp_reference); (b) a one-rank NCCL group through ``dp_trainers``.
-    Returns the (B1, B2) launches of (a)'s ranks and of (b)."""
+    (dp_reference); (b) a one-rank NCCL group through ``dp_trainers``; (c)
+    layout (c) on DP_C_RANKS gloo ranks through ``dp_layout_c``. Returns the
+    (B1, B2) launches of (a)'s ranks, of (b) and of (c)'s ranks."""
     launches_a = dp_steps(work, ref, DP_RANKS, "gloo", card, "dp (a)")
-    return launches_a, dp_trainers(work, 1, "nccl", card, "dp (b)")
+    launches_b = dp_trainers(work, 1, "nccl", card, "dp (b)")
+    return launches_a, launches_b, dp_layout_c(work, device, card)
 
 
 # ---- spatial parallelism (slice 9) ------------------------------------------------
@@ -3374,17 +3517,39 @@ FP32_STEP_MARGIN = 1.5
 FP32_STEP_SLACK = 1e-6
 
 
-def counts() -> tuple:
-    """(B1 bf16, B1 fp32, B2 bf16, B2 fp32) launches since the counts were set to 0."""
+def all_counts() -> tuple:
+    """(B1 bf16, B1 fp32, B1 fp16, B2 bf16, B2 fp32, B2 fp16) launches since
+    the counts were set to 0."""
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
 
-    return conv3d.launches, conv3d.launches_f32, conv3d_grad.launches, conv3d_grad.launches_f32
+    return (conv3d.launches, conv3d.launches_f32, conv3d.launches_f16,
+            conv3d_grad.launches, conv3d_grad.launches_f32, conv3d_grad.launches_f16)
+
+
+def counts() -> tuple:
+    """(B1 bf16, B1 fp32, B2 bf16, B2 fp32) launches since the counts were
+    set to 0, on a path that computes in bf16 or fp32: an fp16 launch there
+    raises."""
+    b1, b1_32, b1_16, b2, b2_32, b2_16 = all_counts()
+    if b1_16 or b2_16:
+        raise AssertionError(f"{b1_16} fp16 B1 and {b2_16} fp16 B2 launches on a bf16 / fp32 path")
+    return b1, b1_32, b2, b2_32
+
+
+def counts16() -> tuple:
+    """(B1 fp16, B2 fp16) launches since the counts were set to 0, on a path
+    that computes in fp16: a bf16 or fp32 launch there raises."""
+    b1, b1_32, b1_16, b2, b2_32, b2_16 = all_counts()
+    if b1 or b1_32 or b2 or b2_32:
+        raise AssertionError(f"bf16 / fp32 launches (B1 {b1} / {b1_32}, B2 {b2} / {b2_32}) on an fp16 path")
+    return b1_16, b2_16
 
 
 def zero_counts() -> None:
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
 
-    conv3d.launches = conv3d.launches_f32 = conv3d_grad.launches = conv3d_grad.launches_f32 = 0
+    for module in (conv3d, conv3d_grad):
+        module.launches = module.launches_f32 = module.launches_f16 = 0
 
 
 def train_tree(work: str, modalities) -> str:
@@ -3653,6 +3818,282 @@ def param_dtype_phase(work: str, device, card: str) -> dict:
     return out
 
 
+# ---- fp16 compute (slice 13) ------------------------------------------------------
+
+# the fp16 step's loss (relative) and each gradient tensor (relative L2)
+# may be at most this many times further from the float64 step than the
+# plain-conv fp16 step's, plus FP16_STEP_SLACK (one fp16 unit roundoff, 2^-11)
+FP16_STEP_MARGIN = BF16_MARGIN
+FP16_STEP_SLACK = 2.0**-11
+# an fp16 value below this is subnormal
+F16_NORMAL = 2.0**-14
+
+
+def check_f16_output(got, ref, what: str) -> float:
+    """An fp16 B1 output against the fp32 ``ref`` of the same fp16 inputs
+    within B1's bound scaled by F16_REL; returns max |err|."""
+    import torch
+
+    err = (got.float() - ref).abs()
+    bound = F16_REL * (8e-3 * ref.abs() + 1e-3 * ref.abs().max())
+    if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+        raise AssertionError(f"fp16 {what}: kernel disagrees with the plain version (max err "
+                             f"{err.max().item():.4g}, worst err/bound {(err / bound).max().item():.3g})")
+    log(f"fp16 {what}: ok, max_abs_err {err.max().item():.4g}, worst err/bound {(err / bound).max().item():.3g}")
+    return err.max().item()
+
+
+def check_f16_dw(x, dy, what: str) -> float:
+    """fp16 B2 against the fp32 plain version of the same inputs within
+    F16_REL·DW_BOUND of the largest entry, two launches bitwise equal."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    got, again = conv3d_grad.conv3x3_dw(x, dy), conv3d_grad.conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
+    err, bound = (got - ref).abs().max().item(), F16_REL * DW_BOUND * ref.abs().max().item()
+    if not bool(torch.isfinite(got).all()) or err > bound or not torch.equal(got, again):
+        raise AssertionError(f"fp16 dW {what}: max err {err:.4g} (bound {bound:.4g}), bitwise repeat "
+                             f"{torch.equal(got, again)}")
+    log(f"fp16 dW {what}: ok, max_abs_err {err:.4g} (bound {bound:.4g}), bitwise repeat")
+    return err
+
+
+def check_fp16_kernels(device, card: str) -> dict:
+    """The fp16 operand paths of B1 and B2 (the same sources as bf16's, the
+    ``_f16`` entry points), the bf16 phases' checks with each bound scaled
+    by F16_REL: B1 forward at the 14 shapes at N=1 and N=4 (the serving
+    tile batch), ReLU on and off; B1 as dx at the 13 transposed shapes of
+    the 17 dx layers; B2 at the 14 shapes, two launches bitwise equal; each
+    against its plain version in fp32 from the same fp16 inputs, timed beside
+    it and cuDNN's fp16 conv / dgrad / wgrad alone, with TFLOP/s and the
+    share of the bound (989 TFLOP/s fp16, as bf16). Then the F16_CONTRACT
+    shapes, error only, and fp16's edges: B1 outputs in the subnormal
+    range kept (not flushed to zero), outputs past 65504 rounded to ±inf
+    as fp16's rounding gives them, B2 on a dy that is nearly all
+    subnormal. Returns {"fwd", "dx", "dw"}: the JSON record's numbers."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d
+
+    f16 = torch.float16
+    out = {"fwd": check_kernels(device, card, (1, 4), dtype=f16), "dx": check_dx_kernels(device, card, dtype=f16),
+           "dw": check_dw_kernels(device, card, dtype=f16)}
+    g = torch.Generator(device=device).manual_seed(4)
+    for label, d, s, ci, co, slab in F16_CONTRACT:
+        x = torch.randn((1, d, s, s, ci), generator=g, device=device).to(f16)
+        w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
+        b = torch.randn((co,), generator=g, device=device) * 0.1
+        dy = torch.randn((1, d, s, s, co), generator=g, device=device).to(f16)
+        if slab:  # the halo slices' outputs are dropped: their cotangent is zero
+            dy[:, 0] = dy[:, -1] = 0
+        packed = conv3d.pack_weight(w, f16)
+        check_f16_output(conv3d.conv3x3x3(x, packed, b, True),
+                         conv3d.conv3x3x3_reference(x.float(), packed.float(), b, True), f"conv {label}")
+        packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), f16)
+        check_f16_output(conv3d.conv3x3x3(dy, packed, None, False),
+                         conv3d.conv3x3x3_reference(dy.float(), packed.float(), None, False), f"dx {label}")
+        check_f16_dw(x, dy, label)
+        del x, w, b, dy, packed
+    # fp16's edges, at 64 -> 64 on 8^3: weights scaled so that the sums land
+    # in the subnormal range, and past the largest fp16
+    x = torch.randn((1, 8, 8, 8, 64), generator=g, device=device).to(f16)
+    w = torch.randn((64, 64, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * 64))
+    for scale, what in ((2.0**-18, "subnormal"), (2.0**14, "overflowing")):
+        packed = conv3d.pack_weight(w * scale, f16)
+        got = conv3d.conv3x3x3(x, packed, None, False)
+        ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), None, False)
+        want = ref.half()  # astype's rounding: nearest even, subnormals kept, ±inf past 65504
+        finite = torch.isfinite(want) & torch.isfinite(got)
+        err = (got.float() - want.float()).abs()[finite]
+        # a sum within a few ulps of 65520 may round to either side in another order
+        edge = (ref.abs() - 65520.0).abs() <= 1e-3 * 65520.0
+        sub = (want != 0) & (want.abs() < F16_NORMAL)
+        kept = int(((got != 0) & sub).sum())
+        ok = (bool((torch.isinf(got) == torch.isinf(want))[~edge].all())
+              and bool((err <= 2.0**-24 + F16_REL * (8e-3 * want.float().abs()[finite]
+                                                     + 1e-3 * want.float().abs()[finite].max())).all())
+              and (scale > 1 or kept >= 0.99 * int(sub.sum()) > 0))
+        log(f"fp16 conv, {what} outputs: {kept} of {int(sub.sum())} subnormal outputs kept, "
+            f"{int(torch.isinf(got).sum())} of {got.numel()} inf (fp16 of the fp32 sum: "
+            f"{int(torch.isinf(want).sum())}), max|err| of the finite {err.max().item():.4g} [{card}]")
+        if not ok:
+            raise AssertionError(f"fp16 conv with {what} outputs: subnormals or overflow not as fp16 rounds them")
+    dy = (torch.randn((1, 8, 8, 8, 64), generator=g, device=device) * 2.0**-18).to(f16)
+    share = ((dy != 0) & (dy.abs() < F16_NORMAL)).float().mean().item()
+    check_f16_dw(x, dy, f"on a dy {share:.3f} subnormal")
+    for name, n in (("fwd", 18), ("dx", 17), ("dw", 18)):
+        r = out[name]
+        log(f"fp16 {name}, {n} layers of one 128^3 microbatch: kernel {r['ms']:.3f} ms, plain (fp32) "
+            f"{r['plain_ms']:.3f} ms, cudnn fp16 alone {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_ms'] / r['ms']:.3f} of it) [{card}]")
+    return out
+
+
+def fp16_train(work: str, device, card: str, ref: dict) -> dict:
+    """``compute_dtype='float16'`` on the card through the fp16 kernels, fp32
+    parameters. (a) 3 flagship steps from the seed on the dp batches: per
+    step exactly 4 x (18 + 17) fp16 B1 and 4 x 18 fp16 B2 launches and no
+    bf16 or fp32 one; step 1's loss and every gradient tensor (the
+    BN-preceded conv biases, of true gradient 0, logged apart) no further
+    from the float64 step (``one_process_exact``) than FP16_STEP_MARGIN
+    times the plain-conv fp16 step's distance plus FP16_STEP_SLACK (loss
+    relative, gradients relative L2); the share of the head's output
+    gradient (fp16, step 1) that is zero or subnormal (no loss scaling, as
+    in JAX); warm step ms, vol/s, peak memory, device time by kernel. (b)
+    One epoch of an fp16 ``Trainer`` (run_epochs, no checkpoints) on the
+    train phase's 5 cases, exact launches. (c) One 128^3 case served by an
+    fp16 ``Predictor``: 18 fp16 B1, its probabilities no further from the
+    same model in fp32 (plain conv, TF32 off) than BF16_MARGIN times the
+    plain fp16 conv's (max, plus 1e-3·F16_REL; mean, plus 1e-4·F16_REL).
+    Returns the launches of each part."""
+    import numpy as np
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+    from pcmseg_tpu_torch.infer.predict import Predictor
+    from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.train.checkpoints import save_pth
+    from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
+    from pcmseg_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    exact = one_process_exact(ref)
+    config = get_config(base_features=BASE_FEATURES, **{**TRAIN, "compute_dtype": "float16"})
+    batches = dp_batches(device)
+    plain_grads = {}
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    with plain_train_conv(model, torch.float16), first_gradients(model, plain_grads):
+        plain_loss = float(step(state, batches[0])["loss"])
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads, times, head = {}, [], [0, 0, 0]  # head: zero, subnormal, all elements of the output gradient
+
+    def record_head(grad):
+        head[0] += int((grad == 0).sum())
+        head[1] += int(((grad != 0) & (grad.abs() < F16_NORMAL)).sum())
+        head[2] += grad.numel()
+
+    def watch_head(module, inputs, output):
+        if output.requires_grad:
+            output.register_hook(record_head)
+
+    model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
+    hook = model.outc.register_forward_hook(watch_head)
+    state, step = create_train_state(model, config), make_train_step(model, config)
+    with first_gradients(model, grads):
+        for i, batch in enumerate(batches):
+            zero_counts()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(device)
+                hook.remove()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got, want = counts16(), (4 * 35, 4 * 18)
+            if got != want:
+                raise AssertionError(f"fp16 step {i + 1} launched (B1 fp16, B2 fp16) {got}, expected {want}")
+            if i == 0:
+                out["step"] = got
+                first_loss = loss
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    rel = lambda a: abs(a - exact["loss"]) / abs(exact["loss"])  # noqa: E731
+    loss_k, loss_p = rel(first_loss), rel(plain_loss)
+    log(f"fp16 step 1: loss {first_loss:.8g} (float64 {exact['loss']:.8g}, plain fp16 {plain_loss:.8g}): "
+        f"relative |dL| kernel {loss_k:.3g}, plain {loss_p:.3g} (bound {FP16_STEP_MARGIN * loss_p + FP16_STEP_SLACK:.3g})")
+    if not math.isfinite(first_loss) or loss_k > FP16_STEP_MARGIN * loss_p + FP16_STEP_SLACK:
+        raise AssertionError("the fp16 step's loss is further from float64 than the plain fp16 step's")
+    log(f"fp16 step 1, the head's output gradient (fp16, {head[2]} elements over 4 microbatches): "
+        f"{head[0] / head[2]:.4f} zero, {head[1] / head[2]:.4f} subnormal (below 2^-14), "
+        f"{(head[0] + head[1]) / head[2]:.4f} together [{card}]")
+    worst, cancelled, held = (0.0, ""), [], []
+    for k, g64 in exact["grads"].items():
+        d_k, d_p = rel_dist(grads[k], g64), rel_dist(plain_grads[k], g64)
+        if re.search(r"conv\.[03]\.bias$", k):
+            cancelled.append((d_k, d_p))
+            continue
+        held.append((d_k, d_p))
+        worst = max(worst, (d_k / (FP16_STEP_MARGIN * d_p + FP16_STEP_SLACK), k))
+        if not math.isfinite(d_k) or d_k > FP16_STEP_MARGIN * d_p + FP16_STEP_SLACK:
+            raise AssertionError(f"{k}: the fp16 step's gradient is {d_k:.3g} from float64 (relative), the plain "
+                                 f"fp16 step's {d_p:.3g}")
+    log(f"fp16 step 1 gradients, {len(exact['grads'])} tensors against float64: relative distance kernel "
+        f"{min(h[0] for h in held):.3g}-{max(h[0] for h in held):.3g} (median "
+        f"{sorted(h[0] for h in held)[len(held) // 2]:.3g}), plain fp16 {min(h[1] for h in held):.3g}-"
+        f"{max(h[1] for h in held):.3g}; worst distance/bound "
+        f"{worst[0]:.3g} at {worst[1]}; the {len(cancelled)} BN-preceded conv biases (true gradient 0, logged "
+        f"only): relative distance kernel up to {max(c[0] for c in cancelled):.3g}, plain "
+        f"{max(c[1] for c in cancelled):.3g} [{card}]")
+    warm = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"fp16 flagship step (batch 4 = 4 x 1): warm {warm * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in times)}"
+        f" ms for steps 1-{len(times)}) = {TRAIN['batch_size'] / warm:.3f} vol/s, peak device memory {peak:.2f} GiB "
+        f"[{card}]")
+    profile_step(lambda: float(step(state, batches[-1])["loss"]), "one fp16 step", card)
+    del model, state, step, grads, plain_grads
+    torch.cuda.empty_cache()
+
+    # (b) one epoch of an fp16 Trainer
+    data = train_tree(work, config.modalities)
+    tconfig = config.replace(data_dir=data, save_dir=os.path.join(work, "fp16_ckpt"),
+                             cache_dir=os.path.join(work, "preproc"), seed=0, num_epochs=1)
+    trainer = Trainer(tconfig, device=device)
+    zero_counts()
+    t = time.perf_counter()
+    history = run_epochs(trainer, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    want = expected_train_launches(tconfig, steps=1, eval_forwards=1)
+    got = counts16()
+    log(f"fp16 Trainer, 1 epoch ({data_path(trainer, TRAIN_CASES)}): {wall:.1f} s, history {json.dumps(history)}; "
+        f"launches (B1 fp16, B2 fp16) {got}, none in bf16 or fp32 [{card}]")
+    if got != want:
+        raise AssertionError(f"fp16 Trainer launched {got}, expected {want}")
+    if not all(math.isfinite(v) for vals in history.values() for v in vals):
+        raise AssertionError(f"non-finite fp16 history {history}")
+    out["trainer"] = got
+    pth = os.path.join(work, "fp16_model.pth")
+    save_pth(pth, trainer.state.model.state_dict(), tconfig.to_dict())
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) one case served in fp16
+    predictor = Predictor(get_config(base_features=BASE_FEATURES, compute_dtype="float16"), pth, device=device)
+    case = os.path.join(work, "fp16_case")
+    for m in config.modalities:
+        os.makedirs(os.path.join(case, m), exist_ok=True)
+        shutil.copy(os.path.join(data, "BPH-PCA", "BPH", m, "case000.nii.gz"), os.path.join(case, m, "t.nii.gz"))
+    image, _ = predictor.load_case(case)
+    zero_counts()
+    probs = predictor.predict_probs(image)
+    got = counts16()
+    if got != (18, 0):
+        raise AssertionError(f"fp16 serving launched {got}, expected 18 fp16 B1")
+    with plain_conv(predictor.models, torch.float16):
+        plain = predictor.predict_probs(image)
+    with plain_conv(predictor.models, torch.float32):
+        wide = predictor.predict_probs(image)
+    err_k, err_p = np.abs(probs - wide), np.abs(plain - wide)
+    log(f"fp16 serving, one 128^3 case: 18 fp16 B1 launches; against fp32 (plain conv): max|dp| kernel "
+        f"{err_k.max():.4g}, plain fp16 {err_p.max():.4g}; mean|dp| kernel {err_k.mean():.3g}, plain fp16 "
+        f"{err_p.mean():.3g}; foreground {(probs > 0.5).mean():.4f} [{card}]")
+    if (not np.isfinite(probs).all() or err_k.max() > BF16_MARGIN * err_p.max() + 1e-3 * F16_REL
+            or err_k.mean() > BF16_MARGIN * err_p.mean() + 1e-4 * F16_REL):
+        raise AssertionError(f"the fp16 kernel's probabilities are further from fp32 than {BF16_MARGIN}x the "
+                             "plain fp16 conv's")
+    out["serve"] = got[0]
+    del predictor
+    shutil.rmtree(os.path.join(work, "fp16_ckpt"), ignore_errors=True)
+    os.remove(pth)
+    torch.cuda.empty_cache()
+    return out
+
+
 def sp_steps(work: str, ref: dict, card: str) -> list:
     """(b) SP_RANKS gloo ranks sharing the card through sp_rank, held against
     each other and against ``ref`` (dp_reference). Returns the (B1, B2)
@@ -3844,8 +4285,9 @@ def sp_phase(work: str, device, card: str, ref: dict) -> dict:
 TP_EXACT_NORM_RTOL = 1e-6
 # (c): the tp Trainer on TP_TRAIN_CASES of the cache phase's cases (one
 # batch of 4) and one val case, so each epoch is one step through the
-# gathers staged in host memory (a rank-step takes seconds there)
-TP_EPOCHS = 2
+# gathers staged in host memory (a rank-step takes seconds there); 1 epoch
+# (2 until the fp16 phases joined: the script's time needed the room)
+TP_EPOCHS = 1
 TP_TRAIN_CASES = 4
 # (b) runs the first TP_STEPS of the DP_STEPS batches: each bf16 rank-step
 # takes 17-28 s through the host-staged gathers
@@ -4178,6 +4620,10 @@ def main() -> int:
         rank, world, port, work, backend = sys.argv[2:7]
         print(json.dumps(dp_rank(int(rank), int(world), int(port), work, backend)))
         return 0
+    if sys.argv[1:2] == ["--dp-c-rank"]:  # a rank of the dp phase's layout (c) step
+        rank, world, port, work, backend = sys.argv[2:7]
+        print(json.dumps(dp_c_rank(int(rank), int(world), int(port), work, backend)))
+        return 0
     if sys.argv[1:2] == ["--dp-trainer"]:  # a rank of the dp phase's Trainer
         rank, world, port, work, backend, name = sys.argv[2:8]
         print(json.dumps(dp_trainer(int(rank), int(world), int(port), work, backend, name)))
@@ -4216,6 +4662,7 @@ def main() -> int:
     dx = phase("dx", check_dx_kernels, device, card)
     dw = phase("dw", check_dw_kernels, device, card)
     fp32k = phase("fp32_kernels", check_fp32_kernels, device, card)
+    fp16k = phase("fp16_kernels", check_fp16_kernels, device, card)
     phase("gradients", check_gradients, device, card)
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -4224,6 +4671,12 @@ def main() -> int:
     if sys.argv[1:] in (["--only", "dp"], ["--only", "sp"], ["--only", "tp"]):  # one phase alone, after the kernels'
         ref = phase("dp_reference", dp_reference, device)
         phase(sys.argv[2], {"dp": dp_phase, "sp": sp_phase, "tp": tp_phase}[sys.argv[2]], work, device, card, ref)
+        shutil.rmtree(work, ignore_errors=True)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--only", "fp16"]:  # the fp16 step, Trainer and server alone, after the kernels'
+        ref = phase("dp_reference", dp_reference, device)
+        phase("fp16_train", fp16_train, work, device, card, ref)
         shutil.rmtree(work, ignore_errors=True)
         print(card)
         return 0
@@ -4255,6 +4708,7 @@ def main() -> int:
     ref = phase("dp_reference", dp_reference, device)
     fp32_launches = phase("fp32_train", fp32_train, work, device, card, ref)
     pd_launches = phase("param_dtype", param_dtype_phase, work, device, card)
+    fp16_launches = phase("fp16_train", fp16_train, work, device, card, ref)
     dp_launches = phase("dp", dp_phase, work, device, card, ref)
     sp = phase("sp", sp_phase, work, device, card, ref)
     tp = phase("tp", tp_phase, work, device, card, ref)
@@ -4272,7 +4726,8 @@ def main() -> int:
                                  **{f"cache_{p}": cache_launches[p][0] for p in "abc"}, "ds": ds_launches[0],
                                  "kclass": kclass_launches[0], "profiling": profiling_launches[0],
                                  "async_ckpt": async_launches[0], "ingest": ingest_launches,
-                                 "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0], "sp_serve": sp["serve"],
+                                 "dp_a": dp_launches[0][0], "dp_b": dp_launches[1][0], "dp_c": dp_launches[2][0],
+                                 "sp_serve": sp["serve"],
                                  "sp_train": sp["train"][0], "sp_trainer": sp["trainer"][0],
                                  "tp_train": tp["train"][0], "tp_trainer": tp["trainer"][0],
                                  "param_dtype_train": pd_launches["step"][0],
@@ -4301,7 +4756,7 @@ def main() -> int:
                                  **{f"cache_{p}": cache_launches[p][1] for p in "abc"}, "ds": ds_launches[1],
                                  "kclass": kclass_launches[1], "profiling": profiling_launches[1],
                                  "async_ckpt": async_launches[1], "dp_a": dp_launches[0][1],
-                                 "dp_b": dp_launches[1][1], "sp_train": sp["train"][1],
+                                 "dp_b": dp_launches[1][1], "dp_c": dp_launches[2][1], "sp_train": sp["train"][1],
                                  "sp_trainer": sp["trainer"][1], "tp_train": tp["train"][1],
                                  "tp_trainer": tp["trainer"][1], "param_dtype_train": pd_launches["step"][1],
                                  "param_dtype_trainer": pd_launches["trainer"][1]},
@@ -4333,6 +4788,29 @@ def main() -> int:
             "launches": fp32_launches["step"][1],
             "launches_by_path": {"fp32_train": fp32_launches["step"][1], "fp32_trainer": fp32_launches["trainer"][1]},
             **fp32k["dw"],
+        },
+        {
+            "name": "conv3x3x3_f16",
+            "route": "cuda",
+            "source": "pcmseg_tpu_torch/csrc/conv3x3x3.cu",
+            "replaces": "pcmseg_tpu/ops/pallas/conv3d.py:121",
+            # the fp16 step's first step (the entry point pcmseg_conv3x3x3_f16)
+            "launches": fp16_launches["step"][0],
+            "launches_by_path": {"fp16_train": fp16_launches["step"][0], "fp16_trainer": fp16_launches["trainer"][0],
+                                 "fp16_serve": fp16_launches["serve"]},
+            # errors from fp32 of the same fp16 inputs; library_ms: cuDNN's fp16 conv / dgrad
+            "max_abs_err": max(fp16k["fwd"]["max_abs_err"], fp16k["dx"]["max_abs_err"]),
+            **{k: fp16k["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"dx_{k}": fp16k["dx"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        },
+        {
+            "name": "conv3x3_dw_f16",
+            "route": "cuda",
+            "source": "pcmseg_tpu_torch/csrc/conv3x3_dw.cu",
+            "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
+            "launches": fp16_launches["step"][1],
+            "launches_by_path": {"fp16_train": fp16_launches["step"][1], "fp16_trainer": fp16_launches["trainer"][1]},
+            **fp16k["dw"],
         },
     ]}))
     print(card)

@@ -1,11 +1,14 @@
-// Weight gradient of the 3x3x3 SAME convolution over NDHWC, bf16 in, fp32
-// out, for Hopper (sm_90a): warpgroup wgmma fed by TMA.
+// Weight gradient of the 3x3x3 SAME convolution over NDHWC, bf16 or fp16 in
+// (one template, two entry points), fp32 out, for Hopper (sm_90a):
+// warpgroup wgmma fed by TMA.
 //
 // Replaces the Pallas TPU kernel
 // pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw (pl.pallas_call body
 // `_dw_kernel`). Same arithmetic: dW[tap, ci, co] = sum over every voxel v of
 // the batch of x[v + offset(tap), ci] * dy[v, co], neighbours outside the
-// volume read as zero, products of bf16 values summed in fp32.
+// volume read as zero, products of 16-bit values (exact in fp32, subnormal
+// fp16 values included) summed in fp32. fp16 takes the bf16 design
+// unchanged: the same instruction shapes at the same rate, the same bytes.
 //
 // Formulation: per tap a GEMM with M = Ci rows, N = Co columns and K = the
 // N*D*H*W voxels. Both operands lie voxel-major in NDHWC memory, so both are
@@ -13,7 +16,7 @@
 // kernel takes Ci == 8 or a multiple of 64 (the wrapper zero-pads x's
 // channels, e.g. the Ci = 5 input conv to 8) and Co % 8 == 0.
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): one
+// What bounds it on an H100 (989 TFLOP/s bf16 / fp16 dense, 3.35 TB/s): one
 // 128^3 x 64 -> 64 dW is 0.46 TFLOP over 2.1 M voxels; read once, x and dy
 // are 0.54 GB, ~850 FLOP per byte, far above the ~295 ridge: bound by the
 // tensor cores if x is fetched once per voxel tile for all taps. Design:
@@ -72,7 +75,8 @@ struct DwArgs {
   int tiles_per_split;
 };
 
-template <bool SMALL>
+// T: the element type of x and dy (bf16 or f16).
+template <bool SMALL, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
                       const DwArgs a) {
@@ -154,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // slab on (SBO); SMALL: the next 8 M rows are the next kw (16 bytes)
         const int row = SMALL ? ((zz + aa) * HY + yy + kh) * HX : (zz * HY + yy + kh) * HX + aa;
         const uint64_t da = gmma_desc(xs + row * 16, HX * 16, SMALL ? 16 : C::SLAB, LAYOUT_INTERLEAVE);
-        wgmma_m64n64k16<1, 1>(acc[aa], da, db);
+        wgmma_m64n64k16<1, 1, T>(acc[aa], da, db);
       }
     }
     wgmma_commit();
@@ -242,34 +246,20 @@ DwPlan make_dw_plan(int N, int D, int H, int W, int Ci, int Co, int sms) {
   return p;
 }
 
-template <bool SMALL>
+template <bool SMALL, typename T>
 cudaError_t launch_dw(const DwPlan& p, const CUtensorMap& xmap, const CUtensorMap& dymap, const DwArgs& a,
                       cudaStream_t stream) {
-  auto kernel = conv3x3_dw_kernel<SMALL>;
+  auto kernel = conv3x3_dw_kernel<SMALL, T>;
   cudaError_t err = set_smem(kernel, DwCfg<SMALL>::SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(p.grid_x, p.grid_y, p.splits), THREADS, DwCfg<SMALL>::SMEM, stream>>>(xmap, dymap, a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of fp32 workspace the launch below needs for this shape on `device`
-// (0 unless the voxels are split).
-long long pcmseg_conv3x3_dw_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
-  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
-}
-
-// dW (27*Ci, Co) fp32 of x (N, D, H, W, Ci) and dy (N, D, H, W, Co), both bf16,
-// on `stream` (PyTorch's current stream) of device `device`. The caller checks
-// shapes, dtypes, contiguity and 16-byte alignment, requires Ci == 8 or
-// Ci % 64 == 0, Co % 8 == 0 and N*D*H*W < 2^31, and passes a workspace of at
-// least pcmseg_conv3x3_dw_workspace_bytes(...) bytes. Returns the cudaError_t
-// of the launches; does not synchronise.
-int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes,
-                           int N, int D, int H, int W, int Ci, int Co, void* stream, int device) {
+// The launches of one dW in element type T (the entry points below).
+template <typename T>
+int run_dw(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes, int N, int D,
+           int H, int W, int Ci, int Co, void* stream, int device) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!(Ci == 8 || Ci % BC == 0) || Co % 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -277,9 +267,10 @@ int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* works
   if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
 
   CUtensorMap xmap, dymap;
-  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, p.small ? TZ + 2 : TZ, false);
+  constexpr CUtensorMapDataType type = tensor_map_type<T>();
+  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, p.small ? TZ + 2 : TZ, false, type);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = make_ndhwc_map(&dymap, dy, N, D, H, W, Co, BC, TX, TY, TZ, true);
+  err = make_ndhwc_map(&dymap, dy, N, D, H, W, Co, BC, TX, TY, TZ, true, type);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   DwArgs a;
@@ -288,13 +279,43 @@ int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* works
   a.tiles_z = p.tiles_z, a.tiles_y = p.tiles_y, a.tiles_x = p.tiles_x, a.tiles = p.tiles;
   a.tiles_per_split = p.tiles_per_split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = p.small ? launch_dw<true>(p, xmap, dymap, a, s) : launch_dw<false>(p, xmap, dymap, a, s);
+  err = p.small ? launch_dw<true, T>(p, xmap, dymap, a, s) : launch_dw<false, T>(p, xmap, dymap, a, s);
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const long long count4 = 27LL * Ci * Co / 4;
   const unsigned blocks = static_cast<unsigned>(std::min<long long>((count4 + 255) / 256, 65535));
   dw_reduce<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(workspace), reinterpret_cast<float4*>(out),
                                     count4, p.splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of fp32 workspace the launch below needs for this shape on `device`
+// (0 unless the voxels are split); the same for both element types.
+long long pcmseg_conv3x3_dw_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
+  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
+}
+
+long long pcmseg_conv3x3_dw_f16_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
+  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
+}
+
+// dW (27*Ci, Co) fp32 of x (N, D, H, W, Ci) and dy (N, D, H, W, Co), both bf16
+// (both fp16 for the _f16 entry), on `stream` (PyTorch's current stream) of
+// device `device`. The caller checks shapes, dtypes, contiguity and 16-byte
+// alignment, requires Ci == 8 or Ci % 64 == 0, Co % 8 == 0 and N*D*H*W <
+// 2^31, and passes a workspace of at least pcmseg_conv3x3_dw_workspace_bytes(...)
+// bytes. Returns the cudaError_t of the launches; does not synchronise.
+int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes,
+                           int N, int D, int H, int W, int Ci, int Co, void* stream, int device) {
+  return run_dw<bf16>(x, dy, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, stream, device);
+}
+
+int pcmseg_conv3x3_dw_f16(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes,
+                          int N, int D, int H, int W, int Ci, int Co, void* stream, int device) {
+  return run_dw<f16>(x, dy, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, stream, device);
 }
 
 }  // extern "C"

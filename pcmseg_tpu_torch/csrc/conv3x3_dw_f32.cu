@@ -425,10 +425,10 @@ int pcmseg_conv3x3_dw_f32(const void* x, const void* dy, void* out, void* worksp
   if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
 
   CUtensorMap xmap, dymap;
-  err = p.small ? make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, 3, false, true)
-                : make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, TY, 1, false, true);
+  err = p.small ? make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, 3, false, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+                : make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, TY, 1, false, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = make_ndhwc_map(&dymap, dy, N, D, H, W, Co, BC, TX, TY, 1, false, true);
+  err = make_ndhwc_map(&dymap, dy, N, D, H, W, Co, BC, TX, TY, 1, false, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   DwF32Args a;

@@ -1,19 +1,24 @@
-// Fused 3x3x3 SAME convolution + bias + optional ReLU over NDHWC, bf16 in and
-// out, fp32 accumulation, for Hopper (sm_90a): warpgroup wgmma fed by TMA.
+// Fused 3x3x3 SAME convolution + bias + optional ReLU over NDHWC, bf16 or
+// fp16 in and out (one template, two entry points), fp32 accumulation, for
+// Hopper (sm_90a): warpgroup wgmma fed by TMA.
 //
 // Replaces the Pallas TPU kernel pcmseg_tpu/ops/pallas/conv3d.py::conv3x3x3
-// (pl.pallas_call body `_kernel`). Same arithmetic: out = max(sum over the 27
-// taps of window . W_tap + b, 0), accumulated in fp32, bias added in fp32, then
-// ReLU, then one rounding to bf16. With relu off, no bias and the flipped,
-// Ci<->Co-transposed weight it is also the convolution's dx.
+// (pl.pallas_call body `_kernel`), which computes in x's dtype. Same
+// arithmetic: out = max(sum over the 27 taps of window . W_tap + b, 0),
+// accumulated in fp32, bias added in fp32, then ReLU, then one rounding to
+// x's dtype (round to nearest even; fp16 keeps subnormals and gives +-inf
+// past 65504, as astype does). With relu off, no bias and the flipped,
+// Ci<->Co-transposed weight it is also the convolution's dx. The fp16
+// operands take the bf16 design unchanged: the same instruction shapes
+// (wgmma .f16 at bf16's rate), the same bytes, the same tiles.
 //
 // Formulation: implicit GEMM, M = output voxels, N = Co, K = 27*Ci with
 // k = tap*Ci + ci and tap = (kd*3 + kh)*3 + kw. The weight is packed once per
-// load as a (Co, 27*Ci) row-major bf16 matrix. The kernel takes Ci == 8 or a
+// load as a (Co, 27*Ci) row-major matrix in x's dtype. The kernel takes Ci == 8 or a
 // multiple of 64 (the wrapper zero-pads x's channels, e.g. the Ci = 5 input
 // conv to 8) and Co % 8 == 0.
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): with x read
+// What bounds it on an H100 (989 TFLOP/s bf16 / fp16 dense, 3.35 TB/s): with x read
 // once and y written once a layer does 27*Ci*Co/(Ci+Co) FLOP per byte, 864
 // for 64->64, far above the ~295 ridge; only the Ci = 8 input conv is bound
 // by its bytes. So the design is about feeding the tensor cores:
@@ -73,7 +78,7 @@ struct Cfg {
 
 struct FwdArgs {
   const float* bias;
-  bf16* out;
+  void* out;  // T (bf16 or f16)
   float* workspace;  // split-K partials, or null
   int D, H, W, Ci, Co, relu;
   int tiles_z, tiles_y, tiles_x;
@@ -86,11 +91,21 @@ __device__ __forceinline__ int halo_row(int z, int tap) {
   return ((z + tap / 9) * HY + (tap / 3) % 3) * HX + tap % 3;
 }
 
+// Two fp32 values rounded to nearest even as one pair of T (bf16 or f16).
+template <typename T>
+__device__ __forceinline__ void store_rounded(T* dst, float v0, float v1) {
+  if constexpr (std::is_same<T, f16>::value)
+    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+
 // Epilogue for one accumulator pair (row m, columns col, col+1): with no
-// workspace, fp32 acc + fp32 bias, ReLU, one rounding to bf16; with a
+// workspace, fp32 acc + fp32 bias, ReLU, one rounding to T; with a
 // workspace (split K), the raw fp32 partial sum of this K slice.
+template <typename T>
 __device__ __forceinline__ void store_pair(float v0, float v1, long long m, int col, int Co,
-                                           const float* bias, int relu, bf16* out, float* partial) {
+                                           const float* bias, int relu, T* out, float* partial) {
   if (partial) {
     *reinterpret_cast<float2*>(partial + m * Co + col) = make_float2(v0, v1);
     return;
@@ -103,19 +118,20 @@ __device__ __forceinline__ void store_pair(float v0, float v1, long long m, int 
     v0 = fmaxf(v0, 0.f);
     v1 = fmaxf(v1, 0.f);
   }
-  *reinterpret_cast<__nv_bfloat162*>(out + m * Co + col) = __floats2bfloat162_rn(v0, v1);
+  store_rounded(out + m * Co + col, v0, v1);
 }
 
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 64)
-    wgmma_m64n64k16<0, 0>(d, da, db);
+    wgmma_m64n64k16<0, 0, T>(d, da, db);
   else
-    wgmma_m64n128k16<0, 0>(d, da, db);
+    wgmma_m64n128k16<0, 0, T>(d, da, db);
 }
 
 // SMALL: Ci == 8 (one slab, two taps per k16 step); else Ci % 64 == 0.
-template <int BN, bool SMALL>
+// T: the element type of x, the weight and out (bf16 or f16).
+template <int BN, bool SMALL, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
     conv3x3x3_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                      const FwdArgs a) {
@@ -216,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, 2)
             a_addr = halo_smem + halo_row(z, st) * 16 + 2 * j * SLAB;
             lbo = SLAB;
           }
-          wgmma_bn<BN>(acc[m], gmma_desc(a_addr, lbo, HX * 16, LAYOUT_INTERLEAVE), db);
+          wgmma_bn<BN, T>(acc[m], gmma_desc(a_addr, lbo, HX * 16, LAYOUT_INTERLEAVE), db);
         }
       }
       wgmma_commit();
@@ -253,16 +269,17 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int j = 0; j < BN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * (lane & 3);
         if (col < a.Co)
-          store_pair(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1], v, col, a.Co, a.bias, a.relu, a.out,
-                     partial);
+          store_pair(acc[m][4 * j + 2 * h], acc[m][4 * j + 2 * h + 1], v, col, a.Co, a.bias, a.relu,
+                     static_cast<T*>(a.out), partial);
       }
     }
   }
 }
 
-// Sum the split-K partials in a fixed order, then bias, ReLU, bf16.
+// Sum the split-K partials in a fixed order, then bias, ReLU, one rounding to T.
+template <typename T>
 __global__ void splitk_epilogue(const float* __restrict__ workspace, const float* __restrict__ bias,
-                                bf16* __restrict__ out, long long M, int Co, int splits, int relu) {
+                                T* __restrict__ out, long long M, int Co, int splits, int relu) {
   const long long pairs = M * Co / 2;
   for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < pairs;
        p += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -273,7 +290,7 @@ __global__ void splitk_epilogue(const float* __restrict__ workspace, const float
       s.y += v.y;
     }
     const int col = static_cast<int>((2 * p) % Co);
-    store_pair(s.x, s.y, 2 * p / Co, col, Co, bias, relu, out, nullptr);
+    store_pair(s.x, s.y, 2 * p / Co, col, Co, bias, relu, out, static_cast<float*>(nullptr));
   }
 }
 
@@ -308,10 +325,10 @@ Plan make_plan(int N, int D, int H, int W, int Ci, int Co, int sms) {
   return p;
 }
 
-template <int BN, bool SMALL>
+template <int BN, bool SMALL, typename T>
 cudaError_t launch(const Plan& p, const CUtensorMap& xmap, const CUtensorMap& wmap, const FwdArgs& a, int N,
                    cudaStream_t stream) {
-  auto kernel = conv3x3x3_kernel<BN, SMALL>;
+  auto kernel = conv3x3x3_kernel<BN, SMALL, T>;
   cudaError_t err = set_smem(kernel, Cfg<BN>::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(static_cast<long long>(N) * p.tiles_z * p.tiles_y * p.tiles_x),
@@ -320,24 +337,10 @@ cudaError_t launch(const Plan& p, const CUtensorMap& xmap, const CUtensorMap& wm
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of fp32 workspace the launch below needs for this shape on `device`
-// (0 unless K is split).
-long long pcmseg_conv3x3x3_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
-  return make_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
-}
-
-// Launch on `stream` (PyTorch's current stream) of device `device`. The caller
-// checks shapes, dtypes, contiguity and 16-byte alignment, requires Ci == 8
-// or Ci % 64 == 0 and Co % 8 == 0, passes the (Co, 27*Ci) packed weight and
-// a workspace of at least pcmseg_conv3x3x3_workspace_bytes(...) bytes.
-// Returns the cudaError_t of the launch; does not synchronise.
-int pcmseg_conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* out, void* workspace,
-                          long long workspace_bytes, int N, int D, int H, int W, int Ci, int Co, int relu,
-                          void* stream, int device) {
+// The launches of one conv in element type T (the entry points below).
+template <typename T>
+int run(const void* x, const void* w, const void* bias, void* out, void* workspace, long long workspace_bytes,
+        int N, int D, int H, int W, int Ci, int Co, int relu, void* stream, int device) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!(Ci == 8 || Ci % CHUNK == 0) || Co % 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -345,17 +348,18 @@ int pcmseg_conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* 
   if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
 
   CUtensorMap xmap, wmap;
-  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, p.bn == 64 ? Cfg<64>::HZ : Cfg<128>::HZ, false);
+  constexpr CUtensorMapDataType type = tensor_map_type<T>();
+  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, p.bn == 64 ? Cfg<64>::HZ : Cfg<128>::HZ, false, type);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(27) * Ci, static_cast<cuuint64_t>(Co)};
-  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(27) * Ci * sizeof(bf16)};
+  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(27) * Ci * sizeof(T)};
   const cuuint32_t wbox[2] = {64, static_cast<cuuint32_t>(p.bn)};
-  err = make_tensor_map(&wmap, w, 2, wdims, wstride, wbox, true);
+  err = make_tensor_map(&wmap, w, 2, wdims, wstride, wbox, true, type);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   FwdArgs a;
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.workspace = p.splits > 1 ? static_cast<float*>(workspace) : nullptr;
   a.D = D, a.H = H, a.W = W, a.Ci = Ci, a.Co = Co, a.relu = relu;
   a.tiles_z = p.tiles_z, a.tiles_y = p.tiles_y, a.tiles_x = p.tiles_x;
@@ -363,15 +367,47 @@ int pcmseg_conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* 
   a.M = static_cast<long long>(N) * D * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.small)
-    err = p.bn == 64 ? launch<64, true>(p, xmap, wmap, a, N, s) : launch<128, true>(p, xmap, wmap, a, N, s);
+    err = p.bn == 64 ? launch<64, true, T>(p, xmap, wmap, a, N, s) : launch<128, true, T>(p, xmap, wmap, a, N, s);
   else
-    err = p.bn == 64 ? launch<64, false>(p, xmap, wmap, a, N, s) : launch<128, false>(p, xmap, wmap, a, N, s);
+    err = p.bn == 64 ? launch<64, false, T>(p, xmap, wmap, a, N, s) : launch<128, false, T>(p, xmap, wmap, a, N, s);
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const long long pairs = a.M * Co / 2;
   const unsigned blocks = static_cast<unsigned>(std::min<long long>((pairs + 255) / 256, 65535));
-  splitk_epilogue<<<blocks, 256, 0, s>>>(static_cast<const float*>(workspace), a.bias, a.out, a.M, Co,
-                                         p.splits, relu);
+  splitk_epilogue<T><<<blocks, 256, 0, s>>>(static_cast<const float*>(workspace), a.bias, static_cast<T*>(out),
+                                            a.M, Co, p.splits, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of fp32 workspace the launch below needs for this shape on `device`
+// (0 unless K is split); the same for both element types.
+long long pcmseg_conv3x3x3_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
+  return make_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
+}
+
+long long pcmseg_conv3x3x3_f16_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
+  return make_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
+}
+
+// Launch on `stream` (PyTorch's current stream) of device `device`. The caller
+// checks shapes, dtypes, contiguity and 16-byte alignment, requires Ci == 8
+// or Ci % 64 == 0 and Co % 8 == 0, passes x, the (Co, 27*Ci) packed weight
+// and out in bf16 (fp16 for the _f16 entry), the fp32 bias or null, and a
+// workspace of at least pcmseg_conv3x3x3_workspace_bytes(...) bytes.
+// Returns the cudaError_t of the launch; does not synchronise.
+int pcmseg_conv3x3x3_bf16(const void* x, const void* w, const void* bias, void* out, void* workspace,
+                          long long workspace_bytes, int N, int D, int H, int W, int Ci, int Co, int relu,
+                          void* stream, int device) {
+  return run<bf16>(x, w, bias, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, relu, stream, device);
+}
+
+int pcmseg_conv3x3x3_f16(const void* x, const void* w, const void* bias, void* out, void* workspace,
+                         long long workspace_bytes, int N, int D, int H, int W, int Ci, int Co, int relu,
+                         void* stream, int device) {
+  return run<f16>(x, w, bias, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, relu, stream, device);
 }
 
 const char* pcmseg_cuda_error_string(int code) {

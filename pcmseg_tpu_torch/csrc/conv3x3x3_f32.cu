@@ -408,13 +408,13 @@ int pcmseg_conv3x3x3_f32(const void* x, const void* w, const void* bias, void* o
 
   CUtensorMap xmap, wmap;
   const int hz = p.bn == 64 ? Cfg<64, false>::HZ : Cfg<128, false>::HZ;
-  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 4, HX, HY, hz, false, true);
+  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 4, HX, HY, hz, false, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cuuint64_t K = static_cast<cuuint64_t>(27) * Ci;
   const cuuint64_t wdims[3] = {K, static_cast<cuuint64_t>(Co), 2};
   const cuuint64_t wstride[2] = {K * sizeof(float), K * Co * sizeof(float)};
   const cuuint32_t wbox[3] = {32, static_cast<cuuint32_t>(p.bn), 1};
-  err = make_tensor_map(&wmap, w, 3, wdims, wstride, wbox, true, true);
+  err = make_tensor_map(&wmap, w, 3, wdims, wstride, wbox, true, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   F32Args a;

@@ -8,12 +8,16 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -125,37 +129,59 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D(64 x N, fp32, registers) += A(64 x 16) . B(16 x N), both bf16 in shared
-// memory. TA / TB: 0 = K-major, 1 = MN-major. Accumulator layout: thread t
-// of the warpgroup holds rows (t / 32) * 16 + (t % 32) / 4 + {0, 8}, columns
-// 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row +0) and d[4 j + {2, 3}].
-template <int TA, int TB>
+// D(64 x N, fp32, registers) += A(64 x 16) . B(16 x N), both of element
+// type T (bf16 or f16: the same instruction shapes, fragment layouts and
+// transpose bits) in shared memory. TA / TB: 0 = K-major, 1 = MN-major.
+// Accumulator layout: thread t of the warpgroup holds rows (t / 32) * 16 +
+// (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}]
+// (row +0) and d[4 j + {2, 3}].
+#define PCMSEG_WGMMA_D32 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PCMSEG_WGMMA_D64 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PCMSEG_WGMMA_N64(TYPE)                                                                  \
+  asm volatile(                                                                                \
+      "{\n"                                                                                     \
+      ".reg .pred p;\n"                                                                         \
+      "setp.ne.b32 p, %34, 0;\n"                                                                \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "%32, %33, p, 1, 1, %35, %36;\n"                                                          \
+      "}\n"                                                                                     \
+      : PCMSEG_WGMMA_D32                                                                       \
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB))
+#define PCMSEG_WGMMA_N128(TYPE)                                                                 \
+  asm volatile(                                                                                \
+      "{\n"                                                                                     \
+      ".reg .pred p;\n"                                                                         \
+      "setp.ne.b32 p, %66, 0;\n"                                                                \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "                          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p, 1, 1, %67, %68;\n"                                                          \
+      "}\n"                                                                                     \
+      : PCMSEG_WGMMA_D64                                                                       \
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB))
+
+template <int TA, int TB, typename T = bf16>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
+  static_assert(std::is_same<T, bf16>::value || std::is_same<T, f16>::value, "bf16 or f16 operands");
+  if constexpr (std::is_same<T, f16>::value)
+    PCMSEG_WGMMA_N64("f16");
+  else
+    PCMSEG_WGMMA_N64("bf16");
 }
 
-template <int TA, int TB>
+template <int TA, int TB, typename T = bf16>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
+  static_assert(std::is_same<T, bf16>::value || std::is_same<T, f16>::value, "bf16 or f16 operands");
+  if constexpr (std::is_same<T, f16>::value)
+    PCMSEG_WGMMA_N128("f16");
+  else
+    PCMSEG_WGMMA_N128("bf16");
 }
+
+#undef PCMSEG_WGMMA_N64
+#undef PCMSEG_WGMMA_N128
+#undef PCMSEG_WGMMA_D32
+#undef PCMSEG_WGMMA_D64
 
 // ---- TF32 wgmma with A from registers (3xTF32 fp32 products) ----------------
 //
@@ -280,15 +306,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 (or, with `f32`, fp32) tensor: `rank` dims, dims[0]
-// innermost and contiguous, byte strides of dims 1..rank-1, `box` elements
-// per dim loaded at a time, optionally 128-byte swizzled.
+// The tensor-map data type of element type T (bf16, f16 or fp32).
+template <typename T>
+constexpr CUtensorMapDataType tensor_map_type() {
+  if constexpr (std::is_same<T, float>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  else if constexpr (std::is_same<T, f16>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  else return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+inline size_t tensor_map_element_bytes(CUtensorMapDataType type) {
+  return type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+}
+
+// Tensor map of a tensor of `type` (bf16, f16 or fp32): `rank` dims,
+// dims[0] innermost and contiguous, byte strides of dims 1..rank-1, `box`
+// elements per dim loaded at a time, optionally 128-byte swizzled.
 cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128, bool f32 = false) {
+                            const cuuint64_t* strides, const cuuint32_t* box, bool swizzle128,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUtensorMapDataType type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -296,20 +334,21 @@ cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 5-D map of an NDHWC bf16 (or, with `f32`, fp32) tensor (dims C, W, H,
-// D, N) loading boxes of {bc channels, bx, by, bz, 1}: the bf16 kernels use
-// bc = 8 (16-byte rows, no swizzle) and bc = 64 with `swizzle128` (128-byte
-// rows, swizzled), the fp32 ones unswizzled rows of 4, 8 and 64 channels.
+// A 5-D map of an NDHWC tensor of `type` (dims C, W, H, D, N) loading boxes
+// of {bc channels, bx, by, bz, 1}: the 16-bit kernels use bc = 8 (16-byte
+// rows, no swizzle) and bc = 64 with `swizzle128` (128-byte rows,
+// swizzled), the fp32 ones unswizzled rows of 4, 8 and 64 channels.
 cudaError_t make_ndhwc_map(CUtensorMap* map, const void* base, int N, int D, int H, int W, int C, int bc,
-                           int bx, int by, int bz, bool swizzle128, bool f32 = false) {
+                           int bx, int by, int bz, bool swizzle128,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(N)};
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * (f32 ? sizeof(float) : sizeof(bf16));
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * tensor_map_element_bytes(type);
   const cuuint64_t strides[4] = {row, row * W, row * W * H, row * W * H * D};
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(bc), static_cast<cuuint32_t>(bx),
                              static_cast<cuuint32_t>(by), static_cast<cuuint32_t>(bz), 1};
-  return make_tensor_map(map, base, 5, dims, strides, box, swizzle128, f32);
+  return make_tensor_map(map, base, 5, dims, strides, box, swizzle128, type);
 }
 
 }  // namespace

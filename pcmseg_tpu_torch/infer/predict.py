@@ -312,6 +312,10 @@ class Predictor:
         self.config = config
         self.device = resolve_device(device)
         self.dtype = compute_dtype(config.compute_dtype)
+        # the stack's dtype: bf16 for bf16 compute (the model casts at its
+        # first layer, so rounding here is the same and halves the bytes),
+        # fp32 otherwise (``predict.py:469-472, 636-637``)
+        self.wire_dtype = torch.bfloat16 if self.dtype == torch.bfloat16 else torch.float32
         if preloaded is not None:
             self.models = [self._serving_model(*preloaded)]
         else:
@@ -400,15 +404,15 @@ class Predictor:
         return total / len(self._members)
 
     def _upload(self, image) -> torch.Tensor:
-        """Host array → device tensor in the compute dtype; on CUDA through
+        """Host array → device tensor in the wire dtype; on CUDA through
         pinned memory, one H2D copy. A tensor (the device-ingested stack)
         passes through as it is."""
         if isinstance(image, torch.Tensor):
-            return image.to(self.device, self.dtype)
+            return image.to(self.device, self.wire_dtype)
         host = torch.from_numpy(np.ascontiguousarray(image))
         if self.device.type != "cuda":
-            return host.to(self.dtype)
-        pinned = torch.empty(host.shape, dtype=self.dtype, pin_memory=True)
+            return host.to(self.wire_dtype)
+        pinned = torch.empty(host.shape, dtype=self.wire_dtype, pin_memory=True)
         pinned.copy_(host)
         return pinned.to(self.device, non_blocking=True)
 
@@ -508,7 +512,7 @@ class Predictor:
 
     def _device_ingest_stack(self, channels: Sequence[Optional[np.ndarray]]) -> torch.Tensor:
         """Raw per-modality host arrays (None: zero-filled) → the normalized
-        (D, H, W, C) stack on the device in the compute dtype
+        (D, H, W, C) stack on the device in the wire dtype
         (``predict.py:476-536``). Each present channel is uploaded in its own
         dtype (int16: the 2 B/voxel of the bf16 wire) through pinned memory,
         then normalized in fp32, cast and stacked there."""
@@ -529,7 +533,7 @@ class Predictor:
             else:
                 x = torch.from_numpy(a if a.flags.writeable else a.copy())
             stack.append(normalize_on_device(x, cfg.normalize, cfg.norm_percentiles))
-        return torch.stack(stack, dim=-1).to(self.dtype)
+        return torch.stack(stack, dim=-1).to(self.wire_dtype)
 
     def predict_case(
         self, case_dir: str, handle_missing: Optional[str] = None

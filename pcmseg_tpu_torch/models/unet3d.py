@@ -28,8 +28,11 @@ With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
 Parameters are in ``param_dtype`` (fp32 by default; bf16 or fp16 as JAX's
 ``param_dtype``), BatchNorm's running statistics fp32 whatever it is (as
 ``norm.py:47-52`` keeps them); activations run in ``dtype`` (bf16 by
-default, or fp32), each parameter cast to it where a layer uses it; the
-logits come back fp32.
+default, fp16 or fp32), each parameter cast to it where a layer uses it;
+norms compute their statistics in fp32 and save their input in ``dtype``;
+the logits come back fp32. fp16 activations overflow to ±inf past 65504
+and keep their subnormals, as JAX's do: there is no loss scaling, as JAX
+has none.
 
 Spatial parallelism: under a ``collectives.spatial`` plan the forward runs
 on this rank's D-slab of the volume. Every module knows its U-Net level
@@ -76,18 +79,18 @@ MIN_INPUT_SIZE = 16  # four 2x max-pools
 NORM_LAYERS = ("batch", "group", "none")
 
 # the compute dtypes the port's kernels take, and the parameter dtypes
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def compute_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's ``compute_dtype``. JAX takes any name
     ``jnp.dtype`` takes (``unet3d.py:528``); a dtype the port's kernels do
-    not compute in (float16, float64, ...) raises ``NotImplementedError``
-    naming it."""
+    not compute in (float64, ...) raises ``NotImplementedError`` naming
+    it."""
     if name not in DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={name!r}: the port's conv kernels compute in {' or '.join(DTYPES)}")
+            f"compute_dtype={name!r}: the port's conv kernels compute in {', '.join(DTYPES)}")
     return DTYPES[name]
 
 

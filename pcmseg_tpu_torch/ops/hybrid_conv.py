@@ -12,7 +12,7 @@ The port of ``pcmseg_tpu/ops/hybrid_conv.py::conv3x3_hybrid`` with
     parameter layout in the parameter's dtype;
   * db: Σ dy in fp32, in the parameter's dtype.
 
-Each kernel runs in x's dtype: bf16 or fp32 operands (``compute_dtype``),
+Each kernel runs in x's dtype: bf16, fp16 or fp32 operands (``compute_dtype``),
 whatever the parameters' dtype (``param_dtype``), from which the packed
 weight is cast.
 
@@ -46,7 +46,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
+from pcmseg_tpu_torch.ops.kernels.conv3d import _work_dtype, conv3x3x3, pack_weight
 from pcmseg_tpu_torch.ops.kernels.conv3d_grad import conv3x3_dw
 from pcmseg_tpu_torch.parallel.collectives import Comm, halo_exchange
 
@@ -87,7 +87,7 @@ def conv3x3(
     """Differentiable 3³ SAME conv + bias over NDHWC.
 
     Args:
-      x: (N, D, H, W, Ci); bf16 or fp32 on CUDA.
+      x: (N, D, H, W, Ci); bf16, fp16 or fp32 on CUDA.
       weight: (Co, Ci, 3, 3, 3) parameter (fp32, bf16 or fp16).
       bias: (Co,) parameter in the weight's dtype.
       w_packed: ``pack_weight(weight, x.dtype)``, the forward kernel's copy
@@ -103,9 +103,16 @@ def conv3x3_plain(
     bias: torch.Tensor,
     w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of :func:`conv3x3` (``w_packed`` is ignored)."""
+    """Plain version of :func:`conv3x3` (``w_packed`` is ignored). fp16 x
+    is convolved in fp32 and rounded once, as ``conv3x3x3_reference``
+    does, with the weight's values rounded to fp16 and its gradient left
+    in fp32, as the Function leaves dW."""
     del w_packed
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype), padding=1).permute(0, 2, 3, 4, 1)
+    w = weight.to(x.dtype)
+    if _work_dtype(x.dtype) != x.dtype:
+        wf = weight.float()
+        w = wf + (w.float() - wf).detach()
+    y = F.conv3d(x.to(w.dtype).permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
     acc = torch.promote_types(x.dtype, torch.float32)
     return (y.to(acc) + bias.to(acc)).to(x.dtype).contiguous()
 

@@ -117,10 +117,18 @@ def load_library() -> ctypes.CDLL:
         lib.pcmseg_conv3x3x3_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3x3_bf16.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3x3_bf16.restype = i
+        lib.pcmseg_conv3x3x3_f16_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.pcmseg_conv3x3x3_f16_workspace_bytes.restype = ll
+        lib.pcmseg_conv3x3x3_f16.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3x3_f16.restype = i
         lib.pcmseg_conv3x3_dw_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
         lib.pcmseg_conv3x3_dw_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3_dw_bf16.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3_dw_bf16.restype = i
+        lib.pcmseg_conv3x3_dw_f16_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
+        lib.pcmseg_conv3x3_dw_f16_workspace_bytes.restype = ll
+        lib.pcmseg_conv3x3_dw_f16.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3_dw_f16.restype = i
         lib.pcmseg_conv3x3x3_f32_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
         lib.pcmseg_conv3x3x3_f32_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3x3_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]

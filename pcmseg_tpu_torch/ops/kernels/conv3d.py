@@ -2,9 +2,10 @@
 
 ``conv3x3x3`` replaces the Pallas TPU kernel
 ``pcmseg_tpu/ops/pallas/conv3d.py::conv3x3x3``, which computes in x's dtype,
-bf16 or fp32. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
-dtype: bf16 x and weight to ``csrc/conv3x3x3.cu`` (wgmma), fp32 x and weight
-to ``csrc/conv3x3x3_f32.cu`` (3xTF32 wgmma: each operand split as
+bf16, fp16 or fp32. A CUDA tensor goes to a hand-written ``sm_90a`` kernel
+of its dtype: bf16 and fp16 x and weight to ``csrc/conv3x3x3.cu`` (wgmma,
+one template, an entry point each), fp32 x and weight to
+``csrc/conv3x3x3_f32.cu`` (3xTF32 wgmma: each operand split as
 ``tf32_split`` splits it, the three products hi·hi, hi·lo and lo·hi, fp32's
 accuracy on the tensor cores; the wrapper splits the packed weight, the
 kernel x); a CPU tensor goes to ``conv3x3x3_reference``, the same function
@@ -16,7 +17,7 @@ as the Pallas wrapper casts it).
 Weights are packed once per load (``pack_weight``) from the module layout
 (Co, Ci, 3, 3, 3) into the kernel's (Co, 27 * ci_pad(Ci)) GEMM matrix:
 column ``tap * ci_pad(Ci) + ci`` with ``tap = (kd * 3 + kh) * 3 + kw``. The
-bf16 kernel reads x in 64-channel chunks and the fp32 kernel in 32-channel
+16-bit kernels read x in 64-channel chunks and the fp32 kernel in 32-channel
 chunks, each or as one 8-channel slab: for both the channels are padded
 with zeros to 8 (Ci <= 8, the 5-modality input conv) or to a multiple of
 64, in the packed weight and, by the wrapper, in x.
@@ -31,15 +32,21 @@ import torch
 import torch.nn.functional as F
 
 # kernel launches since the count was last set to 0 (CPU calls not counted),
-# of the bf16 kernel (``launches``) and of the fp32 one (``launches_f32``); a
-# sharded Predictor launches from one thread a shard
+# of the bf16 kernel (``launches``), the fp32 one (``launches_f32``) and the
+# fp16 one (``launches_f16``); a sharded Predictor launches from one thread a
+# shard
 launches = 0
 launches_f32 = 0
+launches_f16 = 0
 _count_lock = threading.Lock()
-# the C entry point of each operand dtype's kernel
-_ENTRY = {torch.bfloat16: "pcmseg_conv3x3x3_bf16", torch.float32: "pcmseg_conv3x3x3_f32"}
+# the C entry point of each operand dtype's kernel, of its workspace size,
+# and the counter of its launches
+_ENTRY = {torch.bfloat16: "pcmseg_conv3x3x3_bf16", torch.float16: "pcmseg_conv3x3x3_f16",
+          torch.float32: "pcmseg_conv3x3x3_f32"}
 _WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3x3_workspace_bytes",
+              torch.float16: "pcmseg_conv3x3x3_f16_workspace_bytes",
               torch.float32: "pcmseg_conv3x3x3_f32_workspace_bytes"}
+_COUNTER = {torch.bfloat16: "launches", torch.float16: "launches_f16", torch.float32: "launches_f32"}
 
 
 def _tf32(a: torch.Tensor) -> torch.Tensor:
@@ -93,6 +100,14 @@ def unpack_weight(packed: torch.Tensor, ci: int) -> torch.Tensor:
     return packed.reshape(co, 27, ci_pad(ci))[:, :, :ci].reshape(co, 3, 3, 3, ci).permute(0, 4, 1, 2, 3)
 
 
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions convolve ``dtype`` operands in: their
+    own, but fp16 in fp32. PyTorch rounds an fp16 conv's sums to fp16; the
+    kernels (and the Pallas ones) sum the exact products of fp16 values in
+    fp32 and round once, which fp32 operands give."""
+    return torch.float32 if dtype == torch.float16 else dtype
+
+
 def conv3x3x3_reference(
     x: torch.Tensor,
     w_packed: torch.Tensor,
@@ -101,10 +116,12 @@ def conv3x3x3_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``F.conv3d`` in x's dtype on an NCDHW view,
     then bias in fp32 (float64 for a float64 x), ReLU, and a cast back to
-    x's dtype."""
-    w = unpack_weight(w_packed, x.shape[-1]).to(x.dtype)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
+    x's dtype. fp16 runs the conv in fp32 (``_work_dtype``), so that the
+    sum is rounded to fp16 once, as the kernel rounds it."""
     acc = torch.promote_types(x.dtype, torch.float32)
+    work = _work_dtype(x.dtype)
+    w = unpack_weight(w_packed, x.shape[-1]).to(work)
+    y = F.conv3d(x.to(work).permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
     y = y.to(acc)
     if b is not None:
         y = y + b.to(acc)
@@ -126,7 +143,7 @@ def _check_cuda_args(x, w_packed, b):
     if co % 8:
         raise ValueError(f"the CUDA kernel needs Co % 8 == 0, got Co={co}")
     if x.dtype not in _ENTRY:
-        raise TypeError(f"the CUDA kernels take bf16 or fp32 x and weight, got {x.dtype}")
+        raise TypeError(f"the CUDA kernels take bf16, fp16 or fp32 x and weight, got {x.dtype}")
     tensors = [x, w_packed]
     if b is not None:
         if b.dtype != torch.float32 or tuple(b.shape) != (co,):
@@ -152,7 +169,7 @@ def conv3x3x3(
     """``max(conv3d_same(x, W) + b, 0)`` over NDHWC.
 
     Args:
-      x: (N, D, H, W, Ci); bf16 or fp32 on CUDA, any float dtype on the CPU.
+      x: (N, D, H, W, Ci); bf16, fp16 or fp32 on CUDA, any float dtype on the CPU.
       w_packed: ``pack_weight`` output in x's dtype.
       b: (Co,) bias, or None; added in fp32 (float64 for a float64 x on the CPU).
       relu: apply the ReLU in the epilogue.
@@ -191,10 +208,6 @@ def conv3x3x3(
             f"conv3x3x3 launch failed: {lib.pcmseg_cuda_error_string(rc).decode()} "
             f"(x {tuple(x.shape)}, Co={co})"
         )
-    global launches, launches_f32
     with _count_lock:
-        if x.dtype == torch.float32:
-            launches_f32 += 1
-        else:
-            launches += 1
+        globals()[_COUNTER[x.dtype]] += 1
     return out

@@ -1,9 +1,10 @@
 """Weight gradient of the 3³ SAME conv over NDHWC: CUDA kernel and plain version.
 
 ``conv3x3_dw`` replaces the Pallas TPU kernel
-``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``, which takes bf16 or
-fp32 x and dy. A CUDA tensor goes to a hand-written ``sm_90a`` kernel of its
-dtype: bf16 to ``csrc/conv3x3_dw.cu`` (wgmma), fp32 to
+``pcmseg_tpu/ops/pallas/conv3d_grad.py::conv3x3_dw``, which takes x and dy
+in one float dtype. A CUDA tensor goes to a hand-written ``sm_90a`` kernel
+of its dtype: bf16 and fp16 to ``csrc/conv3x3_dw.cu`` (wgmma, one template,
+an entry point each; split-K partials summed in a fixed order), fp32 to
 ``csrc/conv3x3_dw_f32.cu`` (3xTF32 wgmma, x and dy split in the kernel as
 ``conv3d.tf32_split`` splits them); a CPU tensor goes to
 ``conv3x3_dw_reference``, the same function in plain PyTorch.
@@ -17,27 +18,34 @@ from __future__ import annotations
 
 import torch
 
-from pcmseg_tpu_torch.ops.kernels.conv3d import pad_channels
+from pcmseg_tpu_torch.ops.kernels.conv3d import _work_dtype, pad_channels
 
 # kernel launches since the count was last set to 0 (CPU calls not counted),
-# of the bf16 kernel (``launches``) and of the fp32 one (``launches_f32``)
+# of the bf16 kernel (``launches``), the fp32 one (``launches_f32``) and the
+# fp16 one (``launches_f16``)
 launches = 0
 launches_f32 = 0
-# the C entry point of each operand dtype's kernel, and of its workspace size
-_ENTRY = {torch.bfloat16: "pcmseg_conv3x3_dw_bf16", torch.float32: "pcmseg_conv3x3_dw_f32"}
+launches_f16 = 0
+# the C entry point of each operand dtype's kernel, of its workspace size,
+# and the counter of its launches
+_ENTRY = {torch.bfloat16: "pcmseg_conv3x3_dw_bf16", torch.float16: "pcmseg_conv3x3_dw_f16",
+          torch.float32: "pcmseg_conv3x3_dw_f32"}
 _WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3_dw_workspace_bytes",
+              torch.float16: "pcmseg_conv3x3_dw_f16_workspace_bytes",
               torch.float32: "pcmseg_conv3x3_dw_f32_workspace_bytes"}
+_COUNTER = {torch.bfloat16: "launches", torch.float16: "launches_f16", torch.float32: "launches_f32"}
 
 
 def conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``torch.nn.grad.conv3d_weight`` in x's dtype
-    on NCDHW views, returned as (3, 3, 3, Ci, Co) in fp32 (float64 for a
-    float64 x)."""
+    (fp16 in fp32, ``conv3d._work_dtype``) on NCDHW views, returned as
+    (3, 3, 3, Ci, Co) in fp32 (float64 for a float64 x)."""
     ci, co = x.shape[-1], dy.shape[-1]
-    gw = torch.nn.grad.conv3d_weight(
-        x.permute(0, 4, 1, 2, 3), (co, ci, 3, 3, 3), dy.to(x.dtype).permute(0, 4, 1, 2, 3), padding=1
-    )
     acc = torch.promote_types(x.dtype, torch.float32)
+    work = _work_dtype(x.dtype)
+    gw = torch.nn.grad.conv3d_weight(
+        x.to(work).permute(0, 4, 1, 2, 3), (co, ci, 3, 3, 3), dy.to(work).permute(0, 4, 1, 2, 3), padding=1
+    )
     return gw.to(acc).permute(2, 3, 4, 1, 0).contiguous()
 
 
@@ -48,7 +56,7 @@ def _check_cuda_args(x: torch.Tensor, dy: torch.Tensor) -> None:
             f"got {tuple(x.shape)} and {tuple(dy.shape)}"
         )
     if x.dtype not in _ENTRY:
-        raise TypeError(f"the CUDA kernels take bf16 or fp32 x and dy, got {x.dtype}")
+        raise TypeError(f"the CUDA kernels take bf16, fp16 or fp32 x and dy, got {x.dtype}")
     co = dy.shape[-1]
     if co % 8:
         raise ValueError(f"the CUDA kernel needs Co % 8 == 0, got Co={co}")
@@ -68,8 +76,8 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """``dW`` of ``y = conv3d_same(x, W)`` given ``dy``.
 
     Args:
-      x: (N, D, H, W, Ci) forward input; bf16 or fp32 on CUDA, any float dtype
-        on the CPU.
+      x: (N, D, H, W, Ci) forward input; bf16, fp16 or fp32 on CUDA, any
+        float dtype on the CPU.
       dy: (N, D, H, W, Co) output gradient in x's dtype.
     Returns (3, 3, 3, Ci, Co) fp32 (the JAX kernel's layout; float64 for a
     float64 x on the CPU), summed over every voxel of the batch.
@@ -104,9 +112,5 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             f"conv3x3_dw launch failed: {lib.pcmseg_cuda_error_string(rc).decode()} "
             f"(x {tuple(x.shape)}, Co={co})"
         )
-    global launches, launches_f32
-    if x.dtype == torch.float32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    globals()[_COUNTER[x.dtype]] += 1
     return out if ci == real_ci else out[:, :, :, :real_ci].contiguous()

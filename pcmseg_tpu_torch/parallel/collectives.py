@@ -467,7 +467,7 @@ def sum_input_grads(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     input of a layer whose output channels are sharded, each rank's
     cotangent of it a partial sum over its own channels. The sum runs in
     the cotangent's own dtype, as GSPMD all-reduces a partial result in
-    its dtype: bf16 on the card, where two ranks' sum is rounded once
+    its dtype: bf16 or fp16 on the card, where two ranks' sum is rounded once
     either way and half the bytes of an fp32 sum cross."""
     return _SumInputGrads.apply(x, comm)
 

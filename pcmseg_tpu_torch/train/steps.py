@@ -469,7 +469,6 @@ class _MeshStep:
         )
         self._levels: Dict[int, sharding.LevelPlan] = {}
         self.group_size = 1  # q of layout (c), set by the train step
-        self._micro = None
 
     def slab_plan(self, batch: dict):
         """(the batch as this rank holds it, its ``SpatialPlan`` or None): on
@@ -497,11 +496,9 @@ class _MeshStep:
 
     def _microbatch(self):
         """Layout (c): this rank's microbatch group and its rows
-        (``collectives.microbatch_comms``), made at first use, when every
-        rank's step reaches it."""
-        if self._micro is None:
-            self._micro = collectives.microbatch_comms(self.mesh, self.group_size)
-        return self._micro
+        (``collectives.microbatch_comms``; the groups are made once, at the
+        first step that every rank runs in this layout)."""
+        return collectives.microbatch_comms(self.mesh, self.group_size)
 
     def synchronized(self, layout: str = "a"):
         """The ``synchronized_batch`` of a microbatch in ``layout``: (a) the

@@ -187,9 +187,10 @@ def test_shard_batch_slices_arrays_tensors_and_lists():
 def test_unported_axes_and_tensor_parallel_specs_are_refused():
     """Every mesh axis is ported now: tensor parallelism's specs are JAX's
     rule by shape (tests/test_torch_tp.py holds them against JAX's), and a
-    model with a model axis builds, with fp32 or 16-bit parameters. What
-    is still refused by name, where every entry point builds its model, is
-    a compute or parameter dtype outside the ported ones."""
+    model with a model axis builds, with fp32 or 16-bit parameters, and
+    with fp16 compute. What is still refused by name, where every entry
+    point builds its model, is a compute or parameter dtype outside the
+    ported ones."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -202,8 +203,9 @@ def test_unported_axes_and_tensor_parallel_specs_are_refused():
     UNet3D.from_config(get_config(spatial_parallel=2, tensor_parallel=2), device="meta")
     model = UNet3D.from_config(get_config(tensor_parallel=2, param_dtype="bfloat16"), device="meta")
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
-    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
-        UNet3D.from_config(get_config(tensor_parallel=2, compute_dtype="float16"), device="meta")
+    assert UNet3D.from_config(get_config(tensor_parallel=2, compute_dtype="float16"), device="meta").dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
+        UNet3D.from_config(get_config(tensor_parallel=2, compute_dtype="float64"), device="meta")
 
 
 def test_one_process_group_initialises_once_and_needs_no_traffic():

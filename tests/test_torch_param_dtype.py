@@ -898,11 +898,11 @@ def test_fp32_and_bf16_cpu_tensors_run_the_plain_versions():
 @pytest.mark.parametrize("name", ["float16", "float64"])
 def test_compute_dtypes_the_kernels_do_not_take_are_refused_by_name(name, tree, tmp_path):
     """JAX computes in any dtype ``jnp.dtype`` names; the port's kernels in
-    bf16 and fp32. Another compute dtype is refused by name with
-    ``NotImplementedError`` where a model, a Trainer, a Validator or a
-    Predictor is built (JAX's fp16 compute would be a ``.f16`` twin of the
-    bf16 kernels, ROADMAP queue B), and so is a param dtype outside fp32,
-    bf16 and fp16."""
+    bf16, fp16 and fp32. fp16 compute builds where a model, a Trainer, a
+    Validator or a Predictor is built (tests/test_torch_fp16.py holds it
+    against JAX); another compute dtype is refused there by name with
+    ``NotImplementedError``, and so is a param dtype outside fp32, bf16
+    and fp16."""
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.infer.predict import Predictor
     from pcmseg_tpu_torch.infer.validate import Validator
@@ -910,17 +910,20 @@ def test_compute_dtypes_the_kernels_do_not_take_are_refused_by_name(name, tree, 
     from pcmseg_tpu_torch.train.checkpoints import save_pth
     from pcmseg_tpu_torch.train.trainer import Trainer
 
-    match = f"compute_dtype='{name}'"
-    with pytest.raises(NotImplementedError, match=match):
-        UNet3D.from_config(get_config(base_features=4, compute_dtype=name), device="meta")
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(_trainer_config(tree, tmp_path / "t", compute_dtype=name), device="cpu")
     pth = save_pth(str(tmp_path / "m.pth"), UNet3D(base_features=4).state_dict(), {"base_features": 4})
     config = _trainer_config(tree, tmp_path / "v", compute_dtype=name)
-    with pytest.raises(NotImplementedError, match=match):
-        Predictor(config, pth, explicit=["compute_dtype"], device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        Validator(config, pth, explicit=["compute_dtype"], device="cpu")
+    builds = [
+        lambda: UNet3D.from_config(get_config(base_features=4, compute_dtype=name), device="meta").dtype,
+        lambda: Trainer(_trainer_config(tree, tmp_path / "t", compute_dtype=name), device="cpu").dtype,
+        lambda: Predictor(config, pth, explicit=["compute_dtype"], device="cpu").dtype,
+        lambda: Validator(config, pth, explicit=["compute_dtype"], device="cpu").dtype,
+    ]
+    for build in builds:
+        if name == "float16":
+            assert build() == torch.float16
+            continue
+        with pytest.raises(NotImplementedError, match=f"compute_dtype='{name}'"):
+            build()
     if name == "float64":
         with pytest.raises(NotImplementedError, match="param_dtype='float64'"):
             UNet3D.from_config(get_config(base_features=4, param_dtype=name), device="meta")

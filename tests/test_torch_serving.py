@@ -249,8 +249,9 @@ def test_unported_options_are_refused(slice_setup, overrides, names):
     (every parameter of the served model; the weights rounded once move the
     probabilities through 18 convs by up to 0.032, measured, held to the
     bounds that ``chip_smoke.py`` holds bf16 serving to against fp32:
-    PLAIN_MAX_DP 0.1 and PLAIN_MEAN_DP 1e-2), and a compute dtype the
-    kernels do not take is refused by name."""
+    PLAIN_MAX_DP 0.1 and PLAIN_MEAN_DP 1e-2), a ``compute_dtype`` of
+    'float16' serves in fp16 from an fp32 stack within the same bounds, and
+    a compute dtype the kernels do not take is refused by name."""
     config, pth, _, _ = slice_setup
     if names == "spatial_parallel":
         image = np.random.default_rng(0).normal(size=(16, 16, 16, 5)).astype(np.float32)
@@ -264,8 +265,12 @@ def test_unported_options_are_refused(slice_setup, overrides, names):
         assert {p.dtype for m in low.models for p in m.parameters()} == {torch.bfloat16}
         dp = np.abs(low.predict_probs(image) - plain)
         assert dp.max() <= 0.1 and dp.mean() <= 1e-2, (dp.max(), dp.mean())
-        with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
-            Predictor(config.replace(compute_dtype="float16"), pth, explicit=["compute_dtype"], device="cpu")
+        half = Predictor(config.replace(compute_dtype="float16"), pth, explicit=["compute_dtype"], device="cpu")
+        assert half.dtype == torch.float16 and half.wire_dtype == torch.float32
+        dp = np.abs(half.predict_probs(image) - plain)
+        assert dp.max() <= 0.1 and dp.mean() <= 1e-2, (dp.max(), dp.mean())
+        with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
+            Predictor(config.replace(compute_dtype="float64"), pth, explicit=["compute_dtype"], device="cpu")
         return
     if names in ("device_ingest", "profile_dir"):
         predictor = Predictor(config.replace(**overrides), pth, explicit=list(overrides), device="cpu")

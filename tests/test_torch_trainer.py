@@ -124,8 +124,9 @@ def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
     """``param_dtype`` 'bfloat16', ported since
     (tests/test_torch_param_dtype.py holds it against JAX), builds a
     trainer with bf16 parameters and moments and fp32 running statistics;
-    a compute dtype the kernels do not take is what is refused by name
-    now. Deep supervision, K-class heads, GroupNorm,
+    fp16 compute, ported since (tests/test_torch_fp16.py), builds a trainer
+    that computes in it; a compute dtype the kernels do not take (float64)
+    is what is refused by name now. Deep supervision, K-class heads, GroupNorm,
     asynchronous checkpoints, profiling and data, spatial and tensor
     parallelism, ported since, build a trainer that has them
     (tests/test_torch_deep_supervision.py, tests/test_torch_kclass.py,
@@ -169,8 +170,9 @@ def test_unported_options_are_refused_by_name(tree, tmp_path, option, caplog):
         assert {p.dtype for p in state.model.parameters()} == {torch.bfloat16}
         assert {b.dtype for k, b in state.model.named_buffers() if "running" in k} == {torch.float32}
         assert type(state.optimizer).__name__ == "Adam16"
-    with pytest.raises(NotImplementedError, match="compute_dtype='float16'"):
-        Trainer(_config(tree, tmp_path, **option, compute_dtype="float16"), device="cpu")
+    assert Trainer(_config(tree, tmp_path, **option, compute_dtype="float16"), device="cpu").dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="compute_dtype='float64'"):
+        Trainer(_config(tree, tmp_path, **option, compute_dtype="float64"), device="cpu")
 
 
 def test_cli_refuses_cross_validation(tree, capsys, monkeypatch):

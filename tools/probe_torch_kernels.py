@@ -1,6 +1,6 @@
 """Quick check of the port's conv kernels on one NVIDIA GPU, for kernel work.
 
-    python tools/probe_torch_kernels.py [--ptxas] [--time] [--f32]
+    python tools/probe_torch_kernels.py [--ptxas] [--time] [--f32 | --f16]
 
 Builds the kernels (with --ptxas, first prints each source's registers,
 spills and warnings from ``nvcc -Xptxas -v``, and with --f32 the fp32
@@ -15,7 +15,12 @@ of the card's bound for its operands (bf16: 989 TFLOP/s; fp32: 3xTF32,
 494.7 / 3 TFLOP/s), and prints the card's name and power limit. With --f32,
 the fp32 kernels instead of the bf16 ones, each held against a float64 conv
 of the same fp32 inputs: its error at most twice cuDNN's fp32 error (TF32
-off) plus 1e-6 of the largest output. The last line is ALL OK or SOME FAILED.
+off) plus 1e-6 of the largest output. With --f16, the fp16 kernels, held
+against an fp32 conv of the same fp16 inputs within the bf16 bounds scaled by
+the unit roundoffs (2^-11 against 2^-8), and at outputs and inputs in fp16's
+subnormal range and past its largest value: subnormals kept (not flushed to
+zero), ±inf where the fp32 result rounds past 65504. The last line is ALL OK
+or SOME FAILED.
 """
 import os
 import subprocess
@@ -33,7 +38,10 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 F32 = "--f32" in sys.argv
-DT = torch.float32 if F32 else torch.bfloat16
+F16 = "--f16" in sys.argv
+DT = torch.float32 if F32 else torch.float16 if F16 else torch.bfloat16
+# the 16-bit bounds, relative: fp16's unit roundoff 2^-11 is 1/8 of bf16's 2^-8
+REL = 1 / 8 if F16 else 1.0
 
 
 def sync(label, limit=30.0):
@@ -84,7 +92,7 @@ def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
     else:
         ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), b, relu)
         err = (got.float() - ref).abs()
-        bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+        bound = REL * (8e-3 * ref.abs() + 1e-3 * ref.abs().max())
     bad = err > bound
     ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
     log(f"B1 {label} n={n} {sp} {ci}->{co} relu={relu}: {'OK' if ok else 'FAIL'} max_err {err.max().item():.4g} "
@@ -125,7 +133,7 @@ def b2_check(n, sp, ci, co, label="", diag=True):
     else:
         ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
         err = (got - ref).abs()
-        bound = 2e-3 * ref.abs().max().item()
+        bound = REL * 2e-3 * ref.abs().max().item()
     ok = bool(torch.isfinite(got).all()) and err.max().item() <= bound and torch.equal(got, again)
     log(f"B2 {label} n={n} {sp} {ci}->{co}: {'OK' if ok else 'FAIL'} max_err {err.max().item():.4g} bound {bound:.4g} "
         f"bitwise {torch.equal(got, again)} finite {bool(torch.isfinite(got).all())}")
@@ -169,8 +177,55 @@ B2 = [((1, (8, 8, 8), 64, 64), "general"), ((1, (8, 8, 8), 8, 64), "small"), ((1
 for args, label in B2:
     results.append(b2_check(*args, label=label))
 
+
+def f16_range_checks():
+    """fp16's edges: B1 outputs in the subnormal range and past 65504, B2 on
+    subnormal dy. Subnormals must be kept, overflow must give ±inf."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, 8, 8, 8, 64), generator=g, device=dev).half()
+    w = torch.randn((64, 64, 3, 3, 3), generator=g, device=dev) * (2.0 / (27 * 64)) ** 0.5
+    oks = []
+    tiny = 2.0 ** -24  # fp16's least subnormal
+    for scale, label in ((2.0 ** -18, "subnormal outputs"), (2.0 ** 14, "overflowing outputs")):
+        packed = conv3d.pack_weight(w * scale, torch.float16)
+        got = conv3d.conv3x3x3(x, packed, None, False)
+        sync(f"B1 {label}")
+        ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), None, False)
+        want = ref.half()  # astype: round to nearest even, subnormals kept, inf past 65504
+        finite = torch.isfinite(want) & torch.isfinite(got)
+        err = (got.float() - want.float()).abs()[finite]
+        # inf where the fp32 sum rounds past 65504; another summation order
+        # may land on the other side only within a few ulps of 65520
+        edge = (ref.abs() - 65520.0).abs() <= 1e-3 * 65520.0
+        ok = bool((torch.isinf(got) == torch.isinf(want))[~edge].all()) and bool(
+            (err <= 2 * tiny + REL * (8e-3 * want.float().abs()[finite]
+                                      + 1e-3 * want.float().abs()[finite].max())).all())
+        sub = (want != 0) & (want.abs() < 2.0 ** -14)
+        if scale < 1:
+            kept = int(((got != 0) & sub).sum())
+            ok = ok and kept >= 0.99 * int(sub.sum()) > 0
+            label += f" ({kept} of {int(sub.sum())} subnormal outputs kept)"
+        else:
+            label += f" ({int((~finite).sum())} of {want.numel()} past 65504)"
+        log(f"B1 f16 {label}: {'OK' if ok else 'FAIL'} max_err {float(err.max()):.4g}")
+        oks.append(ok)
+    dy = (torch.randn((1, 8, 8, 8, 64), generator=g, device=dev) * 2.0 ** -18).half()
+    got = conv3d_grad.conv3x3_dw(x, dy)
+    sync("B2 subnormal dy")
+    ref = conv3d_grad.conv3x3_dw_reference(x.float(), dy.float())
+    err = float((got - ref).abs().max())
+    share = float(((dy != 0) & (dy.abs() < 2.0 ** -14)).float().mean())
+    ok = err <= REL * 2e-3 * float(ref.abs().max()) and float(ref.abs().max()) > 0
+    log(f"B2 f16 subnormal dy ({share:.3f} of dy subnormal): {'OK' if ok else 'FAIL'} max_err {err:.4g} "
+        f"of max {float(ref.abs().max()):.4g}")
+    return oks + [ok]
+
+
+if F16:
+    results += f16_range_checks()
+
 if "--time" in sys.argv:
-    peak = 494.7e12 / 3 if F32 else 989e12
+    peak = 494.7e12 / 3 if F32 else 989e12  # fp16 and bf16 alike
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     log(f"card: {card}")
