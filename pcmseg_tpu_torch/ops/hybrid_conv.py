@@ -46,7 +46,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from pcmseg_tpu_torch.ops.kernels.conv3d import _work_dtype, conv3x3x3, pack_weight
+from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight, plain_dtype
 from pcmseg_tpu_torch.ops.kernels.conv3d_grad import conv3x3_dw
 from pcmseg_tpu_torch.parallel.collectives import Comm, halo_exchange
 
@@ -109,7 +109,7 @@ def conv3x3_plain(
     in fp32, as the Function leaves dW."""
     del w_packed
     w = weight.to(x.dtype)
-    if _work_dtype(x.dtype) != x.dtype:
+    if plain_dtype(x.dtype) != x.dtype:
         wf = weight.float()
         w = wf + (w.float() - wf).detach()
     y = F.conv3d(x.to(w.dtype).permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)

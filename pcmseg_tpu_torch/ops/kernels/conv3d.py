@@ -100,7 +100,7 @@ def unpack_weight(packed: torch.Tensor, ci: int) -> torch.Tensor:
     return packed.reshape(co, 27, ci_pad(ci))[:, :, :ci].reshape(co, 3, 3, 3, ci).permute(0, 4, 1, 2, 3)
 
 
-def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+def plain_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype the plain versions convolve ``dtype`` operands in: their
     own, but fp16 in fp32. PyTorch rounds an fp16 conv's sums to fp16; the
     kernels (and the Pallas ones) sum the exact products of fp16 values in
@@ -116,10 +116,10 @@ def conv3x3x3_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``F.conv3d`` in x's dtype on an NCDHW view,
     then bias in fp32 (float64 for a float64 x), ReLU, and a cast back to
-    x's dtype. fp16 runs the conv in fp32 (``_work_dtype``), so that the
+    x's dtype. fp16 runs the conv in fp32 (``plain_dtype``), so that the
     sum is rounded to fp16 once, as the kernel rounds it."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    work = _work_dtype(x.dtype)
+    work = plain_dtype(x.dtype)
     w = unpack_weight(w_packed, x.shape[-1]).to(work)
     y = F.conv3d(x.to(work).permute(0, 4, 1, 2, 3), w, padding=1).permute(0, 2, 3, 4, 1)
     y = y.to(acc)

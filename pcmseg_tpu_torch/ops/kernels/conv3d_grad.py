@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from pcmseg_tpu_torch.ops.kernels.conv3d import _work_dtype, pad_channels
+from pcmseg_tpu_torch.ops.kernels.conv3d import pad_channels, plain_dtype
 
 # kernel launches since the count was last set to 0 (CPU calls not counted),
 # of the bf16 kernel (``launches``), the fp32 one (``launches_f32``) and the
@@ -38,11 +38,11 @@ _COUNTER = {torch.bfloat16: "launches", torch.float16: "launches_f16", torch.flo
 
 def conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``torch.nn.grad.conv3d_weight`` in x's dtype
-    (fp16 in fp32, ``conv3d._work_dtype``) on NCDHW views, returned as
+    (fp16 in fp32, ``conv3d.plain_dtype``) on NCDHW views, returned as
     (3, 3, 3, Ci, Co) in fp32 (float64 for a float64 x)."""
     ci, co = x.shape[-1], dy.shape[-1]
     acc = torch.promote_types(x.dtype, torch.float32)
-    work = _work_dtype(x.dtype)
+    work = plain_dtype(x.dtype)
     gw = torch.nn.grad.conv3d_weight(
         x.to(work).permute(0, 4, 1, 2, 3), (co, ci, 3, 3, 3), dy.to(work).permute(0, 4, 1, 2, 3), padding=1
     )
