@@ -46,11 +46,21 @@ kernel on them:
      dgrad / wgrad alone; the F16_CONTRACT shapes (a 64->32 shard, a
      66x128^2 slab) error only; fp16's edges: subnormal outputs kept, ±inf
      past 65504, B2 on a subnormal dy;
+ 5d. dw_sum: B2 at the 14 shapes in bf16 and fp16 on same-sign inputs (x,
+     dy = |normal|, so every dW element is its own Σ|x·dy|), each element
+     within DW_SAME_SIGN_BOUND·Σ|x·dy| of a float64 conv of the same
+     rounded inputs, beside the plain fp32 version's error, the longest
+     tensor-core chain and what the chains of a whole split-K slice were
+     predicted to lose; ``conv3d_grad.dw_plan``'s workspace equal to the C
+     workspace functions'; B1 forwards at its longest chains (B1_SAME_SIGN)
+     on same-sign inputs, error in ulps of the output, measured only.
+     ``python3 chip_smoke.py --only dw_sum`` runs the build and this phase
+     alone;
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
      the same bf16 tensors (forward and dx within B1's bound, each dW
-     element within 3e-4·Σ|x·dy|); the loss and every 3³ conv weight's gradient of the kernel
+     element within DW_SUM_BOUND·Σ|x·dy| of float64); the loss and every 3³ conv weight's gradient of the kernel
      path (bf16) no further from the fp32 plain-conv model's than 1.5× the
      plain conv's bf16 error (+1e-3 on relative errors), the BN-preceded
      conv biases left out (their true gradient is 0); beside it, as
@@ -103,8 +113,8 @@ kernel on them:
      (finite loss, 140 B1 and 72 B2 launches), the median of 5 warm steps
      and the peak memory beside the BatchNorm step of phase 8, the step's
      device time by kernel, and one microbatch's 18 forward, 17 dx and 18
-     dW convs held against the plain versions (dW within
-     DW_SUM_BOUND_GROUP·Σ|x·dy|, the worst layer also against fp64); (b) a
+     dW convs held against the plain versions (dW against float64, within
+     DW_SUM_BOUND·Σ|x·dy|); (b) a
      1-epoch ``Trainer`` from the device cache, whose best.pth holds
      GroupNorm weight/bias, no running statistics and a 3-class head;
      (c) the ``Validator`` on best.pth (18 B1 per batch), then on a
@@ -193,8 +203,10 @@ kernel on them:
      FP16_STEP_MARGIN x the plain-conv fp16 step's + FP16_STEP_SLACK; the
      share of the head's fp16 output gradient that is zero or subnormal
      (no loss scaling, as in JAX); warm step ms, vol/s, peak memory,
-     device time by kernel; one epoch of an fp16 ``Trainer`` (no
-     checkpoints) with exact launches; one 128^3 case served by an fp16
+     device time by kernel; one microbatch's convs held against the plain
+     versions as in phase 6 (dW within DW_SUM_BOUND·Σ|x·dy|); one epoch of
+     an fp16 ``Trainer`` (no checkpoints) with exact launches; one 128^3
+     case served by an fp16
      ``Predictor`` (18 fp16 B1), as close to fp32 as check_probs holds
      bf16, the slack scaled by F16_REL. ``python3 chip_smoke.py --only
      fp16`` runs the kernel checks and this phase alone;
@@ -785,12 +797,14 @@ DX_SHAPES = tuple((co, ci, s, layers) for ci, co, s, layers in CONV_SHAPES if ci
 # B2 against the plain version in fp32 from the same bf16 inputs: fp32 sums
 # of up to 2.1 M bf16 products each, in another order
 DW_BOUND = 2e-3
-# the conv Function's dW in the model against the plain version, per element,
-# relative to Σ|x·dy| (the scale of an fp32 sum's rounding): fp32 sums over
-# up to 2.1 M voxels, each split's chunk accumulated in order, reach 6.75e-5
-# of it (128->64 @128^3). A missing corner tap is 7.7e-3 of it, a dW 10% off
-# 7.9e-4 (the input conv).
-DW_SUM_BOUND = 3e-4
+# the conv Function's dW in the model against float64, per element, relative
+# to Σ|x·dy| (the scale of an fp32 sum's rounding). B2 reads 6.4e-7 (the
+# gradients phase), 1.3e-6 (cache (c)), 2.1e-6 (kclass, GroupNorm) and 2.2e-5
+# (the fp16 step, at its 8^3 bottleneck conv, whose fp16 dy spans many
+# binades); the plain fp32 version reads up to 9.3e-5 (kclass), so the
+# reference is float64. One tensor-core chain a split-K slice loses up to
+# 5.4e-4 of a same-sign sum (dw_sum); a missing corner tap is 7.7e-3.
+DW_SUM_BOUND = 4e-5
 # the flagship training configuration (bench.py:47-60): batch 4 as 4
 # accumulated microbatches of 1, no remat, 128^3, bf16, Dice, Adam 1e-4
 SIZE = 128
@@ -906,6 +920,85 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=N
         f"plain {out['plain_ms']:.3f} ms, "
         f"cudnn dgrad alone {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms [{card}]")
     return out
+
+
+# B2 on same-sign inputs (x, dy = |normal|), where every dW element is its
+# own Σ|x·dy|: each element's relative error from float64 is what the
+# kernel's fp32 summation loses. The tensor cores' fp32 sums lose about
+# 2^-23 of the running sum a k16 step (SLICE_STEP_LOSS: the chain model
+# that predicts the loss of one chain over a whole split-K slice); the
+# kernel cuts every tensor-core chain to conv3d_grad.dw_plan's chain_steps
+# and adds the chains in FADDs
+DW_SAME_SIGN_BOUND = 2e-5
+SLICE_STEP_LOSS = 2.0**-23
+# B1's longest chains (27·Ci/16 k16 steps a split-K slice), as forwards on
+# same-sign inputs: their error in units of the 16-bit output's last place
+B1_SAME_SIGN = ((512, 256, 32), (1024, 512, 16))
+
+
+def dw_sum(device, card: str) -> dict:
+    """B2 at the 14 shapes (N=1) in bf16 and fp16 on same-sign inputs, each
+    element within DW_SAME_SIGN_BOUND·Σ|x·dy| of a float64 conv of the same
+    rounded inputs; beside it the plain fp32 version's error, the longest
+    tensor-core chain (``conv3d_grad.dw_plan``) and the error the chains of
+    a whole split-K slice were predicted to lose (SLICE_STEP_LOSS a step);
+    ``dw_plan``'s workspace bytes equal to the C workspace functions'. Then
+    B1 forwards at B1_SAME_SIGN on same-sign inputs, error from float64 in
+    ulps of the output (max, mean signed, the share not correctly rounded),
+    measured only. Returns {dtype name: worst B2 error}."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import build, conv3d, conv3d_grad
+
+    lib = build.load_library()
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    g = torch.Generator(device=device).manual_seed(7)
+    worst = {}
+    for dtype, name, workspace in ((torch.bfloat16, "bf16", lib.pcmseg_conv3x3_dw_workspace_bytes),
+                                   (torch.float16, "fp16", lib.pcmseg_conv3x3_dw_f16_workspace_bytes)):
+        worst[name] = 0.0
+        for ci, co, s, _ in CONV_SHAPES:
+            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, sms)
+            c_bytes = workspace(1, s, s, s, plan["ci"], co, index)
+            if c_bytes != plan["workspace_bytes"]:
+                raise AssertionError(f"{name} dW {ci}->{co} @{s}^3: dw_plan's workspace {plan['workspace_bytes']} "
+                                     f"bytes, the kernel's {c_bytes}")
+            x = torch.randn((1, s, s, s, ci), generator=g, device=device).abs_().to(dtype)
+            dy = torch.randn((1, s, s, s, co), generator=g, device=device).abs_().to(dtype)
+            got = conv3d_grad.conv3x3_dw(x, dy)
+            exact = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())  # = Σ|x·dy|, each element
+            rel = (got.double() - exact) / exact
+            err = rel.abs().max().item()
+            plain = ((conv3d_grad.conv3x3_dw_reference(x.float(), dy.float()).double() - exact) / exact).abs().max()
+            slice_steps = plan["tiles_per_split"] * conv3d_grad.DW_STEPS_PER_TILE
+            log(f"dw_sum {name} dW {ci}->{co} @{s}^3, same-sign: max error {err:.3g}·Σ|x·dy| (mean "
+                f"{rel.mean().item():.3g}; bound {DW_SAME_SIGN_BOUND}), chains of {plan['chain_steps']} k16 steps in "
+                f"{plan['splits']} splits (one chain a split, {slice_steps} steps, predicted "
+                f"{slice_steps * SLICE_STEP_LOSS:.3g}); "
+                f"plain fp32 {plain.item():.3g}; workspace {c_bytes} bytes [{card}]")
+            if not bool(torch.isfinite(got).all()) or not err <= DW_SAME_SIGN_BOUND:
+                raise AssertionError(f"{name} dW {ci}->{co} @{s}^3 on same-sign inputs: {err:.3g}·Σ|x·dy| from "
+                                     f"float64 (bound {DW_SAME_SIGN_BOUND})")
+            worst[name] = max(worst[name], err)
+            del x, dy, got, exact, rel
+        for ci, co, s in B1_SAME_SIGN:
+            x = torch.randn((1, s, s, s, ci), generator=g, device=device).abs_().to(dtype)
+            w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device).abs_() * math.sqrt(2.0 / (27 * ci))
+            packed = conv3d.pack_weight(w, dtype)
+            got = conv3d.conv3x3x3(x, packed, None, False)
+            exact = conv3d.conv3x3x3_reference(x.double(), packed.double(), None, False)
+            # the output's last place: 2^(e - p) for exact = m·2^e, m in [0.5, 1), p significand bits
+            bits = round(-math.log2(torch.finfo(dtype).eps)) + 1
+            ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - bits)
+            off = (got.double() - exact) / ulp
+            log(f"dw_sum {name} B1 {ci}->{co} @{s}^3 forward, same-sign: error from float64 max "
+                f"{off.abs().max().item():.3g} ulp, mean {off.mean().item():.3g} ulp (the fp32 sum's bias; one "
+                f"rounding adds at most 0.5), {(got != exact.to(dtype)).float().mean().item():.3g} of the outputs "
+                f"not the correctly rounded float64 [{card}]")
+            del x, w, packed, got, exact, ulp, off
+    log(f"dw_sum: worst B2 same-sign error bf16 {worst['bf16']:.3g}, fp16 {worst['fp16']:.3g}·Σ|x·dy| [{card}]")
+    return worst
 
 
 def fp32_error(got, ref64, plain, what: str) -> float:
@@ -1132,60 +1225,76 @@ def conv_io(model):
             h.remove()
 
 
-def check_conv_function(model, records, grads, card: str, what: str = "one 128^3 microbatch",
-                        dw_bound: float = DW_SUM_BOUND) -> dict:
+def b1_bound(ref, dtype):
+    """B1's bound on each output against the plain fp32 ``ref`` of the same
+    16-bit inputs: 8e-3·|ref| + 1e-3·max|ref| for bf16 (one rounding plus
+    fp32 reassociation); for fp16 that scaled by F16_REL, plus fp16's least
+    subnormal, the spacing of outputs below 2^-14."""
+    import torch
+
+    if dtype == torch.float16:
+        return F16_REL * (8e-3 * ref.abs() + 1e-3 * ref.abs().max()) + 2.0**-24
+    return 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+
+
+def check_conv_function(model, records, grads, card: str, what: str = "one 128^3 microbatch") -> None:
     """Each conv's Function, as the kernel path ran it in the model: its
-    forward against the plain fp32 conv of the same bf16 x with the packed
-    bf16 weight, within B1's bound; its dW (the parameter's gradient)
-    against the plain fp32 weight gradient of the same bf16 x and dy, each
-    element within ``dw_bound``·Σ|x·dy|; its dx against the plain fp32 conv
-    of dy with the flipped, transposed bf16 weight, within B1's bound. (db
-    is Σ dy in plain PyTorch, no kernel: the CPU tests hold it.) Returns
-    the worst (err, layer) of each."""
+    forward against the plain fp32 conv of the same 16-bit x with the
+    packed weight in x's dtype, within B1's bound (``b1_bound``); its dW
+    (the parameter's gradient) against the float64 weight gradient of the
+    same x and dy, each element within DW_SUM_BOUND·Σ|x·dy| (the plain fp32
+    version's error logged beside it); its dx against the plain fp32 conv
+    of dy with the flipped, transposed weight in dy's dtype, within B1's
+    bound. (db is Σ dy in plain PyTorch, no kernel: the CPU tests hold it.)"""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
 
-    worst = {"forward": (0.0, ""), "dW": (0.0, ""), "dx": (0.0, "")}
+    worst = {"forward": (0.0, ""), "dW": (0.0, ""), "dx": (0.0, ""), "plain dW": (0.0, "")}
     for name, rec in records.items():
         conv = model.get_submodule(name)
         w = conv.weight.detach()
         x, dy = rec["x"].float(), rec["dy"].float()
         ref = conv3d.conv3x3x3_reference(x, conv.packed_weight(rec["x"].dtype).float(), conv.bias.detach(), conv.relu)
         err = (rec["y"].float() - ref).abs()
-        bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+        bound = b1_bound(ref, rec["y"].dtype)
         worst["forward"] = max(worst["forward"], ((err / bound).max().item(), name))
         if not bool((err <= bound).all()):
             raise AssertionError(f"{name} ({what}): the Function's forward disagrees with the plain version "
                                  f"(worst err/bound {(err / bound).max().item():.3g})")
         del ref, err, bound
-        ref = conv3d_grad.conv3x3_dw_reference(x, dy).permute(4, 3, 0, 1, 2)
+        x64, dy64 = x.double(), dy.double()
+        exact = conv3d_grad.conv3x3_dw_reference(x64, dy64).permute(4, 3, 0, 1, 2)
         # Σ|x·dy| per element: the scale of an fp32 sum's rounding, which
-        # |ref| is not where the products cancel (x after ReLU, dy of zero mean)
-        scale = conv3d_grad.conv3x3_dw_reference(x.abs(), dy.abs()).permute(4, 3, 0, 1, 2)
-        diff = (grads[name + ".weight"] - ref).abs()
-        err = (diff / scale.clamp_min(1e-30)).max().item()
+        # |dW| is not where the products cancel (x after ReLU, dy of zero mean)
+        scale = conv3d_grad.conv3x3_dw_reference(x64.abs(), dy64.abs()).permute(4, 3, 0, 1, 2).clamp_min(1e-300)
+        err = ((grads[name + ".weight"] - exact).abs() / scale).max().item()
+        plain = conv3d_grad.conv3x3_dw_reference(x, dy).permute(4, 3, 0, 1, 2)
+        worst["plain dW"] = max(worst["plain dW"], (((plain - exact).abs() / scale).max().item(), name))
         worst["dW"] = max(worst["dW"], (err, name))
-        if not err <= dw_bound:
-            raise AssertionError(f"{name} ({what}): the Function's dW is {err:.3g}·Σ|x·dy| from the plain "
-                                 f"version's (bound {dw_bound})")
+        del x64, dy64, exact, scale, plain
+        if not err <= DW_SUM_BOUND:
+            raise AssertionError(f"{name} ({what}): the Function's dW is {err:.3g}·Σ|x·dy| from float64 "
+                                 f"(bound {DW_SUM_BOUND})")
         if "dx" in rec:
-            w_t = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), torch.bfloat16).float()
+            w_t = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), rec["dy"].dtype).float()
             ref = conv3d.conv3x3x3_reference(dy, w_t, None, False)
             err = (rec["dx"].float() - ref).abs()
-            bound = 8e-3 * ref.abs() + 1e-3 * ref.abs().max()
+            bound = b1_bound(ref, rec["dx"].dtype)
             worst["dx"] = max(worst["dx"], ((err / bound).max().item(), name))
             if not bool((err <= bound).all()):
                 raise AssertionError(f"{name} ({what}): the Function's dx disagrees with the plain version "
-                                     f"(worst err/bound {(err / bound).max().item():.3g})")
-        del x, dy, ref
+                                     f"(worst err/bound {(err / bound).max().item():.3g}, max |ref| "
+                                     f"{ref.abs().max().item():.3g})")
+            del ref, err, bound
+        del x, dy
     shapes = sorted({(r["x"].shape[-1], r["y"].shape[-1], r["x"].shape[1]) for r in records.values()},
                     key=lambda t: (-t[2], t[0], t[1]))
     log(f"conv Function in the model, {what}, {len(records)} convs ({sum('dx' in r for r in records.values())} with "
         f"dx) at (Ci, Co, size) {shapes}: forward worst err/bound {worst['forward'][0]:.3g} at "
-        f"{worst['forward'][1]}, dW worst {worst['dW'][0]:.3g}·Σ|x·dy| at {worst['dW'][1]} (bound "
-        f"{dw_bound}), dx worst err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
-    return worst
+        f"{worst['forward'][1]}, dW from float64 worst {worst['dW'][0]:.3g}·Σ|x·dy| at {worst['dW'][1]} (bound "
+        f"{DW_SUM_BOUND}; the plain fp32 version's worst {worst['plain dW'][0]:.3g} at {worst['plain dW'][1]}), "
+        f"dx worst err/bound {worst['dx'][0]:.3g} at {worst['dx'][1]} [{card}]")
 
 
 def check_gradients(device, card: str) -> None:
@@ -2130,13 +2239,6 @@ def deep_supervision(work: str, device, card: str):
 # the flagship step with a 3-class head and GroupNorm (8 groups), CE + foreground Dice
 KCLASS = dict(n_classes=3, norm_layer="group", loss="bce_dice", num_epochs=1)
 N_PARAMS_K3 = N_PARAMS + 2 * (BASE_FEATURES + 1)  # two more output channels
-# dW of the GroupNorm step against the plain version, per element, relative to
-# Σ|x·dy|. GroupNorm, unlike BatchNorm, does not make each channel's dy sum to
-# 0, so some dW elements sum products of nearly one sign, where the rounding
-# errors of B2's long fp32 accumulations in the tensor cores do not cancel as
-# they do under BatchNorm (the plain fp32 version, on CUDA cores with TF32
-# off, stays near fp64): the worst layer is held against fp64 beside this check
-DW_SUM_BOUND_GROUP = 1e-3
 
 
 def class_label(shape, device):
@@ -2230,19 +2332,10 @@ def kclass(work: str, device, card: str, bn_step_s) -> tuple:
         loss_fn_from_config(config)(model(batch["image"][:1]), batch["label"][:1]).backward()
         torch.cuda.synchronize()
     grads = {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None}
-    worst = check_conv_function(model, records, grads, card, "one 128^3 microbatch of the K = 3 GroupNorm step",
-                                dw_bound=DW_SUM_BOUND_GROUP)
-    name = worst["dW"][1]
-    x64, dy64 = records[name]["x"].double(), records[name]["dy"].double()
-    exact = conv3d_grad.conv3x3_dw_reference(x64, dy64).permute(4, 3, 0, 1, 2)
-    scale = conv3d_grad.conv3x3_dw_reference(x64.abs(), dy64.abs()).permute(4, 3, 0, 1, 2).clamp_min(1e-300)
-    plain = conv3d_grad.conv3x3_dw_reference(x64.float(), dy64.float()).permute(4, 3, 0, 1, 2)
-    log(f"kclass (a) dW of {name} against fp64: B2 {((grads[name + '.weight'] - exact).abs() / scale).max().item():.3g}"
-        f"·Σ|x·dy|, the plain fp32 version {((plain - exact).abs() / scale).max().item():.3g}·Σ|x·dy|; largest "
-        f"|dW|/Σ|x·dy| {(exact.abs() / scale).max().item():.3g} (1: every product of one sign) [{card}]")
+    check_conv_function(model, records, grads, card, "one 128^3 microbatch of the K = 3 GroupNorm step")
     for rec in records.values():
         rec.clear()
-    del records, grads, x64, dy64, exact, scale, plain
+    del records, grads
     member = save_pth(os.path.join(work, "kclass_member.pth"), model.state_dict(), config.to_dict())
     del model, state, step, batch
     torch.cuda.empty_cache()
@@ -3586,6 +3679,7 @@ def fp32_train(work: str, device, card: str, ref: dict) -> dict:
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.infer.predict import Predictor
     from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
     from pcmseg_tpu_torch.train.checkpoints import save_pth
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
     from pcmseg_tpu_torch.train.trainer import Trainer
@@ -3942,7 +4036,9 @@ def fp16_train(work: str, device, card: str, ref: dict) -> dict:
     times the plain-conv fp16 step's distance plus FP16_STEP_SLACK (loss
     relative, gradients relative L2); the share of the head's output
     gradient (fp16, step 1) that is zero or subnormal (no loss scaling, as
-    in JAX); warm step ms, vol/s, peak memory, device time by kernel. (b)
+    in JAX); warm step ms, vol/s, peak memory, device time by kernel; one
+    microbatch's convs against the plain versions (``check_conv_function``,
+    dW within DW_SUM_BOUND·Σ|x·dy|). (b)
     One epoch of an fp16 ``Trainer`` (run_epochs, no checkpoints) on the
     train phase's 5 cases, exact launches. (c) One 128^3 case served by an
     fp16 ``Predictor``: 18 fp16 B1, its probabilities no further from the
@@ -3955,6 +4051,7 @@ def fp16_train(work: str, device, card: str, ref: dict) -> dict:
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.infer.predict import Predictor
     from pcmseg_tpu_torch.models.unet3d import UNet3D
+    from pcmseg_tpu_torch.ops.losses import loss_fn_from_config
     from pcmseg_tpu_torch.train.checkpoints import save_pth
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
     from pcmseg_tpu_torch.train.trainer import Trainer
@@ -4035,7 +4132,16 @@ def fp16_train(work: str, device, card: str, ref: dict) -> dict:
         f" ms for steps 1-{len(times)}) = {TRAIN['batch_size'] / warm:.3f} vol/s, peak device memory {peak:.2f} GiB "
         f"[{card}]")
     profile_step(lambda: float(step(state, batches[-1])["loss"]), "one fp16 step", card)
-    del model, state, step, grads, plain_grads
+    # one microbatch's convs against the plain versions; these launches compare
+    model.zero_grad(set_to_none=True)
+    with conv_io(model) as records:
+        loss_fn_from_config(config)(model(batches[0]["image"][:1]), batches[0]["label"][:1]).backward()
+        torch.cuda.synchronize()
+    check_conv_function(model, records, {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None},
+                        card, "one 128^3 microbatch of the fp16 step")
+    for rec in records.values():
+        rec.clear()
+    del model, state, step, grads, plain_grads, records
     torch.cuda.empty_cache()
 
     # (b) one epoch of an fp16 Trainer
@@ -4658,11 +4764,16 @@ def main() -> int:
         f"in {info['seconds']:.1f} s")
 
     config = get_config(base_features=BASE_FEATURES, norm_layer="batch")
+    if sys.argv[1:] == ["--only", "dw_sum"]:  # the same-sign dW phase alone
+        phase("dw_sum", dw_sum, device, card)
+        print(card)
+        return 0
     record = phase("kernels", check_kernels, device, card, (1, config.window_tile_batch))
     dx = phase("dx", check_dx_kernels, device, card)
     dw = phase("dw", check_dw_kernels, device, card)
     fp32k = phase("fp32_kernels", check_fp32_kernels, device, card)
     fp16k = phase("fp16_kernels", check_fp16_kernels, device, card)
+    same_sign = phase("dw_sum", dw_sum, device, card)
     phase("gradients", check_gradients, device, card)
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -4762,6 +4873,8 @@ def main() -> int:
                                  "param_dtype_trainer": pd_launches["trainer"][1]},
             **dw,
             "max_abs_err": max(dw["max_abs_err"], sp["slab"]["dw"]["max_abs_err"], tp["shard"]["dw"]["max_abs_err"]),
+            # the dw_sum phase: the worst element's error from float64 on same-sign inputs, over Σ|x·dy|
+            "same_sign_max_rel_err": same_sign["bf16"],
             **{f"slab_{k}": sp["slab"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             **{f"tp_{k}": tp["shard"]["dw"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         },
@@ -4811,6 +4924,7 @@ def main() -> int:
             "launches": fp16_launches["step"][1],
             "launches_by_path": {"fp16_train": fp16_launches["step"][1], "fp16_trainer": fp16_launches["trainer"][1]},
             **fp16k["dw"],
+            "same_sign_max_rel_err": same_sign["fp16"],
         },
     ]}))
     print(card)

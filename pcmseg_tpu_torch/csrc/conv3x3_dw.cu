@@ -23,8 +23,23 @@
 //
 //  * a block owns 64 input channels x 64 output channels and one kd of the
 //    taps; its three consumer warpgroups take kh = 0, 1, 2 and each keeps
-//    the three kw taps as three m64n64 fp32 accumulators in registers (96
+//    the three kw taps' running totals, m64n64 fp32 each, in registers (96
 //    per thread), so 9 taps share every tile of x and dy in shared memory;
+//  * accuracy: the tensor cores' fp32 sums do not round to nearest. On an
+//    H100 a k16 step into an accumulator loses about 2^-23 of its value
+//    (0.72 of that on average, truncation toward zero), so one chain over
+//    a whole split-K slice (up to 5,960 steps) lost 5.4e-4 of a same-sign
+//    sum. A consumer runs each tap's chain over CHAIN_TILES voxel tiles
+//    (8 k16 steps a tile) into one fresh accumulator (scale-d 0), waits for
+//    it and adds it into the tap's running total with FADDs, tap by tap in
+//    a fixed order: no chain is longer than 8 * CHAIN_TILES steps, and the
+//    totals round to nearest. Two tiles a chain (16 steps) halve the waits
+//    of one; the other two warpgroups' chains keep the tensor cores busy
+//    while one waits and adds;
+//  * registers: the totals (96) and the fresh accumulator (32) alone fill
+//    the 128 registers a thread of a 416-thread block (3 warpgroups and a
+//    producer warp) may have; so the producer is a whole warpgroup that
+//    gives its registers to the consumers (setmaxnreg, 160 a consumer);
 //  * one producer thread walks 2x8x8-voxel tiles (K = 128 voxels, eight
 //    k16 steps of two x-rows each) through a 4-stage TMA ring on mbarriers:
 //    dy as one 5-D box of 64 channels with the 128-byte swizzle, the x halo
@@ -36,7 +51,7 @@
 //    (kd, ci block) instead of once per 16 channels;
 //  * Ci = 8 (the padded input conv): one block holds all 27 taps. A
 //    warpgroup's m64 tile is (kw, ci) for kw = 0..2 at 16-byte steps of the
-//    halo (rows 24-63 are discarded), one accumulator per kd;
+//    halo (rows 24-63 are discarded), one running total per kd;
 //  * the voxel sum is split over gridDim.z (split-K) into whole waves of
 //    blocks; a second pass adds the fp32 partials in split order, so two
 //    runs agree bit for bit. The TPU kernel's H-chunking (_pick_chunk_h)
@@ -53,9 +68,12 @@ constexpr int HY = TY + 2, HX = TX + 2;
 constexpr int VOX = TZ * TY * TX;
 constexpr int BC = 64;               // input and output channels per block
 constexpr int DY_BYTES = VOX * 128;  // dy tile: 128 voxel rows of 64 channels, 128-byte swizzled
-constexpr int THREADS = 416;         // 3 consumer warpgroups (kh) + 1 producer warp
+constexpr int THREADS = 512;         // 3 consumer warpgroups (kh) + 1 producer warpgroup
+// registers a thread after setmaxnreg: 4 x 128 x 128 at launch, 128 x 32 + 384 x 160 after
+constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
 constexpr int STAGES = 4;
 constexpr int MIN_TILES_PER_SPLIT = 4;
+constexpr int CHAIN_TILES = 2;  // voxel tiles a tensor-core chain spans (8 k16 steps each)
 
 template <bool SMALL>
 struct DwCfg {
@@ -103,7 +121,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t_begin = blockIdx.z * a.tiles_per_split;
   const int t_end = min(a.tiles, t_begin + a.tiles_per_split);
 
-  if (tid >= 384) {  // producer warp: one thread issues every TMA load
+  if (tid >= 384) {  // producer warpgroup: one thread issues every TMA load
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 384) {
       int s = 0;
       uint32_t ph = 0;
@@ -131,48 +150,59 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
-  // consumers: warpgroup kh, accumulators aa = kw (SMALL: aa = kd)
+  setmaxnreg_inc<CONSUMER_REGS>();
+  // consumers: warpgroup kh, running totals aa = kw (SMALL: aa = kd)
   const int kh = tid >> 7;
-  float acc[3][32];
+  float total[3][32], acc[32];
 #pragma unroll
-  for (int aa = 0; aa < 3; ++aa) {
+  for (int i = 0; i < 32; ++i) {
+    acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[aa][i] = 0.f;
-    fence_regs(acc[aa]);
+    for (int aa = 0; aa < 3; ++aa) total[aa][i] = 0.f;
   }
+  fence_regs(acc);
 
-  int s = 0, prev = -1;
-  uint32_t ph = 0;
-  for (int t = t_begin; t < t_end; ++t) {
-    mbar_wait(full(s), ph);
-    wgmma_fence();
-    const uint32_t st = base + s * C::STAGE, xs = st + DY_BYTES;
+  // the chains of the NT local tiles from i0 (local tile i is t_begin + i,
+  // in stage i % STAGES): per tap one fresh accumulator over their 8 * NT
+  // k16 steps, then added into the tap's running total
+  auto chain = [&](auto nt, int i0) {
+    constexpr int NT = decltype(nt)::value;
 #pragma unroll
-    for (int j = 0; j < VOX / 16; ++j) {
-      const int zz = j / 4, yy = (j % 4) * 2;
-      const uint64_t db = gmma_desc(st + j * 2048, 16, 1024, LAYOUT_B128);
+    for (int q = 0; q < NT; ++q) mbar_wait(full((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
 #pragma unroll
-      for (int aa = 0; aa < 3; ++aa) {
-        // halo row of the step's first voxel, shifted by the tap; the next
-        // 8 voxels (y + 1) are HX rows on (LBO), the next 8 channels one
-        // slab on (SBO); SMALL: the next 8 M rows are the next kw (16 bytes)
-        const int row = SMALL ? ((zz + aa) * HY + yy + kh) * HX : (zz * HY + yy + kh) * HX + aa;
-        const uint64_t da = gmma_desc(xs + row * 16, HX * 16, SMALL ? 16 : C::SLAB, LAYOUT_INTERLEAVE);
-        wgmma_m64n64k16<1, 1, T>(acc[aa], da, db);
+    for (int aa = 0; aa < 3; ++aa) {
+      wgmma_fence();  // the FADDs below read acc
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        const uint32_t st = base + ((i0 + q) % STAGES) * C::STAGE, xs = st + DY_BYTES;
+#pragma unroll
+        for (int j = 0; j < VOX / 16; ++j) {
+          const int zz = j / 4, yy = (j % 4) * 2;
+          const uint64_t db = gmma_desc(st + j * 2048, 16, 1024, LAYOUT_B128);
+          // halo row of the step's first voxel, shifted by the tap; the next
+          // 8 voxels (y + 1) are HX rows on (LBO), the next 8 channels one
+          // slab on (SBO); SMALL: the next 8 M rows are the next kw (16 bytes)
+          const int row = SMALL ? ((zz + aa) * HY + yy + kh) * HX : (zz * HY + yy + kh) * HX + aa;
+          const uint64_t da = gmma_desc(xs + row * 16, HX * 16, SMALL ? 16 : C::SLAB, LAYOUT_INTERLEAVE);
+          wgmma_m64n64k16<1, 1, T>(acc, da, db, q > 0 || j > 0);
+        }
       }
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous tile's group is done reading its stage
-    if (prev >= 0 && (tid & 127) == 0) mbar_arrive(empty(prev));
-    prev = s;
-    if (++s == STAGES) {
-      s = 0;
-      ph ^= 1;
-    }
-  }
-  wgmma_wait<0>();
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
 #pragma unroll
-  for (int aa = 0; aa < 3; ++aa) fence_regs(acc[aa]);
+      for (int k = 0; k < 32; ++k) total[aa][k] += acc[k];
+    }
+    // every wgmma that read these stages has completed
+    if ((tid & 127) == 0) {
+#pragma unroll
+      for (int q = 0; q < NT; ++q) mbar_arrive(empty((i0 + q) % STAGES));
+    }
+  };
+  const int tiles = t_end - t_begin;
+  int i0 = 0;
+  for (; i0 + CHAIN_TILES <= tiles; i0 += CHAIN_TILES) chain(std::integral_constant<int, CHAIN_TILES>(), i0);
+  for (; i0 < tiles; ++i0) chain(std::integral_constant<int, 1>(), i0);
 
   float* out = a.dst + static_cast<long long>(blockIdx.z) * 27 * a.Ci * a.Co;
   const int lane = tid & 31, warp = (tid >> 5) & 3;
@@ -196,7 +226,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < 8; ++j) {
         const int co = co0 + 8 * j + 2 * (lane & 3);
         if (co < a.Co)
-          *reinterpret_cast<float2*>(row + co) = make_float2(acc[aa][4 * j + 2 * h], acc[aa][4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(row + co) = make_float2(total[aa][4 * j + 2 * h], total[aa][4 * j + 2 * h + 1]);
       }
     }
   }

@@ -132,6 +132,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // D(64 x N, fp32, registers) += A(64 x 16) . B(16 x N), both of element
 // type T (bf16 or f16: the same instruction shapes, fragment layouts and
 // transpose bits) in shared memory. TA / TB: 0 = K-major, 1 = MN-major.
+// scale_d 0: D = A.B (a fresh accumulator), 1 (the default): D += A.B.
 // Accumulator layout: thread t of the warpgroup holds rows (t / 32) * 16 +
 // (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}]
 // (row +0) and d[4 j + {2, 3}].
@@ -147,7 +148,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "%32, %33, p, 1, 1, %35, %36;\n"                                                          \
       "}\n"                                                                                     \
       : PCMSEG_WGMMA_D32                                                                       \
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB))
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB))
 #define PCMSEG_WGMMA_N128(TYPE)                                                                 \
   asm volatile(                                                                                \
       "{\n"                                                                                     \
@@ -158,10 +159,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "%64, %65, p, 1, 1, %67, %68;\n"                                                          \
       "}\n"                                                                                     \
       : PCMSEG_WGMMA_D64                                                                       \
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB))
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB))
 
 template <int TA, int TB, typename T = bf16>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d = 1) {
   static_assert(std::is_same<T, bf16>::value || std::is_same<T, f16>::value, "bf16 or f16 operands");
   if constexpr (std::is_same<T, f16>::value)
     PCMSEG_WGMMA_N64("f16");
@@ -170,7 +171,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
 }
 
 template <int TA, int TB, typename T = bf16>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d = 1) {
   static_assert(std::is_same<T, bf16>::value || std::is_same<T, f16>::value, "bf16 or f16 operands");
   if constexpr (std::is_same<T, f16>::value)
     PCMSEG_WGMMA_N128("f16");

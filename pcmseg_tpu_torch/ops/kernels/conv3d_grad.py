@@ -11,14 +11,15 @@ an entry point each; split-K partials summed in a fixed order), fp32 to
 There is no fallback from one to the other; x and dy share a dtype on every
 device. The kernels read x's channels padded with zeros as the forward
 kernels do (``conv3d.ci_pad``); the wrapper pads x and returns the rows of
-the real channels.
+the real channels. ``dw_plan`` mirrors the 16-bit kernel's launch plan
+(split-K, workspace, the longest tensor-core chain) for tests and tools.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pcmseg_tpu_torch.ops.kernels.conv3d import pad_channels, plain_dtype
+from pcmseg_tpu_torch.ops.kernels.conv3d import ci_pad, pad_channels, plain_dtype
 
 # kernel launches since the count was last set to 0 (CPU calls not counted),
 # of the bf16 kernel (``launches``), the fp32 one (``launches_f32``) and the
@@ -34,6 +35,37 @@ _WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3_dw_workspace_bytes",
               torch.float16: "pcmseg_conv3x3_dw_f16_workspace_bytes",
               torch.float32: "pcmseg_conv3x3_dw_f32_workspace_bytes"}
 _COUNTER = {torch.bfloat16: "launches", torch.float16: "launches_f16", torch.float32: "launches_f32"}
+
+
+# the 16-bit kernel's plan (csrc/conv3x3_dw.cu make_dw_plan): voxel tiles of
+# 2x8x8 (z, y, x), eight k16 steps each; 64 x 64 channels a block; at least
+# this many tiles a split; the tiles one tensor-core chain spans
+DW_TILE = (2, 8, 8)
+DW_STEPS_PER_TILE = 8
+DW_BLOCK = 64
+DW_MIN_TILES_PER_SPLIT = 4
+DW_CHAIN_TILES = 2
+
+
+def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int) -> dict:
+    """The bf16 / fp16 kernel's launch plan for x (n, d, h, w, ci) and dy
+    (..., co) on a card of ``sms`` SMs, as ``make_dw_plan`` computes it (ci
+    is padded to what the kernel reads, ``conv3d.ci_pad``): ``splits`` of the
+    voxel tiles over gridDim.z, ``tiles_per_split``, ``workspace_bytes`` of
+    fp32 split partials (the C ``pcmseg_conv3x3_dw{,_f16}_workspace_bytes``),
+    and ``chain_steps``, the most k16 steps any tensor-core sum runs before
+    its FADD into a running total (DW_CHAIN_TILES tiles; a split's slice is
+    tiles_per_split · 8 steps)."""
+    ci = ci_pad(ci)
+    tz, ty, tx = DW_TILE
+    tiles = n * -(-d // tz) * -(-h // ty) * -(-w // tx)
+    blocks = (1 if ci == 8 else 3 * (ci // DW_BLOCK)) * -(-co // DW_BLOCK)
+    splits = max(1, min(sms // blocks, tiles // DW_MIN_TILES_PER_SPLIT)) if blocks < sms else 1
+    per_split = -(-tiles // splits)
+    splits = -(-tiles // per_split)
+    return {"ci": ci, "splits": splits, "tiles_per_split": per_split,
+            "workspace_bytes": splits * 27 * ci * co * 4 if splits > 1 else 0,
+            "chain_steps": DW_STEPS_PER_TILE * min(per_split, DW_CHAIN_TILES)}
 
 
 def conv3x3_dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ process if the card does not finish a kernel within 30 s, so that a hung
 kernel fails the run instead of holding the card. With --time, times
 forward and weight gradient at 7 of the model's shapes, each with its share
 of the card's bound for its operands (bf16: 989 TFLOP/s; fp32: 3xTF32,
-494.7 / 3 TFLOP/s), and prints the card's name and power limit. With --f32,
+494.7 / 3 TFLOP/s) and beside cuDNN's weight gradient, prints the weight
+gradient's relative error from float64 on same-sign inputs (the loss of
+its fp32 sums) with the 16-bit kernel's chain length and splits
+(``conv3d_grad.dw_plan``), and prints the card's name and power limit. With --f32,
 the fp32 kernels instead of the bf16 ones, each held against a float64 conv
 of the same fp32 inputs: its error at most twice cuDNN's fp32 error (TF32
 off) plus 1e-6 of the largest output. With --f16, the fp16 kernels, held
@@ -238,8 +241,24 @@ if "--time" in sys.argv:
         flop = 2 * 27 * ci * co * s ** 3
         f = ms(lambda: conv3d.conv3x3x3(x, packed, None, True))
         d = ms(lambda: conv3d_grad.conv3x3_dw(x, dy))
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        c = ms(lambda: torch.nn.grad.conv3d_weight(xc, (co, ci, 3, 3, 3), dyc, padding=1))
         least = flop / peak * 1e3
+        # dW on same-sign inputs (x, dy = |normal|): every element is its own
+        # sum of |x.dy|, so its relative error from float64 is what the
+        # kernel's summation loses
+        x.abs_()
+        dy.abs_()
+        ref = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+        rel = (conv3d_grad.conv3x3_dw(x, dy).double() - ref) / ref
+        chains = ""
+        if not F32:
+            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, torch.cuda.get_device_properties(dev).multi_processor_count)
+            chains = (f" (chains of {plan['chain_steps']} k16 steps; {plan['splits']} splits of "
+                      f"{8 * plan['tiles_per_split']} steps)")
         log(f"time {DT} {ci}->{co}@{s}: fwd {f:.4f} ms {flop / f / 1e9:.1f} TF/s ({least / f:.3f} of the bound); "
-            f"dW {d:.4f} ms {flop / d / 1e9:.1f} TF/s ({least / d:.3f} of the bound)")
+            f"dW {d:.4f} ms {flop / d / 1e9:.1f} TF/s ({least / d:.3f} of the bound), cudnn wgrad {c:.4f} ms; "
+            f"dW same-sign error from float64 max {rel.abs().max().item():.3g} mean {rel.mean().item():.3g}{chains}")
+        del x, dy, xc, dyc, ref, rel
 log("ALL OK" if all(results) else "SOME FAILED")
 sys.exit(0 if all(results) else 1)
