@@ -798,13 +798,14 @@ DX_SHAPES = tuple((co, ci, s, layers) for ci, co, s, layers in CONV_SHAPES if ci
 # of up to 2.1 M bf16 products each, in another order
 DW_BOUND = 2e-3
 # the conv Function's dW in the model against float64, per element, relative
-# to Σ|x·dy| (the scale of an fp32 sum's rounding). B2 reads 6.4e-7 (the
-# gradients phase), 1.3e-6 (cache (c)), 2.1e-6 (kclass, GroupNorm) and 2.2e-5
-# (the fp16 step, at its 8^3 bottleneck conv, whose fp16 dy spans many
-# binades); the plain fp32 version reads up to 9.3e-5 (kclass), so the
+# to Σ|x·dy| (the scale of an fp32 sum's rounding). On an H100 B2 reads
+# 6.4e-7 (the gradients phase), 1.3e-6 (cache (c)), 2.07e-6 (kclass,
+# GroupNorm) and 1.0e-7 (the fp16 step, whose dy is all zero or subnormal:
+# 2.2e-5 before the fp16 entry point scaled dy by 2^k); the bound is 2x the
+# worst. The plain fp32 version reads up to 9.3e-5 (kclass), so the
 # reference is float64. One tensor-core chain a split-K slice loses up to
 # 5.4e-4 of a same-sign sum (dw_sum); a missing corner tap is 7.7e-3.
-DW_SUM_BOUND = 4e-5
+DW_SUM_BOUND = 4e-6
 # the flagship training configuration (bench.py:47-60): batch 4 as 4
 # accumulated microbatches of 1, no remat, 128^3, bf16, Dice, Adam 1e-4
 SIZE = 128
@@ -936,6 +937,88 @@ SLICE_STEP_LOSS = 2.0**-23
 B1_SAME_SIGN = ((512, 256, 32), (1024, 512, 16))
 
 
+# fp16 dy spanning 26 binades, dy = |normal|·2^-U with U uniform in [lo, hi]
+# (label, lo, hi): from the top of fp16's range (40% of dy subnormal), and
+# from where the fp16 step's dy lies (no loss scaling: 89-92% zero, the rest
+# subnormal at 2^-24..2^-21 at the 8^3 bottleneck); x = |normal|; same-sign
+# and mixed-sign dy
+DW_RANGE_DRAWS = (("wide", 0, 26), ("underflowing", 22, 48))
+DW_RANGE_SHAPES = tuple((ci, co, s) for ci, co, s, _ in CONV_SHAPES if co >= 256)
+# B2 on such dy: each element within DW_RANGE_BOUND·Σ|x·dy| of float64 (2x
+# the worst reading on an H100, 2.33e-6, of the wide same-sign draw, whose
+# tensor-core chains lose as same-sign sums do). B2 on the unscaled fp16 dy
+# (before the kernel scaled it by 2^k) lost 8.4e-6 at 512->1024 @8^3 on the
+# underflowing same-sign draw, and 2.2e-5 on the fp16 step's own dy
+DW_RANGE_BOUND = 4.6e-6
+# B1 as dx on such dy against float64: one fp16 unit of the output (its last
+# place; 2^-24 below 2^-14) plus DX_RANGE_SUM·Σ|w·dy| (the fp32 sum's error;
+# 2x the worst reading, 1.01e-6)
+DX_RANGE_SUM = 2e-6
+
+
+def fp16_unit(exact):
+    """The last place of the fp16 value nearest each float64 ``exact``:
+    2^(e - 11) for |exact| in [2^(e-1), 2^e) at or above 2^-14, else fp16's
+    least subnormal 2^-24."""
+    import torch
+
+    ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - 11)
+    return torch.where(exact.abs() >= F16_NORMAL, ulp, torch.full_like(exact, 2.0**-24))
+
+
+def dw_range(device, card: str) -> float:
+    """fp16 B2 at DW_RANGE_SHAPES on dy from DW_RANGE_DRAWS, same-sign and
+    mixed-sign: each element within DW_RANGE_BOUND·Σ|x·dy| of a float64
+    conv of the same fp16 inputs; B1 as dx on the same dy within one fp16
+    unit plus DX_RANGE_SUM·Σ|w·dy| of float64 (``fp16_unit``). Returns the
+    worst B2 error over Σ|x·dy|."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+
+    f16 = torch.float16
+    g = torch.Generator(device=device).manual_seed(8)
+    worst = 0.0
+    for ci, co, s in DW_RANGE_SHAPES:
+        x = torch.randn((1, s, s, s, ci), generator=g, device=device).abs_().to(f16)
+        w = torch.randn((co, ci, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * co))
+        w_t = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), f16)
+        for label, lo, hi in DW_RANGE_DRAWS:
+            u = lo + (hi - lo) * torch.rand((1, s, s, s, co), generator=g, device=device)
+            mag = torch.randn((1, s, s, s, co), generator=g, device=device).abs_() * torch.exp2(-u)
+            for signs in ("same-sign", "mixed-sign"):
+                dy = (mag if signs == "same-sign" else mag * (torch.rand(mag.shape, generator=g, device=device)
+                                                             < 0.5).mul(2).sub(1)).to(f16)
+                zero = (dy == 0).double().mean().item()
+                sub = ((dy != 0) & (dy.abs() < F16_NORMAL)).double().mean().item()
+                got = conv3d_grad.conv3x3_dw(x, dy)
+                exact = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+                scale = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double().abs()).clamp_min(1e-300)
+                err = ((got.double() - exact).abs() / scale).max().item()
+                del got, exact, scale
+                dx = conv3d.conv3x3x3(dy, w_t, None, False)
+                exact = conv3d.conv3x3x3_reference(dy.double(), w_t.double(), None, False)
+                sums = conv3d.conv3x3x3_reference(dy.double().abs(), w_t.double().abs(), None, False)
+                over = (dx.double() - exact).abs() - fp16_unit(exact)
+                dx_err = (over / sums.clamp_min(1e-300)).max().item()
+                units = ((dx.double() - exact).abs() / fp16_unit(exact)).max().item()
+                log(f"dw_sum fp16 B2 {ci}->{co} @{s}^3, {label} {signs} dy (U in [{lo}, {hi}]: {zero:.3f} zero, "
+                    f"{sub:.3f} subnormal): max error {err:.3g}·Σ|x·dy| (bound {DW_RANGE_BOUND}); B1 dx: max "
+                    f"{units:.3g} fp16 units, beyond one unit {max(dx_err, 0.0):.3g}·Σ|w·dy| (bound {DX_RANGE_SUM}) "
+                    f"[{card}]")
+                if not err <= DW_RANGE_BOUND:
+                    raise AssertionError(f"fp16 dW {ci}->{co} @{s}^3 on {label} {signs} dy: {err:.3g}·Σ|x·dy| from "
+                                         f"float64 (bound {DW_RANGE_BOUND})")
+                if not dx_err <= DX_RANGE_SUM or not bool(torch.isfinite(dx).all()):
+                    raise AssertionError(f"fp16 dx {co}->{ci} @{s}^3 on {label} {signs} dy: {dx_err:.3g}·Σ|w·dy| "
+                                         f"beyond one fp16 unit (bound {DX_RANGE_SUM})")
+                worst = max(worst, err)
+                del dy, dx, exact, sums, over
+            del u, mag
+        del x, w, w_t
+    return worst
+
+
 def dw_sum(device, card: str) -> dict:
     """B2 at the 14 shapes (N=1) in bf16 and fp16 on same-sign inputs, each
     element within DW_SAME_SIGN_BOUND·Σ|x·dy| of a float64 conv of the same
@@ -945,21 +1028,30 @@ def dw_sum(device, card: str) -> dict:
     ``dw_plan``'s workspace bytes equal to the C workspace functions'. Then
     B1 forwards at B1_SAME_SIGN on same-sign inputs, error from float64 in
     ulps of the output (max, mean signed, the share not correctly rounded),
-    measured only. Returns {dtype name: worst B2 error}."""
+    measured only. First the fp16 range case (``dw_range``), and the fp16
+    dy scale's exponent, ``conv3d_grad.f16_scale_exponent``, equal to the C
+    function's at every fp16 magnitude. Returns {dtype name: worst B2
+    same-sign error, "fp16_range": worst B2 error of ``dw_range``}."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import build, conv3d, conv3d_grad
 
+    worst = {"fp16_range": dw_range(device, card)}
     lib = build.load_library()
     index = torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
+    bits = torch.arange(0x8000, dtype=torch.int32)
+    values = bits.to(torch.int16).view(torch.float16).double().tolist()
+    wrong = [b for b, v in zip(bits.tolist(), values)
+             if lib.pcmseg_f16_scale_exponent(b) != conv3d_grad.f16_scale_exponent(v)]
+    if wrong:
+        raise AssertionError(f"f16_scale_exponent differs from the C function's at fp16 bits {wrong[:8]}")
     g = torch.Generator(device=device).manual_seed(7)
-    worst = {}
     for dtype, name, workspace in ((torch.bfloat16, "bf16", lib.pcmseg_conv3x3_dw_workspace_bytes),
                                    (torch.float16, "fp16", lib.pcmseg_conv3x3_dw_f16_workspace_bytes)):
         worst[name] = 0.0
         for ci, co, s, _ in CONV_SHAPES:
-            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, sms)
+            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, sms, f16=dtype == torch.float16)
             c_bytes = workspace(1, s, s, s, plan["ci"], co, index)
             if c_bytes != plan["workspace_bytes"]:
                 raise AssertionError(f"{name} dW {ci}->{co} @{s}^3: dw_plan's workspace {plan['workspace_bytes']} "
@@ -997,7 +1089,9 @@ def dw_sum(device, card: str) -> dict:
                 f"rounding adds at most 0.5), {(got != exact.to(dtype)).float().mean().item():.3g} of the outputs "
                 f"not the correctly rounded float64 [{card}]")
             del x, w, packed, got, exact, ulp, off
-    log(f"dw_sum: worst B2 same-sign error bf16 {worst['bf16']:.3g}, fp16 {worst['fp16']:.3g}·Σ|x·dy| [{card}]")
+    log(f"dw_sum: worst B2 same-sign error bf16 {worst['bf16']:.3g}, fp16 {worst['fp16']:.3g}, fp16 range case "
+        f"{worst['fp16_range']:.3g}·Σ|x·dy|; f16_scale_exponent equal to the C function's at all 32768 magnitudes "
+        f"[{card}]")
     return worst
 
 
@@ -2861,6 +2955,19 @@ def dp_batches(device):
              "label": torch.stack([label.roll(8 * i, 1) for i in range(n)])} for _ in range(DP_STEPS)]
 
 
+def state_digest(state: dict) -> str:
+    """SHA-256 of a state dict's names and bytes: two ranks' states are
+    bitwise equal where their digests are (no state file written and read
+    back)."""
+    import torch
+
+    digest = hashlib.sha256()
+    for k, v in state.items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
 def dp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     """One process of a data-parallel group (``chip_smoke.py --dp-rank RANK
     WORLD PORT WORK BACKEND``): gloo with every rank on card 0, or NCCL
@@ -3161,7 +3268,7 @@ def dp_c_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict
     BACKEND``): the flagship model from the seed, one step on this rank's
     rows of the first dp batch in DP_C_ACCUM microbatches, in the layout
     ``sharding.microbatch_layout`` gives (c at WORLD 4), launches counted;
-    its state written to WORK/dp_c_rank{RANK}.pt."""
+    its state's ``state_digest``."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -3188,7 +3295,7 @@ def dp_c_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict
            "layout": microbatch_layout(TRAIN["batch_size"], DP_C_ACCUM, world),
            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
            "launches": [conv3d.launches, conv3d_grad.launches]}
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, os.path.join(work, f"dp_c_rank{rank}.pt"))
+    out["state"] = state_digest(model.state_dict())
     multihost.shutdown()
     return out
 
@@ -3219,8 +3326,7 @@ def dp_layout_c(work: str, device, card: str) -> list:
     port, t0 = free_port(), time.perf_counter()
     ranks = spawn_ranks(lambda r: ["--dp-c-rank", str(r), str(DP_C_RANKS), str(port), work, "gloo"], DP_C_RANKS)
     wall = time.perf_counter() - t0
-    states = [torch.load(os.path.join(work, f"dp_c_rank{r}.pt"), weights_only=True) for r in range(DP_C_RANKS)]
-    bitwise = all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in states[0])
+    bitwise = all(r["state"] == ranks[0]["state"] for r in ranks)
     same = all((r["loss"], r["grad_norm"]) == (ranks[0]["loss"], ranks[0]["grad_norm"]) for r in ranks)
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
     log(f"dp (c) {DP_C_RANKS} gloo ranks on one card, batch {TRAIN['batch_size']} in {DP_C_ACCUM} microbatches, "
@@ -3234,8 +3340,6 @@ def dp_layout_c(work: str, device, card: str) -> list:
         raise AssertionError("dp (c): the ranks differ, or a rank ran other than one microbatch in layout (c)")
     if not math.isfinite(ranks[0]["loss"]) or rel(ranks[0]["loss"], one["loss"]) > DP_LOSS_RTOL:
         raise AssertionError("dp (c): the loss is off one process's")
-    for r in range(DP_C_RANKS):
-        os.remove(os.path.join(work, f"dp_c_rank{r}.pt"))
     return [sum(r["launches"][i] for r in ranks) for i in (0, 1)]
 
 
@@ -3485,9 +3589,10 @@ def sp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     WORLD mesh, DP_STEPS steps of dp_batches, each rank on its D-slab of
     all 4 microbatches; each step timed and its launches counted, the
     gradient all-reduce timed inside it, the peak memory of the warm steps;
-    then one more step with every halo exchange timed. Writes the state
-    after step 1 and after the last to WORK/sp_rank{RANK}_{1,final}.pt and
-    step 1's gradients (rank 0) to WORK/sp_grads.pt."""
+    then one more step with every halo exchange timed; then the float64
+    step 1 on anchor_batch. Returns the ``state_digest`` after step 1 and
+    after the last, and writes step 1's gradients (rank 0) to
+    WORK/sp_grads.pt."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -3534,9 +3639,7 @@ def sp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
             out["launches"].append([conv3d.launches, conv3d_grad.launches])
             out["grad_norm"].append(float(metrics["grad_norm"]))
             if len(out["loss"]) in (1, DP_STEPS):
-                name = "1" if len(out["loss"]) == 1 else "final"
-                torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                           os.path.join(work, f"sp_rank{rank}_{name}.pt"))
+                out["1" if len(out["loss"]) == 1 else "final"] = state_digest(model.state_dict())
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     if rank == 0:
         torch.save(grads, os.path.join(work, "sp_grads.pt"))
@@ -3550,7 +3653,8 @@ def sp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     out.update(reduce_s=reduce_s, rows=len(local["image"]), slab=list(local["d_slab"]), halo=halo,
                reduce_bytes=4 * sum(p.numel() for p in model.parameters() if p.requires_grad))
     del model, state, step
-    out["exact"] = exact_first_step(config, batches[0], device, mesh, rank, os.path.join(work, "sp_grads64.pt"))
+    out["exact"] = exact_first_step(anchor_config(config), anchor_batch(batches[0]), device, mesh, rank,
+                                    os.path.join(work, "sp_grads64.pt"))
     multihost.shutdown()
     return out
 
@@ -3591,7 +3695,7 @@ def exact_first_step(config, batch, device, mesh=None, rank=0, path=None) -> dic
 
 def one_process_exact(ref: dict) -> dict:
     """exact_first_step in one process on the first dp batch, made once and
-    kept in ``ref`` (dp_reference) for the sp and tp phases."""
+    kept in ``ref`` (dp_reference) for the fp32, fp16, sp and tp phases."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -3600,6 +3704,31 @@ def one_process_exact(ref: dict) -> dict:
         ref["exact"] = exact_first_step(get_config(base_features=BASE_FEATURES, **TRAIN),
                                         dp_batches(torch.device("cuda"))[0], torch.device("cuda"))
     return ref["exact"]
+
+
+# the sp and tp ranks' float64 step 1 (their exactness anchor) runs on the
+# first row of the first dp batch as one microbatch: the mesh shards every
+# microbatch alike, and on 4 microbatches it took 103 s a tp rank (gloo
+# through the host on one card), the longest part of the script
+def anchor_config(config):
+    return config.replace(batch_size=1, accum_steps=1)
+
+
+def anchor_batch(batch: dict) -> dict:
+    return {k: v[:1] for k, v in batch.items()}
+
+
+def one_process_anchor(ref: dict) -> dict:
+    """exact_first_step in one process on anchor_batch of the first dp
+    batch, made once and kept in ``ref`` for the sp and tp phases."""
+    import torch
+
+    from pcmseg_tpu_torch.core.config import get_config
+
+    if "anchor" not in ref:
+        ref["anchor"] = exact_first_step(anchor_config(get_config(base_features=BASE_FEATURES, **TRAIN)),
+                                         anchor_batch(dp_batches(torch.device("cuda"))[0]), torch.device("cuda"))
+    return ref["anchor"]
 
 
 # ---- fp32 compute and 16-bit parameters (slice 11) ---------------------------------
@@ -3921,6 +4050,10 @@ FP16_STEP_MARGIN = BF16_MARGIN
 FP16_STEP_SLACK = 2.0**-11
 # an fp16 value below this is subnormal
 F16_NORMAL = 2.0**-14
+# the fp16 phase's steps with fp16 parameters; Adam's eps in fp16 (1e-8,
+# the default, rounds to 0 there and makes elements NaN, in JAX as here)
+FP16_PARAM_STEPS = 2
+FP16_PARAM_EPS = 1e-2
 
 
 def check_f16_output(got, ref, what: str) -> float:
@@ -4038,7 +4171,9 @@ def fp16_train(work: str, device, card: str, ref: dict) -> dict:
     gradient (fp16, step 1) that is zero or subnormal (no loss scaling, as
     in JAX); warm step ms, vol/s, peak memory, device time by kernel; one
     microbatch's convs against the plain versions (``check_conv_function``,
-    dW within DW_SUM_BOUND·Σ|x·dy|). (b)
+    dW within DW_SUM_BOUND·Σ|x·dy|). (a') FP16_PARAM_STEPS flagship
+    steps with fp16 parameters and Adam moments (eps FP16_PARAM_EPS):
+    exact fp16 launches, finite losses, ms and peak memory. (b)
     One epoch of an fp16 ``Trainer`` (run_epochs, no checkpoints) on the
     train phase's 5 cases, exact launches. (c) One 128^3 case served by an
     fp16 ``Predictor``: 18 fp16 B1, its probabilities no further from the
@@ -4144,6 +4279,37 @@ def fp16_train(work: str, device, card: str, ref: dict) -> dict:
     del model, state, step, grads, plain_grads, records
     torch.cuda.empty_cache()
 
+    # (a') fp16 parameters with fp16 compute: FP16_PARAM_STEPS steps
+    gc.collect()
+    pconfig = config.replace(param_dtype="float16", eps=FP16_PARAM_EPS)
+    model = UNet3D.from_config(pconfig, generator=torch.Generator().manual_seed(0)).to(device)
+    state, step = create_train_state(model, pconfig), make_train_step(model, pconfig)
+    losses, times = [], []
+    for i, batch in enumerate(batches[:FP16_PARAM_STEPS]):
+        zero_counts()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        got = counts16()
+        if got != (4 * 35, 4 * 18) or not math.isfinite(losses[-1]):
+            raise AssertionError(f"fp16-param fp16 step {i + 1}: loss {losses[-1]}, launches {got}, expected "
+                                 f"{(4 * 35, 4 * 18)}")
+    kinds = {p.dtype for p in model.parameters()} | {m.dtype for s in state.optimizer.state.values()
+                                                     for m in (s["mu"], s["nu"])}
+    if kinds != {torch.float16}:
+        raise AssertionError(f"fp16-param state dtypes (params, Adam moments) {kinds}")
+    out["param_f16"] = got
+    log(f"fp16 compute with fp16 params and Adam moments (eps {FP16_PARAM_EPS}): {len(losses)} flagship steps, "
+        f"losses {losses}, {got[0]} fp16 B1 and {got[1]} fp16 B2 launches each; "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms (the first cold), peak device memory of step 2 "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB [{card}]")
+    del model, state, step
+    torch.cuda.empty_cache()
+
     # (b) one epoch of an fp16 Trainer
     data = train_tree(work, config.modalities)
     tconfig = config.replace(data_dir=data, save_dir=os.path.join(work, "fp16_ckpt"),
@@ -4213,10 +4379,7 @@ def sp_steps(work: str, ref: dict, card: str) -> list:
     wall = time.perf_counter() - t0
     micro = TRAIN["accum_steps"]
     per_step = [micro * 35, micro * 18]
-    bitwise = {}
-    for when in ("1", "final"):
-        states = [torch.load(os.path.join(work, f"sp_rank{r}_{when}.pt"), weights_only=True) for r in range(SP_RANKS)]
-        bitwise[when] = all(torch.equal(states[0][k], st[k]) for st in states[1:] for k in states[0])
+    bitwise = {when: all(r[when] == ranks[0][when] for r in ranks) for when in ("1", "final")}
     exact = one_process_exact(ref)
     sharded = torch.load(os.path.join(work, "sp_grads.pt"), weights_only=True)
     sharded64 = torch.load(os.path.join(work, "sp_grads64.pt"), weights_only=True)
@@ -4227,7 +4390,8 @@ def sp_steps(work: str, ref: dict, card: str) -> list:
         return ({k: v for k, v in out.items() if not re.search(r"conv\.[03]\.bias$", k)},
                 max(v for k, v in out.items() if re.search(r"conv\.[03]\.bias$", k)))
 
-    s64, b64 = share(sharded64, exact["grads"])
+    anchor = one_process_anchor(ref)
+    s64, b64 = share(sharded64, anchor["grads"])
     s_sp, _ = share(sharded, exact["grads"])
     s_un, _ = share(ref["grads"], exact["grads"])
     s_pair, b_pair = share(sharded, ref["grads"])
@@ -4249,9 +4413,10 @@ def sp_steps(work: str, ref: dict, card: str) -> list:
             f"{r['launches']} (expected {per_step}) [{card}; gloo through the host on one shared card, not NCCL]")
     loss1, norm1 = rel(r0["loss"][0], ref["loss"][0]), rel(r0["grad_norm"][0], ref["grad_norm"][0])
     later = max(rel(a, b) for a, b in zip(r0["loss"][1:], ref["loss"][1:]))
-    loss64, normrel64 = rel(r0["exact"]["loss"], exact["loss"]), rel(r0["exact"]["grad_norm"], norm64)
+    loss64, normrel64 = rel(r0["exact"]["loss"], anchor["loss"]), rel(r0["exact"]["grad_norm"], anchor["grad_norm"])
     norm_ok = abs(r0["grad_norm"][0] - norm64) <= BF16_MARGIN * abs(ref["grad_norm"][0] - norm64) + GRAD_SLACK * norm64
-    log(f"sp (b) float64 step 1 through the plain conv, sharded against one process: loss rel {loss64:.3g}, grad "
+    log(f"sp (b) float64 step 1 through the plain conv on one row (anchor_batch), sharded against one process: "
+        f"loss rel {loss64:.3g}, grad "
         f"norm rel {normrel64:.3g} (bound {SP_EXACT_RTOL}), the largest gradient difference over its tensor's "
         f"max|g| {s64[worst64]:.3g} at {worst64} (bound {SP_EXACT_SHARE}; the BN-preceded biases, reported: "
         f"{b64:.3g}) [{card}]")
@@ -4375,7 +4540,7 @@ def sp_phase(work: str, device, card: str, ref: dict) -> dict:
 # ---- tensor parallelism (slice 10) -----------------------------------------------
 
 # (b) is held as the sp phase holds its ranks: the float64 step 1 through
-# the plain conv against one process's (the loss within SP_EXACT_RTOL, each
+# the plain conv on anchor_batch against one process's (the loss within SP_EXACT_RTOL, each
 # gradient tensor within SP_EXACT_SHARE), the bf16 kernel step by the loss
 # bounds and, against the float64 step, by BF16_MARGIN x one process's
 # distance + GRAD_SLACK. The float64 step's grad norm is held within
@@ -4442,7 +4607,7 @@ def tp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     TP_STEPS steps of dp_batches, every rank on all 4 microbatches of all
     rows; each step timed and its launches counted, the peak memory of the
     warm steps, every channel gather and gradient sum of the last step
-    synchronised and timed; then the float64 step 1. Returns the SHA-256 of
+    synchronised and timed; then the float64 step 1 on anchor_batch. Returns the SHA-256 of
     the whole (gathered) state after step 1 and after the last, and writes
     step 1's whole gradients (rank 0) to WORK/tp_grads.pt."""
     import torch
@@ -4490,11 +4655,7 @@ def tp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
             out["launches"].append([conv3d.launches, conv3d_grad.launches])
             out["grad_norm"].append(float(metrics["grad_norm"]))
             if len(out["loss"]) in (1, TP_STEPS):
-                digest = hashlib.sha256()
-                for k, v in whole(model.state_dict()).items():
-                    digest.update(k.encode())
-                    digest.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
-                out["1" if len(out["loss"]) == 1 else "final"] = digest.hexdigest()
+                out["1" if len(out["loss"]) == 1 else "final"] = state_digest(whole(model.state_dict()))
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     grads = whole(grads)
     if rank == 0:
@@ -4503,7 +4664,8 @@ def tp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     del model, state, step
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    out["exact"] = exact_first_step(config, batches[0], device, mesh, rank, os.path.join(work, "tp_grads64.pt"))
+    out["exact"] = exact_first_step(anchor_config(config), anchor_batch(batches[0]), device, mesh, rank,
+                                    os.path.join(work, "tp_grads64.pt"))
     out["exact_s"] = time.perf_counter() - t
     multihost.shutdown()
     return out
@@ -4533,7 +4695,8 @@ def tp_steps(work: str, ref: dict, card: str) -> list:
         return ({k: v for k, v in out.items() if not re.search(r"conv\.[03]\.bias$", k)},
                 max(v for k, v in out.items() if re.search(r"conv\.[03]\.bias$", k)))
 
-    s64, b64 = share(sharded64, exact["grads"])
+    anchor = one_process_anchor(ref)
+    s64, b64 = share(sharded64, anchor["grads"])
     s_tp, _ = share(sharded, exact["grads"])
     s_un, _ = share(ref["grads"], exact["grads"])
     s_pair, b_pair = share(sharded, ref["grads"])
@@ -4556,9 +4719,10 @@ def tp_steps(work: str, ref: dict, card: str) -> list:
             f"{r['launches']} (expected {per_step}) [{card}; gloo through the host on one shared card, not NCCL]")
     loss1, norm1 = rel(r0["loss"][0], ref["loss"][0]), rel(r0["grad_norm"][0], ref["grad_norm"][0])
     later = max(rel(a, b) for a, b in zip(r0["loss"][1:], ref["loss"][1:]))
-    loss64, normrel64 = rel(r0["exact"]["loss"], exact["loss"]), rel(r0["exact"]["grad_norm"], norm64)
+    loss64, normrel64 = rel(r0["exact"]["loss"], anchor["loss"]), rel(r0["exact"]["grad_norm"], anchor["grad_norm"])
     norm_ok = abs(r0["grad_norm"][0] - norm64) <= BF16_MARGIN * abs(ref["grad_norm"][0] - norm64) + GRAD_SLACK * norm64
-    log(f"tp (b) float64 step 1 through the plain conv, sharded against one process: loss rel {loss64:.3g}, grad "
+    log(f"tp (b) float64 step 1 through the plain conv on one row (anchor_batch), sharded against one process: "
+        f"loss rel {loss64:.3g}, grad "
         f"norm rel {normrel64:.3g} (bounds {SP_EXACT_RTOL} / {TP_EXACT_NORM_RTOL}), the largest gradient difference "
         f"over its tensor's max|g| {s64[worst64]:.3g} at {worst64} (bound {SP_EXACT_SHARE}; the BN-preceded "
         f"biases, reported: {b64:.3g}) [{card}]")
@@ -4910,7 +5074,8 @@ def main() -> int:
             # the fp16 step's first step (the entry point pcmseg_conv3x3x3_f16)
             "launches": fp16_launches["step"][0],
             "launches_by_path": {"fp16_train": fp16_launches["step"][0], "fp16_trainer": fp16_launches["trainer"][0],
-                                 "fp16_serve": fp16_launches["serve"]},
+                                 "fp16_serve": fp16_launches["serve"],
+                                 "fp16_param_f16": fp16_launches["param_f16"][0]},
             # errors from fp32 of the same fp16 inputs; library_ms: cuDNN's fp16 conv / dgrad
             "max_abs_err": max(fp16k["fwd"]["max_abs_err"], fp16k["dx"]["max_abs_err"]),
             **{k: fp16k["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -4922,7 +5087,8 @@ def main() -> int:
             "source": "pcmseg_tpu_torch/csrc/conv3x3_dw.cu",
             "replaces": "pcmseg_tpu/ops/pallas/conv3d_grad.py:147",
             "launches": fp16_launches["step"][1],
-            "launches_by_path": {"fp16_train": fp16_launches["step"][1], "fp16_trainer": fp16_launches["trainer"][1]},
+            "launches_by_path": {"fp16_train": fp16_launches["step"][1], "fp16_trainer": fp16_launches["trainer"][1],
+                                 "fp16_param_f16": fp16_launches["param_f16"][1]},
             **fp16k["dw"],
             "same_sign_max_rel_err": same_sign["fp16"],
         },

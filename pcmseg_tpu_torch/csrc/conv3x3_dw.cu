@@ -7,8 +7,8 @@
 // `_dw_kernel`). Same arithmetic: dW[tap, ci, co] = sum over every voxel v of
 // the batch of x[v + offset(tap), ci] * dy[v, co], neighbours outside the
 // volume read as zero, products of 16-bit values (exact in fp32, subnormal
-// fp16 values included) summed in fp32. fp16 takes the bf16 design
-// unchanged: the same instruction shapes at the same rate, the same bytes.
+// fp16 values included) summed in fp32. fp16 takes the bf16 design, with
+// dy scaled by a power of two first (below).
 //
 // Formulation: per tap a GEMM with M = Ci rows, N = Co columns and K = the
 // N*D*H*W voxels. Both operands lie voxel-major in NDHWC memory, so both are
@@ -55,7 +55,22 @@
 //  * the voxel sum is split over gridDim.z (split-K) into whole waves of
 //    blocks; a second pass adds the fp32 partials in split order, so two
 //    runs agree bit for bit. The TPU kernel's H-chunking (_pick_chunk_h)
-//    was VMEM bookkeeping and has no counterpart.
+//    was VMEM bookkeeping and has no counterpart;
+//  * fp16 range: on an H100 the tensor cores align the products of a sum
+//    to the largest exponent and keep about 25 bits below it, and a
+//    subnormal fp16 operand enters at exponent -14 with its leading zeros:
+//    4*2^-24 + (1 + 2^-10)*2^-28 loses its 2^-38 bit, the same sum times
+//    2^20 is exact. With no loss scaling the fp16 step's dy is nearly all
+//    zero and the rest subnormal (2^-24..2^-21 at the 8^3 bottleneck), and
+//    such elements lost up to 2.2e-5 of their sum of |x.dy| (cuBLAS's fp16
+//    GEMM with fp32 output the same). So the fp16 kernel sums dy.2^k,
+//    k = f16_scale_exponent(max|dy|) (exact: a power of two, max|dy|.2^k
+//    below 2^15), and its epilogue multiplies the totals by 2^-k (exact in
+//    fp32): one pass (f16_absmax) finds max|dy| on the card, and the
+//    producer warpgroup's three idle warps scale each dy tile in shared
+//    memory between its TMA load and the consumers' wgmma (a third
+//    mbarrier a stage), so dy is not copied and nothing is read back to
+//    the host.
 
 #include <algorithm>
 
@@ -69,6 +84,7 @@ constexpr int VOX = TZ * TY * TX;
 constexpr int BC = 64;               // input and output channels per block
 constexpr int DY_BYTES = VOX * 128;  // dy tile: 128 voxel rows of 64 channels, 128-byte swizzled
 constexpr int THREADS = 512;         // 3 consumer warpgroups (kh) + 1 producer warpgroup
+constexpr int SCALERS = 96;          // fp16: the producer warpgroup's warps 1-3 scale dy tiles
 // registers a thread after setmaxnreg: 4 x 128 x 128 at launch, 128 x 32 + 384 x 160 after
 constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
 constexpr int STAGES = 4;
@@ -83,33 +99,57 @@ struct DwCfg {
   // + slack: SMALL's discarded rows 24-63 read a few rows past its slab
   static constexpr int STAGE = (DY_BYTES + SLABS * SLAB + 256 + 1023) / 1024 * 1024;
   static constexpr int BAR_OFF = STAGES * STAGE;
-  static constexpr int SMEM = BAR_OFF + 16 * STAGES + 1024;  // + alignment slack
+  static constexpr int SMEM = BAR_OFF + 24 * STAGES + 1024;  // full, empty, scaled; + alignment slack
 };
 
 struct DwArgs {
   float* dst;  // (27, Ci, Co) fp32, one slab per split
+  const unsigned* amax_bits;  // fp16: max|dy|'s bits (f16_absmax), for dy's scale 2^k
   int Ci, Co;
   int tiles_z, tiles_y, tiles_x, tiles;
   int tiles_per_split;
 };
 
-// T: the element type of x and dy (bf16 or f16).
+// The exponent k of the fp16 dy scale for a largest |dy| of fp16 bits
+// `amax_bits` (sign cleared): max|dy| * 2^k in [2^14, 2^15), so nothing
+// in dy * 2^k passes 65504; 0 (no scale) for a zero, inf or NaN maximum and
+// for max|dy| >= 2^14. (conv3d_grad.f16_scale_exponent is its mirror.)
+__host__ __device__ inline int f16_scale_exponent(unsigned amax_bits) {
+  if (amax_bits == 0 || amax_bits >= 0x7c00u) return 0;
+  int e;  // max|dy| in [2^(e-1), 2^e)
+  if (amax_bits >> 10) {
+    e = static_cast<int>(amax_bits >> 10) - 14;  // normal: 1.m * 2^(E-15)
+  } else {
+    int b = 0;  // subnormal: m * 2^-24, m in [2^b, 2^(b+1))
+    while (amax_bits >> (b + 1)) ++b;
+    e = b - 23;
+  }
+  return 15 - e > 0 ? 15 - e : 0;
+}
+
+// 2^k as an fp32 bit pattern, for |k| <= 126
+__device__ inline float pow2f(int k) { return __int_as_float((127 + k) << 23); }
+
+// T: the element type of x and dy (bf16 or f16; fp16 scales dy by 2^k).
 template <bool SMALL, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
                       const DwArgs a) {
   using C = DwCfg<SMALL>;
+  constexpr bool SCALED = std::is_same<T, f16>::value;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzled dy tile wants 1024
   const uint32_t bar = base + C::BAR_OFF;
   auto full = [&](int s) { return bar + 8 * s; };
   auto empty = [&](int s) { return bar + 8 * (STAGES + s); };
+  auto scaled = [&](int s) { return bar + 8 * (2 * STAGES + s); };  // fp16: stage s's dy scaled
 
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 3);
+      mbar_init(scaled(s), 1);
     }
     fence_barrier_init();
   }
@@ -146,6 +186,35 @@ __global__ void __launch_bounds__(THREADS, 1)
           ph ^= 1;
         }
       }
+    } else if (SCALED && tid >= 416) {
+      // dy * 2^k in place, each stage between its TMA load and the wgmma
+      // that read it (the async proxy: fence, then the scaled barrier)
+      const int stid = tid - 416;
+      const float sc = pow2f(f16_scale_exponent(*a.amax_bits));
+      unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        mbar_wait(full(s), ph);
+        uint4* tile = reinterpret_cast<uint4*>(gbase + s * C::STAGE);
+        for (int i = stid; i < DY_BYTES / 16; i += SCALERS) {
+          uint4 q = tile[i];
+          __half2* h = reinterpret_cast<__half2*>(&q);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __half22float2(h[j]);
+            h[j] = __floats2half2_rn(f.x * sc, f.y * sc);
+          }
+          tile[i] = q;
+        }
+        fence_proxy_async();
+        named_barrier(1, SCALERS);
+        if (stid == 0) mbar_arrive(scaled(s));
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
     }
     return;
   }
@@ -168,7 +237,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto chain = [&](auto nt, int i0) {
     constexpr int NT = decltype(nt)::value;
 #pragma unroll
-    for (int q = 0; q < NT; ++q) mbar_wait(full((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
+    for (int q = 0; q < NT; ++q) {
+      mbar_wait(full((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
+      if (SCALED) mbar_wait(scaled((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
+    }
 #pragma unroll
     for (int aa = 0; aa < 3; ++aa) {
       wgmma_fence();  // the FADDs below read acc
@@ -205,6 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (; i0 < tiles; ++i0) chain(std::integral_constant<int, 1>(), i0);
 
   float* out = a.dst + static_cast<long long>(blockIdx.z) * 27 * a.Ci * a.Co;
+  const float scale = SCALED ? pow2f(-f16_scale_exponent(*a.amax_bits)) : 1.f;  // undoes dy's 2^k
   const int lane = tid & 31, warp = (tid >> 5) & 3;
 #pragma unroll
   for (int aa = 0; aa < 3; ++aa) {
@@ -226,7 +299,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < 8; ++j) {
         const int co = co0 + 8 * j + 2 * (lane & 3);
         if (co < a.Co)
-          *reinterpret_cast<float2*>(row + co) = make_float2(total[aa][4 * j + 2 * h], total[aa][4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(row + co) =
+              make_float2(total[aa][4 * j + 2 * h] * scale, total[aa][4 * j + 2 * h + 1] * scale);
       }
     }
   }
@@ -248,6 +322,32 @@ __global__ void dw_reduce(const float4* __restrict__ workspace, float4* __restri
     out[i] = s;
   }
 }
+
+// *amax_bits = max over dy of |dy|'s fp16 bits (they order as the values
+// do): 8 values a 16-byte load, one atomicMax a block. *amax_bits must be 0.
+__global__ void f16_absmax(const uint4* __restrict__ dy, long long count8, unsigned* amax_bits) {
+  unsigned m = 0;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count8;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const uint4 q = dy[i];
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m = max(m, max(w[j] & 0x7fffu, (w[j] >> 16) & 0x7fffu));
+  }
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __shared__ unsigned part[32];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < blockDim.x / 32 ? part[threadIdx.x] : 0u;
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (threadIdx.x == 0) atomicMax(amax_bits, m);
+  }
+}
+
+// Bytes of the fp16 entry point's workspace after the split-K partials:
+// max|dy|'s bits, padded.
+constexpr long long F16_SCALE_BYTES = 16;
 
 struct DwPlan {
   bool small;
@@ -286,7 +386,8 @@ cudaError_t launch_dw(const DwPlan& p, const CUtensorMap& xmap, const CUtensorMa
   return cudaGetLastError();
 }
 
-// The launches of one dW in element type T (the entry points below).
+// The launches of one dW in element type T (the entry points below): for
+// fp16 first max|dy| into the workspace after the split-K partials.
 template <typename T>
 int run_dw(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes, int N, int D,
            int H, int W, int Ci, int Co, void* stream, int device) {
@@ -294,7 +395,22 @@ int run_dw(const void* x, const void* dy, void* out, void* workspace, long long 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!(Ci == 8 || Ci % BC == 0) || Co % 8) return static_cast<int>(cudaErrorInvalidValue);
   const DwPlan p = make_dw_plan(N, D, H, W, Ci, Co, sm_count(device));
-  if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool kScaled = std::is_same<T, f16>::value;
+  if (workspace_bytes < p.workspace_bytes + (kScaled ? F16_SCALE_BYTES : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  unsigned* amax = nullptr;
+  if constexpr (kScaled) {
+    amax = reinterpret_cast<unsigned*>(static_cast<unsigned char*>(workspace) + p.workspace_bytes);
+    const long long count8 = static_cast<long long>(N) * D * H * W * Co / 8;
+    const unsigned blocks = static_cast<unsigned>(std::min<long long>((count8 + 255) / 256, 8LL * sm_count(device)));
+    err = cudaMemsetAsync(amax, 0, sizeof(unsigned), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    f16_absmax<<<blocks, 256, 0, s>>>(static_cast<const uint4*>(dy), count8, amax);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   CUtensorMap xmap, dymap;
   constexpr CUtensorMapDataType type = tensor_map_type<T>();
@@ -305,10 +421,10 @@ int run_dw(const void* x, const void* dy, void* out, void* workspace, long long 
 
   DwArgs a;
   a.dst = p.splits > 1 ? static_cast<float*>(workspace) : static_cast<float*>(out);
+  a.amax_bits = amax;
   a.Ci = Ci, a.Co = Co;
   a.tiles_z = p.tiles_z, a.tiles_y = p.tiles_y, a.tiles_x = p.tiles_x, a.tiles = p.tiles;
   a.tiles_per_split = p.tiles_per_split;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = p.small ? launch_dw<true, T>(p, xmap, dymap, a, s) : launch_dw<false, T>(p, xmap, dymap, a, s);
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const long long count4 = 27LL * Ci * Co / 4;
@@ -322,22 +438,28 @@ int run_dw(const void* x, const void* dy, void* out, void* workspace, long long 
 
 extern "C" {
 
-// Bytes of fp32 workspace the launch below needs for this shape on `device`
-// (0 unless the voxels are split); the same for both element types.
+// Bytes of workspace the launch below needs for this shape on `device`:
+// bf16 the fp32 split-K partials (0 unless the voxels are split); fp16
+// those and F16_SCALE_BYTES (max|dy|).
 long long pcmseg_conv3x3_dw_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
   return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
 }
 
 long long pcmseg_conv3x3_dw_f16_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
-  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
+  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes + F16_SCALE_BYTES;
 }
+
+// f16_scale_exponent for the tests: the exponent of dy's scale given the
+// fp16 bits of max|dy|.
+int pcmseg_f16_scale_exponent(int amax_bits) { return f16_scale_exponent(static_cast<unsigned>(amax_bits)); }
 
 // dW (27*Ci, Co) fp32 of x (N, D, H, W, Ci) and dy (N, D, H, W, Co), both bf16
 // (both fp16 for the _f16 entry), on `stream` (PyTorch's current stream) of
 // device `device`. The caller checks shapes, dtypes, contiguity and 16-byte
 // alignment, requires Ci == 8 or Ci % 64 == 0, Co % 8 == 0 and N*D*H*W <
 // 2^31, and passes a workspace of at least pcmseg_conv3x3_dw_workspace_bytes(...)
-// bytes. Returns the cudaError_t of the launches; does not synchronise.
+// bytes (the fp16 one pcmseg_conv3x3_dw_f16_workspace_bytes(...)). Returns
+// the cudaError_t of the launches; does not synchronise.
 int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes,
                            int N, int D, int H, int W, int Ci, int Co, void* stream, int device) {
   return run_dw<bf16>(x, dy, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, stream, device);

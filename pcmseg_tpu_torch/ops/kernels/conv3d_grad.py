@@ -13,9 +13,17 @@ device. The kernels read x's channels padded with zeros as the forward
 kernels do (``conv3d.ci_pad``); the wrapper pads x and returns the rows of
 the real channels. ``dw_plan`` mirrors the 16-bit kernel's launch plan
 (split-K, workspace, the longest tensor-core chain) for tests and tools.
+
+The fp16 entry point sums dy·2^k in place of dy and scales dW by 2^-k
+(``f16_scale_exponent``, both steps exact): on an H100 the tensor cores
+align a sum's products with a subnormal fp16 operand as if it were normal
+at 2^-14, cutting bits its leading zeros push below the alignment window,
+and an fp16 step's dy is nearly all zero or subnormal (no loss scaling).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -47,15 +55,32 @@ DW_MIN_TILES_PER_SPLIT = 4
 DW_CHAIN_TILES = 2
 
 
-def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int) -> dict:
+# fp16 dy is summed as dy·2^k with max|dy|·2^k in [2^(F16_SCALE_TOP - 1),
+# 2^F16_SCALE_TOP): below 65504, and no lower than a power of two allows
+F16_SCALE_TOP = 15
+
+
+def f16_scale_exponent(amax: float) -> int:
+    """The exponent k of the fp16 kernel's dy scale for max|dy| = ``amax``
+    (the C ``f16_scale_exponent``, which computes it on the card from
+    max|dy|'s fp16 bits): max|dy|·2^k in [2^14, 2^15); 0 for a zero, inf or
+    NaN maximum and for max|dy| >= 2^14. Scaling an fp16 value up by 2^k is
+    exact while the result stays below 65504, and so is dW·2^-k in fp32."""
+    if amax == 0 or not math.isfinite(amax):
+        return 0
+    return max(0, F16_SCALE_TOP - math.frexp(amax)[1])
+
+
+def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int, f16: bool = False) -> dict:
     """The bf16 / fp16 kernel's launch plan for x (n, d, h, w, ci) and dy
     (..., co) on a card of ``sms`` SMs, as ``make_dw_plan`` computes it (ci
     is padded to what the kernel reads, ``conv3d.ci_pad``): ``splits`` of the
     voxel tiles over gridDim.z, ``tiles_per_split``, ``workspace_bytes`` of
-    fp32 split partials (the C ``pcmseg_conv3x3_dw{,_f16}_workspace_bytes``),
-    and ``chain_steps``, the most k16 steps any tensor-core sum runs before
-    its FADD into a running total (DW_CHAIN_TILES tiles; a split's slice is
-    tiles_per_split · 8 steps)."""
+    fp32 split partials and, with ``f16``, 16 bytes for max|dy| (the C
+    ``pcmseg_conv3x3_dw{,_f16}_workspace_bytes``), and ``chain_steps``, the
+    most k16 steps any tensor-core sum runs before its FADD into a running
+    total (DW_CHAIN_TILES tiles; a split's slice is tiles_per_split · 8
+    steps)."""
     ci = ci_pad(ci)
     tz, ty, tx = DW_TILE
     tiles = n * -(-d // tz) * -(-h // ty) * -(-w // tx)
@@ -64,7 +89,8 @@ def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int) -> dict:
     per_split = -(-tiles // splits)
     splits = -(-tiles // per_split)
     return {"ci": ci, "splits": splits, "tiles_per_split": per_split,
-            "workspace_bytes": splits * 27 * ci * co * 4 if splits > 1 else 0,
+            "workspace_bytes": (splits * 27 * ci * co * 4 if splits > 1 else 0)
+            + (16 if f16 else 0),
             "chain_steps": DW_STEPS_PER_TILE * min(per_split, DW_CHAIN_TILES)}
 
 
@@ -131,7 +157,7 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dev = x.device.index
     out = torch.empty((3, 3, 3, ci, co), dtype=torch.float32, device=x.device)
     # fp32 split-K partials, for the layers whose (27·Ci, Co) output alone is
-    # too few tiles to fill the card
+    # too few tiles to fill the card; for fp16 also max|dy|
     ws_bytes = getattr(lib, _WORKSPACE[x.dtype])(n, d, h, w, ci, co, dev)
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device) if ws_bytes else None
     rc = getattr(lib, _ENTRY[x.dtype])(

@@ -115,9 +115,10 @@ def _config(for_port=False, **kw):
     return get_config(base_features=4, remat=False, conv_lowering="lax", **kw)
 
 
-def _init(param_dtype: str):
+def _init(param_dtype: str, rows: int = 2):
     """JAX-initialised variables (numpy, params in ``param_dtype``) with
-    non-trivial 1-D params, and a train batch of 2."""
+    non-trivial 1-D params, and a train batch of ``rows`` (the first rows
+    of a longer batch are the shorter one)."""
     import jax
     import jax.numpy as jnp
 
@@ -136,9 +137,9 @@ def _init(param_dtype: str):
     )
     z, y, x = np.meshgrid(*[np.arange(SIZE)] * 3, indexing="ij")
     blob = ((z - 16) ** 2 + (y - 14) ** 2 + (x - 17) ** 2 < 80).astype(np.float32)
-    image = rng.normal(size=(2, SIZE, SIZE, SIZE, 5)).astype(np.float32)
+    image = rng.normal(size=(rows, SIZE, SIZE, SIZE, 5)).astype(np.float32)
     image[..., 0] += 2.0 * blob
-    label = np.stack([np.roll(blob, 3 * i, axis=1) for i in range(2)])[..., None]
+    label = np.stack([np.roll(blob, 3 * i, axis=1) for i in range(rows)])[..., None]
     return variables, {"image": image, "label": label}
 
 
@@ -732,37 +733,44 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# mesh (data, spatial, model) and accum_steps of each step on the gloo
-# clusters, by cluster size: with batch 2, accum 2 on 'data' runs layout
-# (b) (each data rank its own microbatch), accum 1 layout (a) (each
-# microbatch over both data ranks)
-MESHES = {2: {"dp2": ((2, 1, 1), 2), "sp2": ((1, 2, 1), 2), "tp2": ((1, 1, 2), 2), "dp2a": ((2, 1, 1), 1)},
-          4: {"dp2sp2": ((2, 2, 1), 2)}}
+# mesh (data, spatial, model), accum_steps and batch size of each step on
+# the gloo clusters, by cluster size: with batch 2, accum 2 on 'data' runs
+# layout (b) (each data rank its own microbatch), accum 1 layout (a) (each
+# microbatch over both data ranks); 4 data ranks with batch 4 in 2
+# microbatches of 2 rows divide neither, layout (c) (two groups of 2 ranks,
+# each group its own microbatch, a row a rank)
+MESHES = {2: {"dp2": ((2, 1, 1), 2, 2), "sp2": ((1, 2, 1), 2, 2), "tp2": ((1, 1, 2), 2, 2),
+              "dp2a": ((2, 1, 1), 1, 2)},
+          4: {"dp2sp2": ((2, 2, 1), 2, 2), "dp4c": ((4, 1, 1), 2, 4)}}
+BATCH_ROWS = 4  # the inputs' rows; a step of batch 2 takes the first 2
 # the share of Adam's moments more than one ulp from one process's after the
-# step (measured: dp2 0.007%, tp2 0.02%, sp2 0.03%, dp2a 0.02%, dp2sp2 0.03%:
+# step (measured: dp2 0.007%, tp2 0.02%, sp2 0.03%, dp2a 0.02%, dp2sp2 0.03%, dp4c 0.025%:
 # each microbatch's fp32 gradients are summed over the ranks that hold parts
 # of it before the rounding to bf16, as JAX sums them; rounded on each rank
 # first, sp2, dp2a and dp2sp2 read 6.4%, 5.6% and 5.3%)
-MOMENT_SHARE = {"dp2": 1e-3, "sp2": 1e-3, "tp2": 1e-3, "dp2a": 1e-3, "dp2sp2": 1e-3}
+MOMENT_SHARE = {"dp2": 1e-3, "sp2": 1e-3, "tp2": 1e-3, "dp2a": 1e-3, "dp2sp2": 1e-3, "dp4c": 1e-3}
 
 
-def _cluster_step(given, mesh=None, rank=0, accum=2):
-    """The port's bf16-param step from ``given`` in ``accum`` microbatches on
-    ``mesh`` (None: one process): (its whole state dict, Adam's moments by
-    name, metrics)."""
+def _cluster_step(given, mesh=None, rank=0, accum=2, batch=2):
+    """The port's bf16-param step from ``given`` on its first ``batch`` rows
+    in ``accum`` microbatches on ``mesh`` (None: one process): (its whole
+    state dict, Adam's moments by name, metrics)."""
     from pcmseg_tpu_torch.parallel import collectives
     from pcmseg_tpu_torch.parallel.sharding import shard_batch, shard_state, whole_payload
     from pcmseg_tpu_torch.train import steps
 
     from pcmseg_tpu_torch.models.unet3d import UNet3D
 
-    config = _config(for_port=True, compute_dtype="float32", param_dtype="bfloat16", batch_size=2, accum_steps=accum)
+    config = _config(for_port=True, compute_dtype="float32", param_dtype="bfloat16", batch_size=batch,
+                     accum_steps=accum)
 
     model = UNet3D.from_config(config, device="meta")
     model.load_state_dict({k: v.clone() for k, v in given["state_dict"].items()}, strict=True, assign=True)
     axes = shard_state(model, mesh) if mesh is not None else None
     state = steps.create_train_state(model, config)
-    batch = given["batch"] if mesh is None else shard_batch(given["batch"], mesh, rank=rank, accum=config.accum_steps)
+    batch = {k: v[:batch] for k, v in given["batch"].items()}
+    if mesh is not None:
+        batch = shard_batch(batch, mesh, rank=rank, accum=config.accum_steps)
     metrics = {k: v.detach() for k, v in steps.make_train_step(model, config, mesh=mesh)(state, batch).items()}
     names = dict(model.named_parameters())
     moments = {"model": {**{f"mu.{k}": state.optimizer.state[p]["mu"] for k, p in names.items()},
@@ -784,7 +792,8 @@ def _worker(pid: int, nproc: int, port: int, inputs: str, out: str) -> int:
     multihost.initialize(f"localhost:{port}", num_processes=nproc, process_id=pid, backend="gloo")
     multihost.establish_collectives()
     given = torch.load(inputs, weights_only=True)
-    results = {name: _cluster_step(given, Mesh(*mesh), pid, accum) for name, (mesh, accum) in MESHES[nproc].items()}
+    results = {name: _cluster_step(given, Mesh(*mesh), pid, accum, batch)
+               for name, (mesh, accum, batch) in MESHES[nproc].items()}
     torch.save(results, f"{out}.{pid}.pt")
     multihost.shutdown()
     return 0
@@ -795,7 +804,7 @@ def _cluster_states(tmp_path, nproc: int):
     cluster of ``nproc`` processes."""
     from pcmseg_tpu_torch.train.checkpoints import state_dict_from_jax_params
 
-    variables, batch = _init("bfloat16")
+    variables, batch = _init("bfloat16", BATCH_ROWS)
     given = {"state_dict": state_dict_from_jax_params(variables["params"], variables["batch_stats"]),
              "batch": {k: torch.from_numpy(v) for k, v in batch.items()}}
     inputs, out = str(tmp_path / "inputs.pt"), str(tmp_path / "out")
@@ -810,12 +819,16 @@ def _cluster_states(tmp_path, nproc: int):
     return given, [torch.load(f"{out}.{r}.pt", weights_only=True) for r in range(nproc)]
 
 
-def _check_clusters(given, ranks, nproc: int) -> None:
+def _check_clusters(given, ranks, nproc: int, names=None) -> None:
+    """Each of ``names`` (all of ``MESHES[nproc]`` by default) against the
+    same step in one process."""
     refs = {}
-    for name, (_, accum) in MESHES[nproc].items():
-        if accum not in refs:
-            refs[accum] = _cluster_step(given, accum=accum)
-        ref_sd, ref_mom, ref_metrics = refs[accum]
+    for name, (_, accum, batch) in MESHES[nproc].items():
+        if names is not None and name not in names:
+            continue
+        if (accum, batch) not in refs:
+            refs[accum, batch] = _cluster_step(given, accum=accum, batch=batch)
+        ref_sd, ref_mom, ref_metrics = refs[accum, batch]
         sd0, mom0, m0 = ranks[0][name]
         for sd, _, m in (r[name] for r in ranks[1:]):
             for k in sd0:
@@ -851,13 +864,29 @@ def test_bf16_params_on_dp_sp_tp_clusters_match_one_process(tmp_path):
     _check_clusters(given, ranks, 2)
 
 
-def test_bf16_params_on_a_data_by_spatial_cluster_match_one_process(tmp_path):
+@pytest.fixture(scope="module")
+def cluster4(tmp_path_factory):
+    """One gloo cluster of 4 processes running ``MESHES[4]``."""
+    return _cluster_states(tmp_path_factory.mktemp("cluster4"), 4)
+
+
+def test_bf16_params_on_a_data_by_spatial_cluster_match_one_process(cluster4):
     """The same on a 2 × 2 data × spatial mesh of 4 processes, 2
     microbatches (layout (b)): each microbatch's fp32 gradients are summed
     over its two slabs and rounded, then the data ranks' bf16 sums are
     summed in fp32 and rounded again; every rank's state bitwise equal."""
-    given, ranks = _cluster_states(tmp_path, 4)
-    _check_clusters(given, ranks, 4)
+    _check_clusters(*cluster4, 4, ["dp2sp2"])
+
+
+def test_bf16_params_in_layout_c_match_one_process(cluster4):
+    """The same on 4 data ranks with batch 4 in 2 microbatches (layout (c),
+    ``sharding.microbatch_layout``): two groups of q = 2 ranks, each group
+    one microbatch, one row a rank; each microbatch's fp32 gradients are
+    summed over its group before their one rounding to bf16 and the groups'
+    bf16 sums over the data ranks in fp32 (``train/steps.py``), against one
+    process's step of the same 4 rows in 2 microbatches; every rank's state
+    bitwise equal."""
+    _check_clusters(*cluster4, 4, ["dp4c"])
 
 
 # ---- the kernels' dtype dispatch and the dtypes refused by name -----------------------

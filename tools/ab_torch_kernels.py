@@ -4,8 +4,8 @@
 
 Runs the kernel phases of each tree's own ``chip_smoke.py`` (B1 forward at
 the 14 model shapes, B1 as dx at the 17 transposed shapes, B2 at the 14
-shapes: each checked against its plain version and timed beside it and
-cuDNN's call) in a fresh process per run, in the order parent, change,
+shapes in bf16 and in fp16: each checked against its plain version and
+timed beside it and cuDNN's call) in a fresh process per run, in the order parent, change,
 change, parent, so that drift on the card falls on both sides. CHANGE_TREE
 defaults to the checkout this script is in. Each tree builds its kernels
 into its own ``build/``. Prints each run's per-layer lines as they come,
@@ -34,7 +34,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 seconds = build.build()["seconds"]
 card, device = smoke.card_label(), torch.device("cuda")
 runs = {"fwd": smoke.check_kernels(device, card, (1,)), "dx": smoke.check_dx_kernels(device, card),
-        "dw": smoke.check_dw_kernels(device, card)}
+        "dw": smoke.check_dw_kernels(device, card),
+        "dw16": smoke.check_dw_kernels(device, card, dtype=torch.float16)}
 print("AB " + json.dumps({"tree": tree, "build_s": seconds, "card": card, **runs}), flush=True)
 """
 
@@ -60,9 +61,9 @@ def main() -> int:
     change = os.path.abspath(sys.argv[2] if len(sys.argv) == 3 else os.path.join(os.path.dirname(__file__), ".."))
     records = [run(tree) for tree in (parent, change, change, parent)]
     for name, tree in (("parent", parent), ("change", change)):
-        sums = {k: [r[k]["ms"] for r in records if r["tree"] == tree] for k in ("fwd", "dx", "dw")}
+        sums = {k: [r[k]["ms"] for r in records if r["tree"] == tree] for k in ("fwd", "dx", "dw", "dw16")}
         print(f"{name} {tree}: per 128^3 microbatch, B1 forward {sums['fwd']} ms, B1 as dx {sums['dx']} ms, "
-              f"B2 {sums['dw']} ms [{records[0]['card']}]", flush=True)
+              f"B2 {sums['dw']} ms, fp16 B2 {sums['dw16']} ms [{records[0]['card']}]", flush=True)
     return 0
 
 
