@@ -18,9 +18,12 @@ kernel on them:
      N=1 of the kernel, the plain version and cuDNN's conv alone, and each
      shape's TFLOP/s and share of its bound (the larger of its FLOP at the
      card's 989 TFLOP/s and its bytes, each input read once and each output
-     written once, at 3.35 TB/s);
-  4. B1 as dx: the 17 transposed shapes (relu off, no bias), same bound;
-     times beside the plain version and cuDNN's data gradient alone;
+     written once, at 3.35 TB/s); two launches bitwise equal, and the
+     kernel's launch plan (``pcmseg_conv3x3x3_plan``) equal to its mirror
+     ``conv3d.conv_plan`` at every shape launched;
+  4. B1 as dx: the 17 transposed shapes (relu off, no bias), same bound,
+     two launches bitwise equal, the plan equal to its mirror; times
+     beside the plain version and cuDNN's data gradient alone;
   5. B2 (weight gradient) vs plain: the 14 shapes at N=1, bf16 inputs,
      against the plain version in fp32, max|kernel − ref| ≤ 2e-3·max|ref|
      (fp32 sums of up to 2.1 M bf16 products in another order), two launches
@@ -404,6 +407,13 @@ def conv_bound(ci: int, co: int, size: int, n: int = 1, dw: bool = False, depth:
     return max(ops_s, bytes_s) * 1e3, flop, ops_s >= bytes_s
 
 
+def plan_note(plan: dict) -> str:
+    """B1's plan in a few words: the instruction, the splits of K (a
+    cluster), the longest chain."""
+    split = f"K split over a cluster of {plan['splits']}" if plan["splits"] > 1 else f"{plan['grid_x']} persistent blocks"
+    return f"m64n{plan['bn']}k16, {split}, chains of {plan['chain_steps']} k16 steps"
+
+
 def shape_line(k_ms: float, bound_ms: float, flop: int) -> str:
     return f"kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s, {bound_ms / k_ms:.3f} of the bound {bound_ms:.4f} ms)"
 
@@ -453,9 +463,41 @@ def operand_dtype(dtype) -> tuple:
     return dtype, F16_REL, "fp16 "
 
 
+def check_b1_plan(n: int, d: int, s: int, ci: int, co: int, what: str) -> dict:
+    """B1's launch plan for x (n, d, s, s, ci) into co channels as the
+    library computes it for this card (its SMs and the clusters it holds at
+    once), held equal to ``conv3d.conv_plan``'s for the same card."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import build, conv3d
+
+    lib, device = build.load_library(), torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clusters = conv3d.device_clusters(lib, device)
+    got = conv3d.kernel_plan(lib, n, d, s, s, ci, co, sms, clusters)
+    want = conv3d.conv_plan(n, d, s, s, ci, co, sms, clusters)
+    if any(got[k] != want[k] for k in conv3d.PLAN_FIELDS):
+        raise AssertionError(f"{what}: B1's launch plan {got} differs from conv3d.conv_plan's {want}")
+    return got
+
+
+def b1_twice(x, packed, b, relu: bool, what: str):
+    """B1 launched twice on the same inputs; the two outputs bitwise equal."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d
+
+    got = conv3d.conv3x3x3(x, packed, b, relu)
+    again = conv3d.conv3x3x3(x, packed, b, relu)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches of B1 differ")
+    return got
+
+
 def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1, dtype=None) -> dict:
     """Kernel vs plain version at each shape and each batch size in
-    ``batches``, timed at the first; returns the JSON record's numbers.
+    ``batches`` (two launches bitwise equal, the launch plan equal to its
+    mirror), timed at the first; returns the JSON record's numbers.
     With ``slab``, at a D-slab's shape (``slab_depth``); with ``tp`` > 1, at
     one output-channel shard's (Co / tp). Operands bf16, or ``dtype``
     (fp16: the bound scaled by F16_REL, logged with an "fp16 " tag)."""
@@ -475,8 +517,9 @@ def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1, d
         shape_err = 0.0
         for n in reversed(batches):  # the last x made is the timed one
             x = torch.randn((n, d, s, s, ci), generator=g, device=device).to(dtype)
+            plan = check_b1_plan(n, d, s, ci, co, f"{tag}conv {ci}->{co} @{d}x{s}^2 N={n}")
             for relu in (True, False):
-                got = conv3d.conv3x3x3(x, packed, b, relu)
+                got = b1_twice(x, packed, b, relu, f"{tag}conv {ci}->{co} @{d}x{s}^2 N={n} relu={relu}")
                 torch.cuda.synchronize()
                 ref = conv3d.conv3x3x3_reference(x.float(), packed.float(), b, relu)
                 err = (got.float() - ref).abs()
@@ -497,7 +540,8 @@ def check_kernels(device, card: str, batches, slab: bool = False, tp: int = 1, d
         c_ms = median_ms(lambda: F.conv3d(xc, w5, padding=1))
         bound, flop, ops = conv_bound(ci, co, s, batches[0], depth=d)
         log(f"{tag}conv {ci}->{co} @{d}x{s}^2 x{layers}: ok at N={'/'.join(map(str, batches))}, "
-            f"max_abs_err {shape_err:.4g}; N={batches[0]}: {shape_line(k_ms, bound, flop)}, "
+            f"max_abs_err {shape_err:.4g}, bitwise repeat, {plan_note(plan)}; N={batches[0]}: "
+            f"{shape_line(k_ms, bound, flop)}, "
             f"plain {p_ms:.4f} ms, cudnn conv alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del x, w, b, packed
@@ -892,7 +936,8 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=N
             dy[:, 0] = dy[:, -1] = 0
         w = torch.randn((ci, co, 3, 3, 3), generator=g, device=device) * math.sqrt(2.0 / (27 * ci))
         packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), dtype)
-        got = conv3d.conv3x3x3(dy, packed, None, False)
+        plan = check_b1_plan(1, d, s, ci, co, f"{tag}dx {ci}->{co} @{d}x{s}^2")
+        got = b1_twice(dy, packed, None, False, f"{tag}dx {ci}->{co} @{d}x{s}^2")
         torch.cuda.synchronize()
         ref = conv3d.conv3x3x3_reference(dy.float(), packed.float(), None, False)
         err = (got.float() - ref).abs()
@@ -912,7 +957,8 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=N
         c_ms = median_ms(lambda: torch.ops.aten.convolution_backward(
             dyc, xc, w_bf, None, (1, 1, 1), (1, 1, 1), (1, 1, 1), False, (0, 0, 0), 1, (True, False, False)))
         bound, flop, ops = conv_bound(ci, co, s, depth=d)
-        log(f"{tag}dx {ci}->{co} @{d}x{s}^2 x{layers}: ok; {shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
+        log(f"{tag}dx {ci}->{co} @{d}x{s}^2 x{layers}: ok, bitwise repeat, {plan_note(plan)}; "
+            f"{shape_line(k_ms, bound, flop)}, plain {p_ms:.4f} ms, "
             f"cudnn dgrad alone {c_ms:.4f} ms [{card}]")
         rows.append((layers, k_ms, p_ms, c_ms, bound, bound if ops else 0.0))
         del dy, w, packed, w_bf, dyc, xc
@@ -932,8 +978,9 @@ def check_dx_kernels(device, card: str, slab: bool = False, tp: int = 1, dtype=N
 # and adds the chains in FADDs
 DW_SAME_SIGN_BOUND = 2e-5
 SLICE_STEP_LOSS = 2.0**-23
-# B1's longest chains (27·Ci/16 k16 steps a split-K slice), as forwards on
-# same-sign inputs: their error in units of the 16-bit output's last place
+# B1 at its longest chains (conv3d.conv_plan's chain_steps, at most 432 k16
+# steps), as forwards on same-sign inputs: their error in units of the
+# 16-bit output's last place
 B1_SAME_SIGN = ((512, 256, 32), (1024, 512, 16))
 
 
@@ -1084,7 +1131,9 @@ def dw_sum(device, card: str) -> dict:
             bits = round(-math.log2(torch.finfo(dtype).eps)) + 1
             ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact).exponent - bits)
             off = (got.double() - exact) / ulp
-            log(f"dw_sum {name} B1 {ci}->{co} @{s}^3 forward, same-sign: error from float64 max "
+            plan = check_b1_plan(1, s, s, ci, co, f"dw_sum {name} B1 {ci}->{co} @{s}^3")
+            log(f"dw_sum {name} B1 {ci}->{co} @{s}^3 forward ({plan['splits']} splits, chains of "
+                f"{plan['chain_steps']} k16 steps), same-sign: error from float64 max "
                 f"{off.abs().max().item():.3g} ulp, mean {off.mean().item():.3g} ulp (the fp32 sum's bias; one "
                 f"rounding adds at most 0.5), {(got != exact.to(dtype)).float().mean().item():.3g} of the outputs "
                 f"not the correctly rounded float64 [{card}]")
@@ -3408,15 +3457,18 @@ def halo_bytes(model, size: int, shards: int) -> int:
 def split_plans(model, depth: int, size: int, shards: int, device) -> list:
     """Per 3³ conv of a forward at (depth, size, size): (B1's split-K count for
     the whole volume, for one of ``shards`` halo-extended D-slabs)."""
+    import torch
+
     from pcmseg_tpu_torch.models.unet3d import Conv3x3
     from pcmseg_tpu_torch.ops.kernels.build import load_library
-    from pcmseg_tpu_torch.ops.kernels.conv3d import ci_pad
+    from pcmseg_tpu_torch.ops.kernels.conv3d import device_clusters, kernel_plan
 
-    lib, dev = load_library(), torch_device_index(device)
+    lib, index = load_library(), torch_device_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    clusters = device_clusters(lib, index)
 
     def splits(d, s, ci, co):
-        ws = lib.pcmseg_conv3x3x3_workspace_bytes(1, d, s, s, ci_pad(ci), co, dev)
-        return max(1, ws // (d * s * s * co * 4))
+        return kernel_plan(lib, 1, d, s, s, ci, co, sms, clusters)["splits"]
 
     out = []
     for m in model.modules():
@@ -4097,7 +4149,8 @@ def check_fp16_kernels(device, card: str) -> dict:
     against its plain version in fp32 from the same fp16 inputs, timed beside
     it and cuDNN's fp16 conv / dgrad / wgrad alone, with TFLOP/s and the
     share of the bound (989 TFLOP/s fp16, as bf16). Then the F16_CONTRACT
-    shapes, error only, and fp16's edges: B1 outputs in the subnormal
+    shapes, error only (B1 also bitwise repeated, its plan held to the
+    mirror), and fp16's edges: B1 outputs in the subnormal
     range kept (not flushed to zero), outputs past 65504 rounded to ±inf
     as fp16's rounding gives them, B2 on a dy that is nearly all
     subnormal. Returns {"fwd", "dx", "dw"}: the JSON record's numbers."""
@@ -4117,10 +4170,12 @@ def check_fp16_kernels(device, card: str) -> dict:
         if slab:  # the halo slices' outputs are dropped: their cotangent is zero
             dy[:, 0] = dy[:, -1] = 0
         packed = conv3d.pack_weight(w, f16)
-        check_f16_output(conv3d.conv3x3x3(x, packed, b, True),
+        check_b1_plan(1, d, s, ci, co, f"fp16 conv {label}")
+        check_f16_output(b1_twice(x, packed, b, True, f"fp16 conv {label}"),
                          conv3d.conv3x3x3_reference(x.float(), packed.float(), b, True), f"conv {label}")
         packed = conv3d.pack_weight(w.flip(2, 3, 4).transpose(0, 1), f16)
-        check_f16_output(conv3d.conv3x3x3(dy, packed, None, False),
+        check_b1_plan(1, d, s, co, ci, f"fp16 dx {label}")
+        check_f16_output(b1_twice(dy, packed, None, False, f"fp16 dx {label}"),
                          conv3d.conv3x3x3_reference(dy.float(), packed.float(), None, False), f"dx {label}")
         check_f16_dw(x, dy, label)
         del x, w, b, dy, packed

@@ -93,6 +93,69 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Fetch a tensor map (a __grid_constant__ parameter) into the descriptor
+// cache ahead of its first TMA.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- TMA tile stores: shared memory to a box of a tensor map -----------------
+// Coordinates outside the tensor are not written. The writing threads make
+// their shared-memory writes visible to the async proxy first
+// (fence_proxy_async, then a barrier); the issuing thread commits the
+// stores as one bulk group and waits for the group's reads of shared
+// memory before the tile is written again and before the block exits.
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3,
+                                             int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// ---- thread block clusters ---------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the cluster's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of shared-memory address `addr` of this block in the block
+// of cluster rank `rank` (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 constexpr uint32_t LAYOUT_INTERLEAVE = 0;  // no swizzle: 8 rows x 16 bytes per core matrix
@@ -108,6 +171,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (static_cast<uint64_t>(layout) << 62);
+}
+
+// Descriptor of a K-major operand in 128-byte swizzled rows (TMA's
+// SWIZZLE_128B, written from a 1024-byte aligned base) that starts at any
+// row: `addr` is the first row's address plus the k16 step's 32-byte
+// offset, `sbo` the stride between 8-row groups. Both TMA and wgmma swizzle
+// by the address's own bits (16-byte chunk ^= row mod 8), so any row may
+// start it.
+__device__ __forceinline__ uint64_t gmma_desc_rows(uint32_t addr, uint32_t sbo) {
+  return gmma_desc(addr, 16, sbo, LAYOUT_B128);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

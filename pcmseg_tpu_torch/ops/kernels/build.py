@@ -113,13 +113,13 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pcmseg_conv3x3x3_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
-        lib.pcmseg_conv3x3x3_workspace_bytes.restype = ll
-        lib.pcmseg_conv3x3x3_bf16.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3x3_clusters.argtypes = [i, ctypes.POINTER(i)]
+        lib.pcmseg_conv3x3x3_clusters.restype = i
+        lib.pcmseg_conv3x3x3_plan.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        lib.pcmseg_conv3x3x3_plan.restype = i
+        lib.pcmseg_conv3x3x3_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3x3_bf16.restype = i
-        lib.pcmseg_conv3x3x3_f16_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
-        lib.pcmseg_conv3x3x3_f16_workspace_bytes.restype = ll
-        lib.pcmseg_conv3x3x3_f16.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i, p, i]
+        lib.pcmseg_conv3x3x3_f16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3x3_f16.restype = i
         lib.pcmseg_conv3x3_dw_workspace_bytes.argtypes = [i, i, i, i, i, i, i]
         lib.pcmseg_conv3x3_dw_workspace_bytes.restype = ll

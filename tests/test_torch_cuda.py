@@ -70,6 +70,32 @@ def test_kernel_matches_plain(cuda_device, n, spatial, ci, co, relu):
     assert _within_bf16_bound(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize(
+    "ci,co,size",
+    [
+        (64, 64, 128),  # Co = 64 at 128^3: persistent blocks, no split
+        (1024, 512, 16),  # persistent, four chains a tile added in FADDs
+        (512, 256, 16),  # K split over a cluster of 2 (an H100 SXM), summed on chip
+        (1024, 1024, 8),  # the bottleneck: a cluster of 3, chains cut
+        (1024, 512, 8),  # dx at the bottleneck: a cluster of 6, slices inside chunks
+    ],
+)
+def test_kernel_launches_bitwise_equal(cuda_device, ci, co, size, dtype):
+    """B1 twice on the same inputs: bitwise equal outputs (no atomics; the
+    cluster adds its split partials in rank order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co + size)
+    x = torch.randn((1, size, size, size, ci), generator=g, device=cuda_device).to(dtype)
+    w = torch.randn((co, ci, 3, 3, 3), generator=g, device=cuda_device) * math.sqrt(2.0 / (27 * ci))
+    b = torch.randn((co,), generator=g, device=cuda_device) * 0.1
+    packed = conv3d.pack_weight(w, dtype)
+    for relu in (True, False):
+        first = conv3d.conv3x3x3(x, packed, b, relu)
+        again = conv3d.conv3x3x3(x, packed, b, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
 def test_kernel_without_bias(cuda_device):
     x = torch.randn((1, 6, 6, 6, 16), device=cuda_device).to(torch.bfloat16)
     packed = conv3d.pack_weight(torch.randn((32, 16, 3, 3, 3), device=cuda_device) * 0.1, torch.bfloat16)

@@ -4,9 +4,11 @@
 
 Runs the kernel phases of each tree's own ``chip_smoke.py`` (B1 forward at
 the 14 model shapes, B1 as dx at the 17 transposed shapes, B2 at the 14
-shapes in bf16 and in fp16: each checked against its plain version and
-timed beside it and cuDNN's call) in a fresh process per run, in the order parent, change,
-change, parent, so that drift on the card falls on both sides. CHANGE_TREE
+shapes, each in bf16 and in fp16, and B1 in bf16 at one of 2 D-slabs' and
+one of 2 output-channel shards' shapes: each checked against its plain
+version and timed beside it and cuDNN's call, the median of ITERS
+launches) in a fresh process per run, in the order parent, change, change,
+parent, so that drift on the card falls on both sides. CHANGE_TREE
 defaults to the checkout this script is in. Each tree builds its kernels
 into its own ``build/``. Prints each run's per-layer lines as they come,
 one ``AB {...}`` JSON line per run, and a summary of the per-microbatch sums.
@@ -21,7 +23,8 @@ import subprocess
 import sys
 
 PHASES = """
-import importlib.util, json, os, sys
+import functools, importlib.util, json, os, sys
+ITERS = int(sys.argv[2])
 tree = os.path.abspath(sys.argv[1])
 sys.path.insert(0, tree)
 import torch
@@ -29,19 +32,29 @@ spec = importlib.util.spec_from_file_location("tree_smoke", os.path.join(tree, "
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 from pcmseg_tpu_torch.ops.kernels import build
+smoke.median_ms = functools.partial(smoke.median_ms, iters=ITERS)  # the phases look it up at each call
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 seconds = build.build()["seconds"]
 card, device = smoke.card_label(), torch.device("cuda")
+f16 = torch.float16
 runs = {"fwd": smoke.check_kernels(device, card, (1,)), "dx": smoke.check_dx_kernels(device, card),
-        "dw": smoke.check_dw_kernels(device, card),
-        "dw16": smoke.check_dw_kernels(device, card, dtype=torch.float16)}
+        "dw": smoke.check_dw_kernels(device, card), "dw16": smoke.check_dw_kernels(device, card, dtype=f16),
+        "fwd16": smoke.check_kernels(device, card, (1,), dtype=f16),
+        "dx16": smoke.check_dx_kernels(device, card, dtype=f16),
+        # one of 2 D-slabs with its halo, one of 2 output-channel shards
+        "fwd_slab": smoke.check_kernels(device, card, (1,), slab=True),
+        "dx_slab": smoke.check_dx_kernels(device, card, slab=True),
+        "fwd_shard": smoke.check_kernels(device, card, (1,), tp=2), "dx_shard": smoke.check_dx_kernels(device, card, tp=2)}
 print("AB " + json.dumps({"tree": tree, "build_s": seconds, "card": card, **runs}), flush=True)
 """
 
+# CUDA-event timings a shape (chip_smoke.py's median_ms; its own default is 10)
+ITERS = 30
+
 
 def run(tree: str) -> dict:
-    proc = subprocess.Popen([sys.executable, "-c", PHASES, tree], cwd=tree, stdout=subprocess.PIPE,
+    proc = subprocess.Popen([sys.executable, "-c", PHASES, tree, str(ITERS)], cwd=tree, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     record = None
     for line in proc.stdout:
@@ -54,16 +67,19 @@ def run(tree: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) not in (2, 3):
+    args = sys.argv[1:]
+    if len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
-    parent = os.path.abspath(sys.argv[1])
-    change = os.path.abspath(sys.argv[2] if len(sys.argv) == 3 else os.path.join(os.path.dirname(__file__), ".."))
+    parent = os.path.abspath(args[0])
+    change = os.path.abspath(args[1] if len(args) == 2 else os.path.join(os.path.dirname(__file__), ".."))
     records = [run(tree) for tree in (parent, change, change, parent)]
     for name, tree in (("parent", parent), ("change", change)):
-        sums = {k: [r[k]["ms"] for r in records if r["tree"] == tree] for k in ("fwd", "dx", "dw", "dw16")}
-        print(f"{name} {tree}: per 128^3 microbatch, B1 forward {sums['fwd']} ms, B1 as dx {sums['dx']} ms, "
-              f"B2 {sums['dw']} ms, fp16 B2 {sums['dw16']} ms [{records[0]['card']}]", flush=True)
+        sums = {k: [r[k]["ms"] for r in records if r["tree"] == tree] for k in records[0] if isinstance(
+            records[0][k], dict)}
+        cudnn = {k: [r[k]["library_ms"] for r in records if r["tree"] == tree] for k in sums}
+        print(f"{name} {tree}: per 128^3 microbatch, kernel ms {sums}, library ms {cudnn} "
+              f"[{records[0]['card']}]", flush=True)
     return 0
 
 

@@ -6,8 +6,10 @@ Builds the kernels (with --ptxas, first prints each source's registers,
 spills and warnings from ``nvcc -Xptxas -v``, and with --f32 the fp32
 kernels' dynamic shared memory a block), checks B1 and B2 against
 their plain versions at small and ragged shapes that cover every code path
-(the 8-channel input path, split K, partial tiles, Co below one N tile),
-and on a failure names the taps that are wrong alone. A watchdog ends the
+(the 8-channel input path, split K over clusters of 2 to 8 blocks,
+slices that start and end inside a chunk, slices of K cut into chains, split
+and persistent, partial tiles, Co below one N tile), each B1 and B2 launch twice and bitwise equal, and on a failure
+names the taps that are wrong alone. A watchdog ends the
 process if the card does not finish a kernel within 30 s, so that a hung
 kernel fails the run instead of holding the card. With --time, times
 forward and weight gradient at 7 of the model's shapes, each with its share
@@ -86,6 +88,7 @@ def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
     b = torch.randn((co,), generator=g, device=dev) * 0.1
     packed = conv3d.pack_weight(w, DT)
     got = conv3d.conv3x3x3(x, packed, b, relu)
+    again = conv3d.conv3x3x3(x, packed, b, relu)
     sync(f"B1 {label}")
     if F32:
         ref = conv3d.conv3x3x3_reference(x.double(), packed.double(), b, relu)
@@ -97,10 +100,10 @@ def b1_check(n, sp, ci, co, relu=True, label="", diag=True):
         err = (got.float() - ref).abs()
         bound = REL * (8e-3 * ref.abs() + 1e-3 * ref.abs().max())
     bad = err > bound
-    ok = bool(torch.isfinite(got).all()) and not bool(bad.any())
+    ok = bool(torch.isfinite(got).all()) and not bool(bad.any()) and torch.equal(got, again)
     log(f"B1 {label} n={n} {sp} {ci}->{co} relu={relu}: {'OK' if ok else 'FAIL'} max_err {err.max().item():.4g} "
         f"worst err/bound {(err / bound).max().item():.3g} bad {bad.float().mean().item():.4f} "
-        f"finite {bool(torch.isfinite(got).all())}")
+        f"finite {bool(torch.isfinite(got).all())} bitwise {torch.equal(got, again)}")
     if not ok and diag:
         idx = bad.nonzero()[:5].tolist()
         log("  first bad (n,z,y,x,c):", idx)
@@ -171,7 +174,11 @@ B1 = [((1, (8, 8, 8), 64, 64), "general 1 chunk"), ((1, (8, 8, 8), 8, 64), "smal
       ((1, (16, 16, 16), 256, 512), "split3"), ((4, (8, 8, 8), 1024, 1024), "bottleneck"),
       ((1, (40, 37, 20), 32, 64), "ragged yx"), ((1, (5, 6, 7), 64, 8), "co8"), ((1, (5, 5, 5), 3, 136), "ci3 co136"),
       ((1, (34, 41, 47), 192, 128), "3 chunks bn128 hbuf2"), ((1, (30, 41, 47), 192, 64), "3 chunks bn64 hbuf2"),
-      ((1, (32, 32, 32), 512, 256), "8 chunks hbuf2")]
+      ((1, (32, 32, 32), 512, 256), "8 chunks hbuf2"), ((1, (8, 8, 8), 1024, 512), "6 splits across chunks"),
+      ((1, (16, 16, 16), 192, 128), "3 splits"), ((1, (4, 4, 4), 2176, 64), "8 splits, chains cut in a chunk"),
+      ((3, (6, 6, 6), 128, 72), "co72, two co blocks, 8 splits in 2 chunks"), ((1, (8, 8, 8), 512, 1024), "3 splits"),
+      ((1, (8, 8, 8), 512, 512), "6 splits of 36 weight tiles"), ((1, (18, 32, 32), 256, 128), "persistent, 2 rounds"),
+      ((1, (20, 13, 9), 512, 256), "ragged, chains cut"), ((1, (16, 16, 16), 1024, 512), "persistent, chains cut")]
 for args, label in B1:
     results.append(b1_check(*args, label=label))
 B2 = [((1, (8, 8, 8), 64, 64), "general"), ((1, (8, 8, 8), 8, 64), "small"), ((1, (16, 16, 16), 5, 64), "Ci=5"),
