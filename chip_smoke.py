@@ -55,7 +55,8 @@ kernel on them:
      rounded inputs, beside the plain fp32 version's error, the longest
      tensor-core chain and what the chains of a whole split-K slice were
      predicted to lose; ``conv3d_grad.dw_plan``'s workspace equal to the C
-     workspace functions'; B1 forwards at its longest chains (B1_SAME_SIGN)
+     workspace function's; fp16 B2 on dy over 26 binades and on
+     channel-blocked dy (``dw_range``, ``dw_blocked``); B1 forwards at its longest chains (B1_SAME_SIGN)
      on same-sign inputs, error in ulps of the output, measured only.
      ``python3 chip_smoke.py --only dw_sum`` runs the build and this phase
      alone;
@@ -991,6 +992,16 @@ B1_SAME_SIGN = ((512, 256, 32), (1024, 512, 16))
 # and mixed-sign dy
 DW_RANGE_DRAWS = (("wide", 0, 26), ("underflowing", 22, 48))
 DW_RANGE_SHAPES = tuple((ci, co, s) for ci, co, s, _ in CONV_SHAPES if co >= 256)
+# channel-blocked fp16 dy at the shapes with two or more 64-channel blocks:
+# the first block |normal|·2^DW_BLOCKED_TOP (max|dy| near 2^13, where one
+# exponent for the whole tensor is 0-2), every other channel subnormal,
+# m·2^-24 with m in [1, hi) for (label, hi) in DW_BLOCKED_LOW: 2^-24..2^-21
+# as the fp16 step's dy at 8^3 (3 significant bits: no product loses one
+# in the tensor cores' alignment, with or without a scale), and every
+# subnormal (10 bits)
+DW_BLOCKED_SHAPES = tuple((ci, co, s) for ci, co, s, _ in CONV_SHAPES if co >= 128)
+DW_BLOCKED_TOP = 11
+DW_BLOCKED_LOW = (("2^-24..2^-21", 8), ("2^-24..2^-14", 1024))
 # B2 on such dy: each element within DW_RANGE_BOUND·Σ|x·dy| of float64 (2x
 # the worst reading on an H100, 2.33e-6, of the wide same-sign draw, whose
 # tensor-core chains lose as same-sign sums do). B2 on the unscaled fp16 dy
@@ -1017,8 +1028,8 @@ def dw_range(device, card: str) -> float:
     """fp16 B2 at DW_RANGE_SHAPES on dy from DW_RANGE_DRAWS, same-sign and
     mixed-sign: each element within DW_RANGE_BOUND·Σ|x·dy| of a float64
     conv of the same fp16 inputs; B1 as dx on the same dy within one fp16
-    unit plus DX_RANGE_SUM·Σ|w·dy| of float64 (``fp16_unit``). Returns the
-    worst B2 error over Σ|x·dy|."""
+    unit plus DX_RANGE_SUM·Σ|w·dy| of float64 (``fp16_unit``); then
+    ``dw_blocked``. Returns the worst B2 error over Σ|x·dy|."""
     import torch
 
     from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
@@ -1063,6 +1074,46 @@ def dw_range(device, card: str) -> float:
                 del dy, dx, exact, sums, over
             del u, mag
         del x, w, w_t
+    return max(worst, dw_blocked(device, card))
+
+
+def dw_blocked(device, card: str) -> float:
+    """fp16 B2 at DW_BLOCKED_SHAPES on channel-blocked dy (DW_BLOCKED_TOP,
+    DW_BLOCKED_LOW), same-sign and mixed-sign: each element within
+    DW_RANGE_BOUND·Σ|x·dy| of a float64 conv of the same fp16 inputs. One
+    exponent for the whole of dy leaves the subnormal blocks subnormal; each
+    block's own chains lift them. Returns the worst error over Σ|x·dy|."""
+    import torch
+
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    f16 = torch.float16
+    g = torch.Generator(device=device).manual_seed(9)
+    worst = 0.0
+    for ci, co, s in DW_BLOCKED_SHAPES:
+        x = torch.randn((1, s, s, s, ci), generator=g, device=device).abs_().to(f16)
+        for low, hi in DW_BLOCKED_LOW:
+            mag = torch.randint(1, hi, (1, s, s, s, co), generator=g, device=device).double() * 2.0**-24
+            mag[..., :64] = torch.randn((1, s, s, s, 64), generator=g, device=device).abs().double() * 2.0**DW_BLOCKED_TOP
+            for signs in ("same-sign", "mixed-sign"):
+                sign = 1.0 if signs == "same-sign" else (torch.rand(mag.shape, generator=g, device=device) < 0.5) * 2.0 - 1
+                dy = (mag * sign).to(f16)
+                got = conv3d_grad.conv3x3_dw(x, dy).double()
+                exact = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+                scale = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double().abs()).clamp_min(1e-300)
+                rel = (got - exact).abs() / scale
+                err, sub_err = rel.max().item(), rel[..., 64:].max().item()
+                log(f"dw_sum fp16 B2 {ci}->{co} @{s}^3, channel-blocked {signs} dy (max|dy| "
+                    f"{dy[..., :64].abs().max().item():.6g} in channels 0-63, the rest subnormal in {low}): max "
+                    f"error {err:.3g}·Σ|x·dy| (bound {DW_RANGE_BOUND}), {sub_err:.3g} in the subnormal channels "
+                    f"[{card}]")
+                if not bool(torch.isfinite(got).all()) or not err <= DW_RANGE_BOUND:
+                    raise AssertionError(f"fp16 dW {ci}->{co} @{s}^3 on channel-blocked {signs} dy ({low}): "
+                                         f"{err:.3g}·Σ|x·dy| from float64 (bound {DW_RANGE_BOUND})")
+                worst = max(worst, err)
+                del dy, got, exact, scale, rel
+            del mag
+        del x
     return worst
 
 
@@ -1094,12 +1145,11 @@ def dw_sum(device, card: str) -> dict:
     if wrong:
         raise AssertionError(f"f16_scale_exponent differs from the C function's at fp16 bits {wrong[:8]}")
     g = torch.Generator(device=device).manual_seed(7)
-    for dtype, name, workspace in ((torch.bfloat16, "bf16", lib.pcmseg_conv3x3_dw_workspace_bytes),
-                                   (torch.float16, "fp16", lib.pcmseg_conv3x3_dw_f16_workspace_bytes)):
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
         worst[name] = 0.0
         for ci, co, s, _ in CONV_SHAPES:
-            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, sms, f16=dtype == torch.float16)
-            c_bytes = workspace(1, s, s, s, plan["ci"], co, index)
+            plan = conv3d_grad.dw_plan(1, s, s, s, ci, co, sms)
+            c_bytes = lib.pcmseg_conv3x3_dw_workspace_bytes(1, s, s, s, plan["ci"], co, index)
             if c_bytes != plan["workspace_bytes"]:
                 raise AssertionError(f"{name} dW {ci}->{co} @{s}^3: dw_plan's workspace {plan['workspace_bytes']} "
                                      f"bytes, the kernel's {c_bytes}")

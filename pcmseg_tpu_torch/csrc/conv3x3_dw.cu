@@ -8,7 +8,7 @@
 // the batch of x[v + offset(tap), ci] * dy[v, co], neighbours outside the
 // volume read as zero, products of 16-bit values (exact in fp32, subnormal
 // fp16 values included) summed in fp32. fp16 takes the bf16 design, with
-// dy scaled by a power of two first (below).
+// each chain's dy scaled by a power of two on chip (below).
 //
 // Formulation: per tap a GEMM with M = Ci rows, N = Co columns and K = the
 // N*D*H*W voxels. Both operands lie voxel-major in NDHWC memory, so both are
@@ -31,27 +31,30 @@
 //    a whole split-K slice (up to 5,960 steps) lost 5.4e-4 of a same-sign
 //    sum. A consumer runs each tap's chain over CHAIN_TILES voxel tiles
 //    (8 k16 steps a tile) into one fresh accumulator (scale-d 0), waits for
-//    it and adds it into the tap's running total with FADDs, tap by tap in
-//    a fixed order: no chain is longer than 8 * CHAIN_TILES steps, and the
-//    totals round to nearest. Two tiles a chain (16 steps) halve the waits
-//    of one; the other two warpgroups' chains keep the tensor cores busy
-//    while one waits and adds;
+//    it and adds it into the tap's running total (an FFMA: times the
+//    chain's 2^-k below), tap by tap in a fixed order: no chain is longer
+//    than 8 * CHAIN_TILES steps, and the totals round to nearest. Two tiles
+//    a chain (16 steps) halve the waits of one; the other two warpgroups'
+//    chains keep the tensor cores busy while one waits and adds;
 //  * registers: the totals (96) and the fresh accumulator (32) alone fill
 //    the 128 registers a thread of a 416-thread block (3 warpgroups and a
 //    producer warp) may have; so the producer is a whole warpgroup that
-//    gives its registers to the consumers (setmaxnreg, 160 a consumer);
+//    gives its registers to the consumers (setmaxnreg, 144 a consumer, 64
+//    a producer thread: the fp16 scaling warps hold a tile's share);
 //  * one producer thread walks 2x8x8-voxel tiles (K = 128 voxels, eight
 //    k16 steps of two x-rows each) through a 4-stage TMA ring on mbarriers:
 //    dy as one 5-D box of 64 channels with the 128-byte swizzle, the x halo
-//    (2x10x10 voxels, shifted by kd in z) as eight 5-D boxes of 8 channels
-//    with 16-byte rows. TMA's zero fill at out-of-volume coordinates is the
-//    SAME padding. In the no-swizzle MN-major layout a core matrix is 8 halo
-//    voxels adjacent in x by 8 channels, so a tap (kh, kw) is a start
-//    address: x is read once per tile, not once per tap, and dy once per
-//    (kd, ci block) instead of once per 16 channels;
-//  * Ci = 8 (the padded input conv): one block holds all 27 taps. A
-//    warpgroup's m64 tile is (kw, ci) for kw = 0..2 at 16-byte steps of the
-//    halo (rows 24-63 are discarded), one running total per kd;
+//    (2x10x10 voxels, shifted by kd in z) as one 5-D box of 64 channels in
+//    128-byte swizzled rows (200 rows a tile; eight boxes of 16-byte rows
+//    cost 6-9% more). TMA's zero fill at out-of-volume coordinates is the
+//    SAME padding. A halo row is a voxel, so a tap (kh, kw) is a start
+//    address a whole number of rows on (TMA and wgmma swizzle by the
+//    address's own bits): x is read once per tile, not once per tap, and dy
+//    once per (kd, ci block) instead of once per 16 channels;
+//  * Ci = 8 (the padded input conv): one block holds all 27 taps, the halo
+//    (4x10x10 voxels) in 16-byte rows without swizzle. A warpgroup's m64
+//    tile is (kw, ci) for kw = 0..2 at 16-byte steps of the halo (rows
+//    24-63 are discarded), one running total per kd;
 //  * the voxel sum is split over gridDim.z (split-K) into whole waves of
 //    blocks; a second pass adds the fp32 partials in split order, so two
 //    runs agree bit for bit. The TPU kernel's H-chunking (_pick_chunk_h)
@@ -63,14 +66,31 @@
 //    2^20 is exact. With no loss scaling the fp16 step's dy is nearly all
 //    zero and the rest subnormal (2^-24..2^-21 at the 8^3 bottleneck), and
 //    such elements lost up to 2.2e-5 of their sum of |x.dy| (cuBLAS's fp16
-//    GEMM with fp32 output the same). So the fp16 kernel sums dy.2^k,
-//    k = f16_scale_exponent(max|dy|) (exact: a power of two, max|dy|.2^k
-//    below 2^15), and its epilogue multiplies the totals by 2^-k (exact in
-//    fp32): one pass (f16_absmax) finds max|dy| on the card, and the
-//    producer warpgroup's three idle warps scale each dy tile in shared
-//    memory between its TMA load and the consumers' wgmma (a third
-//    mbarrier a stage), so dy is not copied and nothing is read back to
-//    the host.
+//    GEMM with fp32 output the same). So each fp16 chain sums dy.2^k,
+//    k = f16_scale_exponent(the chain's max|dy|), and its accumulator is
+//    multiplied by 2^-k as it is added into the total. Both are exact:
+//    dy.2^k stays below 2^15, and a nonzero sum of fp16 products is a
+//    multiple of 2^-48 with k <= 38, so acc.2^-k stays in fp32's normal
+//    range. The producer warpgroup's three idle warps find and apply the
+//    scale in shared memory, between a dy tile's TMA load (its own
+//    mbarrier, ahead of x's) and the consumers' wgmma (a third mbarrier a
+//    stage): each thread loads its 11 words of the tile at once, the three
+//    warps reduce max|dy| (one named barrier), the words are scaled in
+//    registers and stored back (one read and one write a word, none for a
+//    word of zeros), and each thread fences and arrives. No pass over dy
+//    before the kernel, nothing in device memory. B2 is bound by shared
+//    memory (m64n64k16 with both operands there reads 128 bytes a clock at
+//    the tensor cores' rate), so the scaling warps' 32 KB a tile is what
+//    fp16 pays over bf16. Loading dy through registers from L2 instead (no
+//    shared-memory read) is held back by the few loads in flight the spare
+//    registers allow; and the thread that issues the TMA loads stays apart
+//    from the scaling warps, so the loads run STAGES tiles ahead. A chain's
+//    first tile is scaled by its own exponent; its second tile by the
+//    pair's, and where that is lower than the first's (the second holds the
+//    larger |dy|) the pair is cut into two chains of one tile, each with
+//    its own exponent; a first tile of zeros takes the pair's. The
+//    exponents lie in a slot beside the stage's barriers. Every chain's
+//    largest |dy| lands in [2^14, 2^15) but where its exponent is 0.
 
 #include <algorithm>
 
@@ -83,10 +103,12 @@ constexpr int HY = TY + 2, HX = TX + 2;
 constexpr int VOX = TZ * TY * TX;
 constexpr int BC = 64;               // input and output channels per block
 constexpr int DY_BYTES = VOX * 128;  // dy tile: 128 voxel rows of 64 channels, 128-byte swizzled
+constexpr int DY_WORDS = DY_BYTES / 16;
 constexpr int THREADS = 512;         // 3 consumer warpgroups (kh) + 1 producer warpgroup
 constexpr int SCALERS = 96;          // fp16: the producer warpgroup's warps 1-3 scale dy tiles
-// registers a thread after setmaxnreg: 4 x 128 x 128 at launch, 128 x 32 + 384 x 160 after
-constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
+constexpr int WORDS = (DY_WORDS + SCALERS - 1) / SCALERS;  // 16-byte words of a tile a scaler holds
+// registers a thread after setmaxnreg: 4 x 128 x 128 at launch, 128 x 64 + 384 x 144 after
+constexpr int PRODUCER_REGS = 64, CONSUMER_REGS = 144;
 constexpr int STAGES = 4;
 constexpr int MIN_TILES_PER_SPLIT = 4;
 constexpr int CHAIN_TILES = 2;  // voxel tiles a tensor-core chain spans (8 k16 steps each)
@@ -94,17 +116,19 @@ constexpr int CHAIN_TILES = 2;  // voxel tiles a tensor-core chain spans (8 k16 
 template <bool SMALL>
 struct DwCfg {
   static constexpr int HZ = SMALL ? TZ + 2 : TZ;  // SMALL covers all three kd
-  static constexpr int SLABS = SMALL ? 1 : BC / 8;
-  static constexpr int SLAB = HZ * HY * HX * 16;
-  // + slack: SMALL's discarded rows 24-63 read a few rows past its slab
-  static constexpr int STAGE = (DY_BYTES + SLABS * SLAB + 256 + 1023) / 1024 * 1024;
+  static constexpr int ROW = SMALL ? 16 : 128;    // a halo voxel's bytes: 8 channels, or 64 swizzled
+  static constexpr int X_BYTES = HZ * HY * HX * ROW;
+  // + slack: SMALL's discarded rows 24-63 read a few rows past its halo
+  static constexpr int STAGE = (DY_BYTES + X_BYTES + 256 + 1023) / 1024 * 1024;
   static constexpr int BAR_OFF = STAGES * STAGE;
-  static constexpr int SMEM = BAR_OFF + 24 * STAGES + 1024;  // full, empty, scaled; + alignment slack
+  // full, empty, dy_full, scaled (8 bytes each a stage), each stage's
+  // exponent (4), the scaling warps' maxima (two sets of 4 x 4)
+  static constexpr int K_OFF = BAR_OFF + 32 * STAGES, PART_OFF = K_OFF + 4 * STAGES;
+  static constexpr int SMEM = PART_OFF + 32 + 1024;  // + alignment slack
 };
 
 struct DwArgs {
   float* dst;  // (27, Ci, Co) fp32, one slab per split
-  const unsigned* amax_bits;  // fp16: max|dy|'s bits (f16_absmax), for dy's scale 2^k
   int Ci, Co;
   int tiles_z, tiles_y, tiles_x, tiles;
   int tiles_per_split;
@@ -130,7 +154,14 @@ __host__ __device__ inline int f16_scale_exponent(unsigned amax_bits) {
 // 2^k as an fp32 bit pattern, for |k| <= 126
 __device__ inline float pow2f(int k) { return __int_as_float((127 + k) << 23); }
 
-// T: the element type of x and dy (bf16 or f16; fp16 scales dy by 2^k).
+// The largest |value| of the 8 fp16 values in q, as bits (they order as the values do).
+__device__ inline unsigned f16_absmax8(const uint4& q) {
+  constexpr unsigned M = 0x7fff7fffu;
+  const unsigned m = __vmaxu2(__vmaxu2(q.x & M, q.y & M), __vmaxu2(q.z & M, q.w & M));
+  return max(m & 0xffffu, m >> 16);
+}
+
+// T: the element type of x and dy (bf16 or f16; fp16 scales dy per chain).
 template <bool SMALL, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
@@ -138,18 +169,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   using C = DwCfg<SMALL>;
   constexpr bool SCALED = std::is_same<T, f16>::value;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzled dy tile wants 1024
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzled tiles want 1024
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t bar = base + C::BAR_OFF;
-  auto full = [&](int s) { return bar + 8 * s; };
+  auto full = [&](int s) { return bar + 8 * s; };  // x landed (bf16: and dy)
   auto empty = [&](int s) { return bar + 8 * (STAGES + s); };
-  auto scaled = [&](int s) { return bar + 8 * (2 * STAGES + s); };  // fp16: stage s's dy scaled
+  auto dy_full = [&](int s) { return bar + 8 * (2 * STAGES + s); };  // fp16: dy landed
+  auto scaled = [&](int s) { return bar + 8 * (3 * STAGES + s); };   // fp16: dy scaled, its exponent set
+  volatile int* const k_of = reinterpret_cast<int*>(gbase + C::K_OFF);  // fp16: a stage's chain exponent
 
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 3);
-      mbar_init(scaled(s), 1);
+      mbar_init(dy_full(s), 1);
+      mbar_init(scaled(s), SCALED ? SCALERS : 1);
     }
     fence_barrier_init();
   }
@@ -160,6 +195,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int co0 = blockIdx.y * BC;
   const int t_begin = blockIdx.z * a.tiles_per_split;
   const int t_end = min(a.tiles, t_begin + a.tiles_per_split);
+  const int tiles = t_end - t_begin;
 
   if (tid >= 384) {  // producer warpgroup: one thread issues every TMA load
     setmaxnreg_dec<PRODUCER_REGS>();
@@ -176,40 +212,78 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int n = r / a.tiles_z;
         mbar_wait(empty(s), ph ^ 1);
         const uint32_t st = base + s * C::STAGE;
-        mbar_expect_tx(full(s), DY_BYTES + C::SLABS * C::SLAB);
-        tma_load_5d(st, &dymap, full(s), co0, x0, y0, z0, n);
-        for (int g = 0; g < C::SLABS; ++g)
-          tma_load_5d(st + DY_BYTES + g * C::SLAB, &xmap, full(s), ci0 + 8 * g, x0 - 1, y0 - 1,
-                      z0 - 1 + kd, n);
+        if (SCALED) {  // dy first, on its own barrier: the scaling warps start on it before x lands
+          mbar_expect_tx(dy_full(s), DY_BYTES);
+          tma_load_5d(st, &dymap, dy_full(s), co0, x0, y0, z0, n);
+          mbar_expect_tx(full(s), C::X_BYTES);
+        } else {
+          mbar_expect_tx(full(s), DY_BYTES + C::X_BYTES);
+          tma_load_5d(st, &dymap, full(s), co0, x0, y0, z0, n);
+        }
+        tma_load_5d(st + DY_BYTES, &xmap, full(s), ci0, x0 - 1, y0 - 1, z0 - 1 + kd, n);
         if (++s == STAGES) {
           s = 0;
           ph ^= 1;
         }
       }
     } else if (SCALED && tid >= 416) {
-      // dy * 2^k in place, each stage between its TMA load and the wgmma
-      // that read it (the async proxy: fence, then the scaled barrier)
+      // the scaling warps: dy * 2^k in place, each stage between its TMA
+      // load and the wgmma that read it (the async proxy: each thread
+      // fences, then arrives on the scaled barrier)
       const int stid = tid - 416;
-      const float sc = pow2f(f16_scale_exponent(*a.amax_bits));
-      unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
+      unsigned* const part = reinterpret_cast<unsigned*>(gbase + C::PART_OFF);
       int s = 0;
+      unsigned m_first = 0;  // max|dy| of the chain's first tile
       uint32_t ph = 0;
-      for (int t = t_begin; t < t_end; ++t) {
-        mbar_wait(full(s), ph);
-        uint4* tile = reinterpret_cast<uint4*>(gbase + s * C::STAGE);
-        for (int i = stid; i < DY_BYTES / 16; i += SCALERS) {
-          uint4 q = tile[i];
-          __half2* h = reinterpret_cast<__half2*>(&q);
+      for (int i = 0; i < tiles; ++i) {
+        mbar_wait(dy_full(s), ph);
+        uint4* const tile = reinterpret_cast<uint4*>(gbase + s * C::STAGE);
+        uint4 q[WORDS];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __half22float2(h[j]);
-            h[j] = __floats2half2_rn(f.x * sc, f.y * sc);
+        for (int u = 0; u < WORDS; ++u)
+          q[u] = stid + u * SCALERS < DY_WORDS ? tile[stid + u * SCALERS] : make_uint4(0, 0, 0, 0);
+        unsigned m = 0;
+#pragma unroll
+        for (int u = 0; u < WORDS; ++u) m = max(m, f16_absmax8(q[u]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+        unsigned* const pp = part + 4 * (i & 1);  // two sets: the next tile's writes wait for no reader
+        if ((stid & 31) == 0) pp[stid >> 5] = m;
+        named_barrier(1, SCALERS);
+        m = max(max(pp[0], pp[1]), pp[2]);
+        int k;
+        if (i % CHAIN_TILES == 0) {  // a chain's first tile: its own exponent
+          k = f16_scale_exponent(m);
+          m_first = m;
+        } else {  // the second: the pair's; the pair stays one chain unless that is below the first's
+          k = f16_scale_exponent(max(m, m_first));
+        }
+        if (k > 0) {
+          // times 2^k in fp16 steps of at most 2^15, each exact: a value scaled
+          // up keeps every bit, and it only grows toward dy.2^k < 2^15
+          for (int left = k; left > 0; left -= 15) {
+            const unsigned short bits = static_cast<unsigned short>((15 + min(left, 15)) << 10);  // 2^min(left, 15)
+            const __half2 f = __half2half2(__ushort_as_half(bits));
+#pragma unroll
+            for (int u = 0; u < WORDS; ++u) {
+              __half2* h = reinterpret_cast<__half2*>(&q[u]);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], f);
+            }
           }
-          tile[i] = q;
+#pragma unroll
+          for (int u = 0; u < WORDS; ++u) {  // a word of zeros scales to itself
+            const bool zero = (q[u].x | q[u].y | q[u].z | q[u].w) == 0;
+            if (stid + u * SCALERS < DY_WORDS && !zero) tile[stid + u * SCALERS] = q[u];
+          }
         }
         fence_proxy_async();
-        named_barrier(1, SCALERS);
-        if (stid == 0) mbar_arrive(scaled(s));
+        if (stid == 0) {
+          k_of[s] = k;
+          // a first tile of zeros takes the pair's exponent (any scale leaves it as it is)
+          if (i % CHAIN_TILES != 0 && m_first == 0) k_of[s == 0 ? STAGES - 1 : s - 1] = k;
+        }
+        mbar_arrive(scaled(s));
         if (++s == STAGES) {
           s = 0;
           ph ^= 1;
@@ -231,19 +305,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   fence_regs(acc);
 
-  // the chains of the NT local tiles from i0 (local tile i is t_begin + i,
-  // in stage i % STAGES): per tap one fresh accumulator over their 8 * NT
-  // k16 steps, then added into the tap's running total
+  // local tile i is t_begin + i, in stage i % STAGES, its n-th use of the stage i / STAGES
+  auto ready = [&](int i) {
+    mbar_wait(full(i % STAGES), (i / STAGES) & 1);
+    if (SCALED) mbar_wait(scaled(i % STAGES), (i / STAGES) & 1);
+  };
+  // the chains of the NT local tiles from i0: per tap one fresh accumulator
+  // over their 8 * NT k16 steps, then added into the tap's running total
+  // times 2^-k (fp16: the chain's dy scale; bf16: 1)
   auto chain = [&](auto nt, int i0) {
     constexpr int NT = decltype(nt)::value;
 #pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      mbar_wait(full((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
-      if (SCALED) mbar_wait(scaled((i0 + q) % STAGES), ((i0 + q) / STAGES) & 1);
-    }
+    for (int q = 0; q < NT; ++q) ready(i0 + q);
+    const float down = SCALED ? pow2f(-k_of[i0 % STAGES]) : 1.f;
 #pragma unroll
     for (int aa = 0; aa < 3; ++aa) {
-      wgmma_fence();  // the FADDs below read acc
+      wgmma_fence();  // the adds below read acc
 #pragma unroll
       for (int q = 0; q < NT; ++q) {
         const uint32_t st = base + ((i0 + q) % STAGES) * C::STAGE, xs = st + DY_BYTES;
@@ -252,10 +329,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int zz = j / 4, yy = (j % 4) * 2;
           const uint64_t db = gmma_desc(st + j * 2048, 16, 1024, LAYOUT_B128);
           // halo row of the step's first voxel, shifted by the tap; the next
-          // 8 voxels (y + 1) are HX rows on (LBO), the next 8 channels one
-          // slab on (SBO); SMALL: the next 8 M rows are the next kw (16 bytes)
+          // 8 voxels (y + 1) are HX rows on; SMALL: 16-byte rows, the next 8
+          // channels one slab on (none: Ci = 8), the next 8 M rows the next
+          // kw (16 bytes)
           const int row = SMALL ? ((zz + aa) * HY + yy + kh) * HX : (zz * HY + yy + kh) * HX + aa;
-          const uint64_t da = gmma_desc(xs + row * 16, HX * 16, SMALL ? 16 : C::SLAB, LAYOUT_INTERLEAVE);
+          const uint64_t da = SMALL ? gmma_desc(xs + row * 16, HX * 16, 16, LAYOUT_INTERLEAVE)
+                                    : gmma_desc(xs + row * 128, 16, HX * 128, LAYOUT_B128);
           wgmma_m64n64k16<1, 1, T>(acc, da, db, q > 0 || j > 0);
         }
       }
@@ -263,7 +342,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       fence_regs(acc);
 #pragma unroll
-      for (int k = 0; k < 32; ++k) total[aa][k] += acc[k];
+      for (int k = 0; k < 32; ++k) total[aa][k] = fmaf(acc[k], down, total[aa][k]);
     }
     // every wgmma that read these stages has completed
     if ((tid & 127) == 0) {
@@ -271,13 +350,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int q = 0; q < NT; ++q) mbar_arrive(empty((i0 + q) % STAGES));
     }
   };
-  const int tiles = t_end - t_begin;
   int i0 = 0;
-  for (; i0 + CHAIN_TILES <= tiles; i0 += CHAIN_TILES) chain(std::integral_constant<int, CHAIN_TILES>(), i0);
+  for (; i0 + CHAIN_TILES <= tiles; i0 += CHAIN_TILES) {
+    if (SCALED) {  // a pair whose exponents differ runs as two chains
+      ready(i0);
+      ready(i0 + 1);
+      if (k_of[i0 % STAGES] != k_of[(i0 + 1) % STAGES]) {
+        chain(std::integral_constant<int, 1>(), i0);
+        chain(std::integral_constant<int, 1>(), i0 + 1);
+        continue;
+      }
+    }
+    chain(std::integral_constant<int, CHAIN_TILES>(), i0);
+  }
   for (; i0 < tiles; ++i0) chain(std::integral_constant<int, 1>(), i0);
 
   float* out = a.dst + static_cast<long long>(blockIdx.z) * 27 * a.Ci * a.Co;
-  const float scale = SCALED ? pow2f(-f16_scale_exponent(*a.amax_bits)) : 1.f;  // undoes dy's 2^k
   const int lane = tid & 31, warp = (tid >> 5) & 3;
 #pragma unroll
   for (int aa = 0; aa < 3; ++aa) {
@@ -299,8 +387,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < 8; ++j) {
         const int co = co0 + 8 * j + 2 * (lane & 3);
         if (co < a.Co)
-          *reinterpret_cast<float2*>(row + co) =
-              make_float2(total[aa][4 * j + 2 * h] * scale, total[aa][4 * j + 2 * h + 1] * scale);
+          *reinterpret_cast<float2*>(row + co) = make_float2(total[aa][4 * j + 2 * h], total[aa][4 * j + 2 * h + 1]);
       }
     }
   }
@@ -322,32 +409,6 @@ __global__ void dw_reduce(const float4* __restrict__ workspace, float4* __restri
     out[i] = s;
   }
 }
-
-// *amax_bits = max over dy of |dy|'s fp16 bits (they order as the values
-// do): 8 values a 16-byte load, one atomicMax a block. *amax_bits must be 0.
-__global__ void f16_absmax(const uint4* __restrict__ dy, long long count8, unsigned* amax_bits) {
-  unsigned m = 0;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count8;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const uint4 q = dy[i];
-    const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) m = max(m, max(w[j] & 0x7fffu, (w[j] >> 16) & 0x7fffu));
-  }
-  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ unsigned part[32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < blockDim.x / 32 ? part[threadIdx.x] : 0u;
-    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (threadIdx.x == 0) atomicMax(amax_bits, m);
-  }
-}
-
-// Bytes of the fp16 entry point's workspace after the split-K partials:
-// max|dy|'s bits, padded.
-constexpr long long F16_SCALE_BYTES = 16;
 
 struct DwPlan {
   bool small;
@@ -386,8 +447,8 @@ cudaError_t launch_dw(const DwPlan& p, const CUtensorMap& xmap, const CUtensorMa
   return cudaGetLastError();
 }
 
-// The launches of one dW in element type T (the entry points below): for
-// fp16 first max|dy| into the workspace after the split-K partials.
+// The launches of one dW in element type T (the entry points below): the
+// kernel, then, where the voxels are split, the sum of the partials.
 template <typename T>
 int run_dw(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes, int N, int D,
            int H, int W, int Ci, int Co, void* stream, int device) {
@@ -395,33 +456,18 @@ int run_dw(const void* x, const void* dy, void* out, void* workspace, long long 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!(Ci == 8 || Ci % BC == 0) || Co % 8) return static_cast<int>(cudaErrorInvalidValue);
   const DwPlan p = make_dw_plan(N, D, H, W, Ci, Co, sm_count(device));
-  constexpr bool kScaled = std::is_same<T, f16>::value;
-  if (workspace_bytes < p.workspace_bytes + (kScaled ? F16_SCALE_BYTES : 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (workspace_bytes < p.workspace_bytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  unsigned* amax = nullptr;
-  if constexpr (kScaled) {
-    amax = reinterpret_cast<unsigned*>(static_cast<unsigned char*>(workspace) + p.workspace_bytes);
-    const long long count8 = static_cast<long long>(N) * D * H * W * Co / 8;
-    const unsigned blocks = static_cast<unsigned>(std::min<long long>((count8 + 255) / 256, 8LL * sm_count(device)));
-    err = cudaMemsetAsync(amax, 0, sizeof(unsigned), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    f16_absmax<<<blocks, 256, 0, s>>>(static_cast<const uint4*>(dy), count8, amax);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
 
   CUtensorMap xmap, dymap;
   constexpr CUtensorMapDataType type = tensor_map_type<T>();
-  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, 8, HX, HY, p.small ? TZ + 2 : TZ, false, type);
+  err = make_ndhwc_map(&xmap, x, N, D, H, W, Ci, p.small ? 8 : BC, HX, HY, p.small ? TZ + 2 : TZ, !p.small, type);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = make_ndhwc_map(&dymap, dy, N, D, H, W, Co, BC, TX, TY, TZ, true, type);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   DwArgs a;
   a.dst = p.splits > 1 ? static_cast<float*>(workspace) : static_cast<float*>(out);
-  a.amax_bits = amax;
   a.Ci = Ci, a.Co = Co;
   a.tiles_z = p.tiles_z, a.tiles_y = p.tiles_y, a.tiles_x = p.tiles_x, a.tiles = p.tiles;
   a.tiles_per_split = p.tiles_per_split;
@@ -438,19 +484,15 @@ int run_dw(const void* x, const void* dy, void* out, void* workspace, long long 
 
 extern "C" {
 
-// Bytes of workspace the launch below needs for this shape on `device`:
-// bf16 the fp32 split-K partials (0 unless the voxels are split); fp16
-// those and F16_SCALE_BYTES (max|dy|).
+// Bytes of workspace the launches below need for this shape on `device`
+// (bf16 and fp16 alike): the fp32 split-K partials, 0 unless the voxels
+// are split.
 long long pcmseg_conv3x3_dw_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
   return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes;
 }
 
-long long pcmseg_conv3x3_dw_f16_workspace_bytes(int N, int D, int H, int W, int Ci, int Co, int device) {
-  return make_dw_plan(N, D, H, W, Ci, Co, sm_count(device)).workspace_bytes + F16_SCALE_BYTES;
-}
-
-// f16_scale_exponent for the tests: the exponent of dy's scale given the
-// fp16 bits of max|dy|.
+// f16_scale_exponent for the tests: the exponent of a chain's dy scale
+// given the fp16 bits of its max|dy|.
 int pcmseg_f16_scale_exponent(int amax_bits) { return f16_scale_exponent(static_cast<unsigned>(amax_bits)); }
 
 // dW (27*Ci, Co) fp32 of x (N, D, H, W, Ci) and dy (N, D, H, W, Co), both bf16
@@ -458,8 +500,7 @@ int pcmseg_f16_scale_exponent(int amax_bits) { return f16_scale_exponent(static_
 // device `device`. The caller checks shapes, dtypes, contiguity and 16-byte
 // alignment, requires Ci == 8 or Ci % 64 == 0, Co % 8 == 0 and N*D*H*W <
 // 2^31, and passes a workspace of at least pcmseg_conv3x3_dw_workspace_bytes(...)
-// bytes (the fp16 one pcmseg_conv3x3_dw_f16_workspace_bytes(...)). Returns
-// the cudaError_t of the launches; does not synchronise.
+// bytes. Returns the cudaError_t of the launches; does not synchronise.
 int pcmseg_conv3x3_dw_bf16(const void* x, const void* dy, void* out, void* workspace, long long workspace_bytes,
                            int N, int D, int H, int W, int Ci, int Co, void* stream, int device) {
   return run_dw<bf16>(x, dy, out, workspace, workspace_bytes, N, D, H, W, Ci, Co, stream, device);

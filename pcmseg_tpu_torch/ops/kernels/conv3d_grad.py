@@ -14,11 +14,13 @@ kernels do (``conv3d.ci_pad``); the wrapper pads x and returns the rows of
 the real channels. ``dw_plan`` mirrors the 16-bit kernel's launch plan
 (split-K, workspace, the longest tensor-core chain) for tests and tools.
 
-The fp16 entry point sums dy·2^k in place of dy and scales dW by 2^-k
-(``f16_scale_exponent``, both steps exact): on an H100 the tensor cores
-align a sum's products with a subnormal fp16 operand as if it were normal
-at 2^-14, cutting bits its leading zeros push below the alignment window,
-and an fp16 step's dy is nearly all zero or subnormal (no loss scaling).
+The fp16 entry point sums each tensor-core chain's dy·2^k in place of dy
+and multiplies the chain's sum by 2^-k as it adds it into dW, k =
+``f16_scale_exponent`` of the chain's max|dy|, found on the card in shared
+memory (both steps exact): on an H100 the tensor cores align a sum's
+products with a subnormal fp16 operand as if it were normal at 2^-14,
+cutting bits its leading zeros push below the alignment window, and an fp16
+step's dy is nearly all zero or subnormal (no loss scaling).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ launches_f16 = 0
 _ENTRY = {torch.bfloat16: "pcmseg_conv3x3_dw_bf16", torch.float16: "pcmseg_conv3x3_dw_f16",
           torch.float32: "pcmseg_conv3x3_dw_f32"}
 _WORKSPACE = {torch.bfloat16: "pcmseg_conv3x3_dw_workspace_bytes",
-              torch.float16: "pcmseg_conv3x3_dw_f16_workspace_bytes",
+              torch.float16: "pcmseg_conv3x3_dw_workspace_bytes",
               torch.float32: "pcmseg_conv3x3_dw_f32_workspace_bytes"}
 _COUNTER = {torch.bfloat16: "launches", torch.float16: "launches_f16", torch.float32: "launches_f32"}
 
@@ -61,26 +63,28 @@ F16_SCALE_TOP = 15
 
 
 def f16_scale_exponent(amax: float) -> int:
-    """The exponent k of the fp16 kernel's dy scale for max|dy| = ``amax``
-    (the C ``f16_scale_exponent``, which computes it on the card from
-    max|dy|'s fp16 bits): max|dy|·2^k in [2^14, 2^15); 0 for a zero, inf or
-    NaN maximum and for max|dy| >= 2^14. Scaling an fp16 value up by 2^k is
-    exact while the result stays below 65504, and so is dW·2^-k in fp32."""
+    """The exponent k of the fp16 kernel's dy scale for a chain's max|dy| =
+    ``amax`` (the C ``f16_scale_exponent``, which computes it on the card
+    from max|dy|'s fp16 bits): max|dy|·2^k in [2^14, 2^15); 0 for a zero,
+    inf or NaN maximum and for max|dy| >= 2^14. Scaling an fp16 value up by
+    2^k is exact while the result stays below 65504, and so is a chain's
+    fp32 sum times 2^-k (k <= 38; a nonzero sum of fp16 products is a
+    multiple of 2^-48)."""
     if amax == 0 or not math.isfinite(amax):
         return 0
     return max(0, F16_SCALE_TOP - math.frexp(amax)[1])
 
 
-def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int, f16: bool = False) -> dict:
+def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int) -> dict:
     """The bf16 / fp16 kernel's launch plan for x (n, d, h, w, ci) and dy
     (..., co) on a card of ``sms`` SMs, as ``make_dw_plan`` computes it (ci
-    is padded to what the kernel reads, ``conv3d.ci_pad``): ``splits`` of the
-    voxel tiles over gridDim.z, ``tiles_per_split``, ``workspace_bytes`` of
-    fp32 split partials and, with ``f16``, 16 bytes for max|dy| (the C
-    ``pcmseg_conv3x3_dw{,_f16}_workspace_bytes``), and ``chain_steps``, the
-    most k16 steps any tensor-core sum runs before its FADD into a running
-    total (DW_CHAIN_TILES tiles; a split's slice is tiles_per_split · 8
-    steps)."""
+    is padded to what the kernel reads, ``conv3d.ci_pad``): ``tiles`` (of
+    DW_TILE voxels, in the kernel's order), ``splits`` of them over
+    gridDim.z, ``tiles_per_split``, ``workspace_bytes`` of fp32 split
+    partials (the C ``pcmseg_conv3x3_dw_workspace_bytes``, fp16 and bf16
+    alike), and ``chain_steps``, the most k16 steps any tensor-core sum runs
+    before its add into a running total (DW_CHAIN_TILES tiles; a split's
+    slice is tiles_per_split · 8 steps)."""
     ci = ci_pad(ci)
     tz, ty, tx = DW_TILE
     tiles = n * -(-d // tz) * -(-h // ty) * -(-w // tx)
@@ -88,9 +92,8 @@ def dw_plan(n: int, d: int, h: int, w: int, ci: int, co: int, sms: int, f16: boo
     splits = max(1, min(sms // blocks, tiles // DW_MIN_TILES_PER_SPLIT)) if blocks < sms else 1
     per_split = -(-tiles // splits)
     splits = -(-tiles // per_split)
-    return {"ci": ci, "splits": splits, "tiles_per_split": per_split,
-            "workspace_bytes": (splits * 27 * ci * co * 4 if splits > 1 else 0)
-            + (16 if f16 else 0),
+    return {"ci": ci, "tiles": tiles, "splits": splits, "tiles_per_split": per_split,
+            "workspace_bytes": splits * 27 * ci * co * 4 if splits > 1 else 0,
             "chain_steps": DW_STEPS_PER_TILE * min(per_split, DW_CHAIN_TILES)}
 
 

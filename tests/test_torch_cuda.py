@@ -257,6 +257,52 @@ def test_dw_kernel_matches_plain(cuda_device, n, spatial, ci, co):
     assert (got - want).abs().max().item() <= 2e-3 * want.abs().max().item()
 
 
+@pytest.mark.parametrize(
+    "n,spatial,ci,co",
+    [
+        (1, (8, 8, 8), 512, 1024),  # 16 channel blocks, 384 blocks, no split
+        (1, (32, 32, 32), 64, 64),  # split over voxels (44 splits), fixed-order reduce
+    ],
+)
+@pytest.mark.parametrize("draw", ["channel-blocked", "tile-alternating"])
+def test_fp16_dw_kernel_scales_each_chain(cuda_device, n, spatial, ci, co, draw):
+    """fp16 B2 sums each chain's dy·2^k_c (k_c from the chain's max|dy|,
+    found on the card): on channel-blocked dy (channels 0-63 near 2^13, the
+    rest subnormal, 2^-24..2^-21) and on dy whose 2x8x8-voxel tiles alternate
+    between 2^-6 and 2^-20 (a pair of tiles cut in two where its second holds
+    the larger |dy|), each element within 4.6e-6·Σ|x·dy| of float64 (the
+    dw_sum bound), as the plain version is; two launches bitwise equal."""
+    from pcmseg_tpu_torch.ops.kernels import conv3d_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co + len(draw))
+    shape = (n, *spatial, co)
+    x = torch.randn((n, *spatial, ci), generator=g, device=cuda_device).to(torch.float16)
+    sign = (torch.rand(shape, generator=g, device=cuda_device) < 0.5).double() * 2 - 1
+    if draw == "channel-blocked":
+        mag = torch.randint(1, 8, shape, generator=g, device=cuda_device).double() * 2.0**-24
+        mag[..., :64] = torch.randn((n, *spatial, 64), generator=g, device=cuda_device).abs().double() * 2.0**11
+    else:
+        d, h, w = spatial
+        tile = (torch.arange(d, device=cuda_device).view(d, 1, 1) // 2 * (h // 8)
+                + torch.arange(h, device=cuda_device).view(1, h, 1) // 8) * (w // 8) \
+            + torch.arange(w, device=cuda_device).view(1, 1, w) // 8
+        exponent = torch.where(tile % 3 == 1, -6.0, -20.0).double().unsqueeze(-1)  # pairs (0, 1) cut, (2, 3) not
+        mag = torch.randn(shape, generator=g, device=cuda_device).abs().double() * torch.exp2(exponent)
+    dy = (mag * sign).to(torch.float16)
+    before = conv3d_grad.launches_f16
+    got = conv3d_grad.conv3x3_dw(x, dy)
+    again = conv3d_grad.conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert conv3d_grad.launches_f16 == before + 2
+    assert torch.equal(got, again)
+    exact = conv3d_grad.conv3x3_dw_reference(x.double(), dy.double())
+    scale = conv3d_grad.conv3x3_dw_reference(x.double().abs(), dy.double().abs()).clamp_min(1e-300)
+    plain = conv3d_grad.conv3x3_dw_reference(x, dy).double()
+    assert bool(torch.isfinite(got).all())
+    assert ((got.double() - exact).abs() / scale).max().item() <= 4.6e-6
+    assert ((plain - exact).abs() / scale).max().item() <= 4.6e-6
+
+
 def test_dw_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     from pcmseg_tpu_torch.ops.kernels import conv3d_grad
 
@@ -264,7 +310,7 @@ def test_dw_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(TypeError):  # x and dy of two dtypes
         conv3d_grad.conv3x3_dw(x.float(), x)
     with pytest.raises(TypeError):  # a dtype no kernel computes in
-        conv3d_grad.conv3x3_dw(x.half(), x.half())
+        conv3d_grad.conv3x3_dw(x.double(), x.double())
     with pytest.raises(ValueError):
         conv3d_grad.conv3x3_dw(x, x[..., :4].contiguous())  # Co % 8 != 0
     with pytest.raises(ValueError):

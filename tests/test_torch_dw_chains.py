@@ -53,7 +53,9 @@ def test_dw_plan_at_flagship_shapes(ci, co, size, splits, split_steps):
     plan = conv3d_grad.dw_plan(1, size, size, size, ci, co, SMS)
     assert plan["splits"] == splits
     assert plan["tiles_per_split"] * conv3d_grad.DW_STEPS_PER_TILE == split_steps
+    assert plan["tiles"] == (size // 2) * (size // 8) ** 2 and -(-plan["tiles"] // plan["tiles_per_split"]) == splits
     kernel_ci = 8 if ci <= 8 else ci
+    # the split partials alone, in bf16 and fp16 alike (fp16 finds its dy scales on chip)
     assert plan["workspace_bytes"] == (splits * 27 * kernel_ci * co * 4 if splits > 1 else 0)
     assert plan["chain_steps"] == min(split_steps, conv3d_grad.DW_STEPS_PER_TILE * conv3d_grad.DW_CHAIN_TILES)
     assert plan["chain_steps"] <= CHAIN_LIMIT

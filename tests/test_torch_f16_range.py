@@ -5,9 +5,10 @@ subnormal operand were normal at 2^-14, so its leading zeros push bits out
 of the sum, and the fp16 step's dy is nearly all zero or subnormal (no loss
 scaling, in JAX as in the port): such dW elements lost up to 2.2e-5 of
 their Σ|x·dy|. So the
-fp16 entry point of ``csrc/conv3x3_dw.cu`` sums dy·2^k in place of dy,
-k = ``conv3d_grad.f16_scale_exponent(max|dy|)``, and scales dW by 2^-k.
-Both steps must be exact. Here:
+fp16 entry point of ``csrc/conv3x3_dw.cu`` sums each tensor-core chain's
+dy·2^k in place of dy, k = ``conv3d_grad.f16_scale_exponent`` of the
+chain's max|dy| (``tests/test_torch_dw_scale.py``), and scales the chain's
+sum by 2^-k. Both steps must be exact. Here, for one exponent over a tensor:
 
   * the exponent at every fp16 magnitude: max|dy|·2^k in [2^14, 2^15)
     where k > 0, never past 65504;

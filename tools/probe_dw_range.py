@@ -62,7 +62,8 @@ def flush(t):
 
 
 def rescale_exponent(dy) -> int:
-    """The fp16 kernel's k for this dy (max|dy|·2^k in [2^14, 2^15))."""
+    """One k for the whole of dy (max|dy|·2^k in [2^14, 2^15)), by the rule
+    the fp16 kernel applies to each tensor-core chain's max|dy|."""
     return conv3d_grad.f16_scale_exponent(dy.abs().max().item())
 
 
