@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
+from pcmseg_tpu_torch.utils.profiling import span
 
 # stacks built since the count was last set to 0 (memo hits not counted)
 uploads = 0
@@ -485,9 +486,10 @@ def make_cached_train_step(config, base_step: Callable, held: Optional[range] = 
     local, comm = _sharded(mesh)
 
     def step(state, images, labels, idx, weights, gen):
-        img, lab = cached_batch(images, labels, idx, gen, config, held, comm)
-        batch = {"image": img, "label": lab, "weight": _on_device(weights, img.device)}
-        return base_step(state, local(batch, config.accum_steps))
+        with span("train.gather", state.step):
+            img, lab = cached_batch(images, labels, idx, gen, config, held, comm)
+            batch = local({"image": img, "label": lab, "weight": _on_device(weights, img.device)}, config.accum_steps)
+        return base_step(state, batch)
 
     return step
 

@@ -84,6 +84,7 @@ from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype
 from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.parallel.sharding import level_plan
 from pcmseg_tpu_torch.train.checkpoints import load_pth
+from pcmseg_tpu_torch.utils.profiling import span
 
 
 def _find_volume_file(directory: str) -> Optional[str]:
@@ -470,12 +471,16 @@ class Predictor:
         probabilities, ``threshold`` unused), then postprocessed as the
         config says."""
         threshold = self.config.threshold if threshold is None else threshold
-        probs = self._predict_probs_device(image)
-        if self.config.n_classes >= 2:
-            mask = probs.argmax(-1).to(torch.uint8)
-        else:
-            mask = (probs[..., 0] > threshold).to(torch.uint8)
-        return postprocess_from_config(mask.cpu().numpy(), self.config)
+        with span("serve.dispatch"):
+            probs = self._predict_probs_device(image)
+            if self.config.n_classes >= 2:
+                mask = probs.argmax(-1).to(torch.uint8)
+            else:
+                mask = (probs[..., 0] > threshold).to(torch.uint8)
+        with span("serve.fetch"):
+            mask = mask.cpu().numpy()
+        with span("serve.postprocess"):
+            return postprocess_from_config(mask, self.config)
 
     def read_case(self, case_dir: str, handle_missing: Optional[str] = None):
         """The host half of one case's ingest, with no device work (the

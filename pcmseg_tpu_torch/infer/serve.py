@@ -17,9 +17,10 @@ and the Predictor stays resident:
     ``serve.py:157-202``);
   * ``profile_dir``: a one-shot ``torch.profiler`` trace of the first
     ``profile_steps`` cases served, from case 0 (a server may only ever see
-    one case), each case a ``case:{id}`` span; ``close()`` (the CLI calls it
-    on every exit path, ``run`` at its end) writes a window that is still
-    open (``serve.py:69-78, 191-235``).
+    one case), with the ``serve.*`` spans (``utils/profiling.py``) as its
+    annotations; ``close()`` (the CLI calls it on every exit path, ``run``
+    at its end) writes a window that is still open
+    (``serve.py:69-78, 191-235``).
 
 Fold ensembles, TTA, postprocessing, K-class heads (uint8 label maps of
 class ids) and spatially sharded forwards (``spatial_parallel``) come with
@@ -36,7 +37,7 @@ from typing import Dict, List, Optional
 from pcmseg_tpu_torch.core.config import Config
 from pcmseg_tpu_torch.utils.logging import get_logger
 from pcmseg_tpu_torch.infer.predict import Predictor, _find_volume_file
-from pcmseg_tpu_torch.utils.profiling import StepTraceController, annotate
+from pcmseg_tpu_torch.utils.profiling import StepTraceController, span
 
 
 class PredictionServer:
@@ -133,7 +134,8 @@ class PredictionServer:
     def _load(self, case_id: str):
         """The host half of one case's ingest (thread-safe, no device work):
         decode and normalize, or under ``device_ingest`` decode only."""
-        return self.predictor.read_case(os.path.join(self.input_root, case_id))
+        with span("serve.decode", case_id):
+            return self.predictor.read_case(os.path.join(self.input_root, case_id))
 
     def process_case(self, case_id: str, preloaded=None) -> Optional[str]:
         """Segment one case. ``preloaded`` may be a Future from ``_load``;
@@ -142,12 +144,15 @@ class PredictionServer:
         self._tracer.on_step(self._cases_seen)
         self._cases_seen += 1
         try:
-            image, reference = preloaded.result() if preloaded is not None else self._load(case_id)
-            # under device_ingest: the raw channels -> the stack on the device
-            image = self.predictor.ingest(image)
-            with annotate(f"case:{case_id}"):
+            with span("serve.case", case_id):
+                with span("serve.prefetch_wait"):
+                    image, reference = preloaded.result() if preloaded is not None else self._load(case_id)
+                with span("serve.dispatch"):
+                    # under device_ingest: the raw channels -> the stack on the device
+                    image = self.predictor.ingest(image)
                 mask = self.predictor.predict_mask(image)
-                out = self.predictor.save_mask(mask, reference, self._output_path(case_id))
+                with span("serve.write"):
+                    out = self.predictor.save_mask(mask, reference, self._output_path(case_id))
         except Exception as e:  # one bad case must not stop the server
             first_failure = case_id not in self._attempts
             self._attempts[case_id] = self._attempts.get(case_id, 0) + 1
@@ -173,7 +178,8 @@ class PredictionServer:
 
     def run_once(self) -> Dict[str, int]:
         """Segment every pending case once; returns the running stats."""
-        cases = self.pending_cases()
+        with span("serve.poll"):
+            cases = self.pending_cases()
         if not cases:
             return dict(self.stats)
         with ThreadPoolExecutor(max_workers=1) as pool:
@@ -205,7 +211,8 @@ class PredictionServer:
             if max_polls is not None and polls >= max_polls:
                 break
             try:
-                time.sleep(poll_interval)
+                with span("serve.poll"):
+                    time.sleep(poll_interval)
             except KeyboardInterrupt:
                 self.log.info("interrupted; exiting")
                 break

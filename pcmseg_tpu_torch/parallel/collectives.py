@@ -68,6 +68,7 @@ import torch.distributed as dist
 
 from pcmseg_tpu_torch.parallel import multihost
 from pcmseg_tpu_torch.parallel.sharding import LevelPlan, Mesh
+from pcmseg_tpu_torch.utils.profiling import span
 
 
 def active() -> bool:
@@ -536,16 +537,18 @@ class GradientAllReduce:
     def __call__(self, grads: Optional[List[torch.Tensor]] = None, comm: Optional[Comm] = None) -> None:
         if not active():
             return
-        if grads is None:
-            grads = [p.grad for p in self.params]
-        if self._flat is None or self._flat.device != grads[0].device:
-            self._flat = torch.empty(sum(g.numel() for g in grads), dtype=torch.float32, device=grads[0].device)
-        offset = 0
-        for g in grads:
-            self._flat[offset: offset + g.numel()].copy_(g.reshape(-1))
-            offset += g.numel()
-        (comm or self.comm or world_comm()).all_reduce(self._flat)
-        offset = 0
-        for g in grads:
-            g.copy_(self._flat[offset: offset + g.numel()].view_as(g))
-            offset += g.numel()
+        with span("train.backward"):
+            if grads is None:
+                grads = [p.grad for p in self.params]
+            if self._flat is None or self._flat.device != grads[0].device:
+                n = sum(g.numel() for g in grads)
+                self._flat = torch.empty(n, dtype=torch.float32, device=grads[0].device)
+            offset = 0
+            for g in grads:
+                self._flat[offset: offset + g.numel()].copy_(g.reshape(-1))
+                offset += g.numel()
+            (comm or self.comm or world_comm()).all_reduce(self._flat)
+            offset = 0
+            for g in grads:
+                g.copy_(self._flat[offset: offset + g.numel()].view_as(g))
+                offset += g.numel()

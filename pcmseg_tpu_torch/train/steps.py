@@ -105,6 +105,7 @@ from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.parallel import collectives, multihost, sharding
 from pcmseg_tpu_torch.parallel.collectives import SpatialPlan
 from pcmseg_tpu_torch.train.checkpoints import jax_leaf_path
+from pcmseg_tpu_torch.utils.profiling import span
 
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
@@ -517,6 +518,21 @@ class _MeshStep:
         return collectives.synchronized_batch(self.mesh.spatial > 1, batch=self.comms.spatial)
 
 
+def update_ema(state: TrainState, model: nn.Module, ema_decay: float) -> None:
+    """The Polyak average of the parameters after a step, with tf-style
+    warmup (t counts the steps after this one)."""
+    t = state.step
+    d = min(ema_decay, (1.0 + t) / (10.0 + t))
+    d32 = np.float32(d)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            e = state.ema[name]
+            if e.dtype == p.dtype:
+                e.mul_(d).add_(p, alpha=1.0 - d)
+            else:  # an fp32 EMA of 16-bit params: JAX's fp32 d·e + (1 − d)·p
+                e.mul_(float(d32)).add_(p.float().mul_(float(np.float32(1.0) - d32)))
+
+
 def make_train_step(
     model: nn.Module, config, loss_fn: Optional[Callable] = None, mesh: Optional[sharding.Mesh] = None
 ) -> Callable:
@@ -589,8 +605,10 @@ def make_train_step(
                     w = None if weight is None else weight[sl]
 
                     def microbatch():
-                        part = objective(model(images[sl]), labels[sl], w, plan)
-                        (part * scale).backward()
+                        with span("train.forward"):
+                            part = objective(model(images[sl]), labels[sl], w, plan)
+                        with span("train.backward"):
+                            (part * scale).backward()
                         return part.detach()
 
                     parts.append(microbatch() if spans is None
@@ -615,30 +633,22 @@ def make_train_step(
         return loss / accum
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch, plan = on.slab_plan(batch)
-        images = batch["image"]
-        labels = align_labels(images[..., :1], batch["label"])
-        weight = batch.get("weight")
-        model.train()
-        for p in params:
-            p.grad = None
-        loss = data_parallel_loss(images, labels, weight, plan)
-        if accum > 1:
+        with span("train.step", state.step):
+            batch, plan = on.slab_plan(batch)
+            images = batch["image"]
+            labels = align_labels(images[..., :1], batch["label"])
+            weight = batch.get("weight")
+            model.train()
             for p in params:
-                p.grad.div_(accum)
-        norm = apply_gradients(state, clip)
-        if state.ema is not None:
-            # Polyak average with tf-style warmup; t counts steps after this one
-            t = state.step
-            d = min(ema_decay, (1.0 + t) / (10.0 + t))
-            d32 = np.float32(d)
-            with torch.no_grad():
-                for name, p in model.named_parameters():
-                    e = state.ema[name]
-                    if e.dtype == p.dtype:
-                        e.mul_(d).add_(p, alpha=1.0 - d)
-                    else:  # an fp32 EMA of 16-bit params: JAX's fp32 d·e + (1 − d)·p
-                        e.mul_(float(d32)).add_(p.float().mul_(float(np.float32(1.0) - d32)))
+                p.grad = None
+            loss = data_parallel_loss(images, labels, weight, plan)
+            with span("train.optimizer"):
+                if accum > 1:
+                    for p in params:
+                        p.grad.div_(accum)
+                norm = apply_gradients(state, clip)
+                if state.ema is not None:
+                    update_ema(state, model, ema_decay)
         return {"loss": loss, "grad_norm": norm}
 
     return train_step

@@ -492,3 +492,33 @@ def test_validate_without_a_card_needs_cpu(tmp_path, monkeypatch, capsys):
     pth = save_pth(str(tmp_path / "m.pth"), UNet3D.from_config(config).state_dict(), config.to_dict())
     assert main(["validate", "--model_path", pth, "--data_dir", str(tmp_path)]) != 0
     assert "--device cpu" in capsys.readouterr().err
+
+
+def test_span_holds_a_b1_launch_and_its_kernel(cuda_device):
+    """A span around a B1 launch and a ``synchronize()``, live because a
+    CUDA-only profiler runs: its interval holds the launch call (the host
+    event of the kernel's correlation id, on the span's thread) and the
+    kernel's device interval, all on one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcmseg_tpu_torch.utils.profiling import drain_spans, span
+
+    x = torch.randn((1, 16, 16, 16, 64), device=cuda_device).to(torch.bfloat16)
+    packed = conv3d.pack_weight(torch.randn((64, 64, 3, 3, 3), device=cuda_device) * 0.05, torch.bfloat16)
+    b = torch.zeros(64, device=cuda_device)
+    conv3d.conv3x3x3(x, packed, b, True)  # built and loaded before the profile
+    torch.cuda.synchronize()
+    drain_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with span("b1"):
+            conv3d.conv3x3x3(x, packed, b, True)
+            torch.cuda.synchronize()
+    (s,) = [r for r in drain_spans().records if r.name == "b1"]
+    events = list(prof.profiler.kineto_results.events())
+    (kernel,) = [e for e in events if e.device_type().name == "CUDA" and "conv3x3x3_kernel" in e.name()]
+    launch = min((e for e in events if e.device_type().name == "CPU" and e.correlation_id() == kernel.correlation_id()),
+                 key=lambda e: e.start_ns())
+    assert "Launch" in launch.name()
+    for e in (launch, kernel):
+        assert s.start_ns <= e.start_ns() and e.start_ns() + e.duration_ns() <= s.end_ns
+    assert launch.device_resource_id() & 0xFFFFFFFF == s.thread & 0xFFFFFFFF

@@ -2,11 +2,13 @@
 the three tests of tests/test_profiling.py on ``torch.profiler``, the window
 each package's StepTraceController opens on the same schedule, a trainer
 whose trace holds its step's ops, and a server whose ``close()`` writes a
-window shorter than ``profile_steps``."""
+window shorter than ``profile_steps`` (the spans themselves:
+tests/test_torch_spans.py)."""
 
 import glob
 import json
 import os
+from collections import Counter
 
 import jax
 import numpy as np
@@ -23,7 +25,7 @@ from pcmseg_tpu_torch.models.unet3d import UNet3D
 from pcmseg_tpu_torch.train.checkpoints import save_pth
 from pcmseg_tpu_torch.train.trainer import Trainer
 from pcmseg_tpu_torch.utils import profiling
-from pcmseg_tpu_torch.utils.profiling import StepTraceController, annotate, device_memory_report, trace
+from pcmseg_tpu_torch.utils.profiling import StepTraceController, drain_spans, span, trace
 
 
 @pytest.fixture(autouse=True)
@@ -50,12 +52,14 @@ def test_step_trace_controller_writes_dump(tmp_path):
     c = StepTraceController(str(tmp_path), "cpu", start_step=1, n_steps=2)
     for i in range(5):
         c.on_step(i)
-        with annotate(f"step{i}"):
+        with span(f"step{i}", i):
             (torch.ones(8) * 2.0).sum()
     c.close()
     dumped = [p for p in tmp_path.rglob("*") if p.is_file()]
     assert dumped, "no profiler dump written"
     assert _spans(_trace_events(tmp_path), "step") == ["step1", "step2"]
+    # recorded only while the window was open: off before and after it
+    assert [(r.name, r.key) for r in drain_spans().records] == [("step1", 1), ("step2", 2)]
 
 
 def test_trace_controller_none_is_noop():
@@ -106,14 +110,6 @@ def test_window_matches_jax(monkeypatch, start_step, n_steps, epochs):
     assert events["torch"] == events["jax"] and events["jax"][0][0] == "start"
 
 
-def test_device_memory_report_prints_nothing_on_the_cpu(capsys):
-    with device_memory_report("cpu"):
-        torch.ones(4).sum()
-    with device_memory_report([torch.device("cpu")]):
-        pass
-    assert capsys.readouterr().out == ""
-
-
 def test_trainer_trace_holds_its_steps(tmp_path):
     """A 1-epoch CPU trainer of 3 one-case steps with ``profile_dir`` and
     ``profile_steps=1``: one trace, of step 1, whose ops are the step's own
@@ -143,7 +139,8 @@ def _serve_tree(root, config, n_cases):
 
 def test_server_close_writes_a_short_window(tmp_path):
     """``profile_steps`` 5 and 2 cases: the window is open after run_once
-    and written by close(), with one ``case:`` span per case."""
+    and written by close(), with one ``serve.case`` span per case and its
+    phases on the serving thread as annotations."""
     config = get_config(base_features=4, profile_dir=str(tmp_path / "prof"), profile_steps=5)
     model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0))
     pth = save_pth(str(tmp_path / "m.pth"), model.state_dict(), config.to_dict())
@@ -153,7 +150,9 @@ def test_server_close_writes_a_short_window(tmp_path):
     assert server.run_once()["done"] == 2
     assert not glob.glob(str(tmp_path / "prof" / "*.json"))
     server.close()
-    assert sorted(_spans(_trace_events(tmp_path / "prof"), "case:")) == ["case:case_0", "case:case_1"]
+    spans = Counter(_spans(_trace_events(tmp_path / "prof"), "serve."))
+    assert spans["serve.case"] == 2 and spans["serve.fetch"] == 2 and spans["serve.write"] == 2
+    assert {r.key for r in drain_spans().records if r.name == "serve.case"} == {"case_0", "case_1"}
     server.close()  # idempotent
 
 
