@@ -60,6 +60,16 @@ kernel on them:
      on same-sign inputs, error in ulps of the output, measured only.
      ``python3 chip_smoke.py --only dw_sum`` runs the build and this phase
      alone;
+ 5e. bn_kernels: the training BatchNorm + ReLU (``csrc/batchnorm_relu.cu``)
+     at each level's shape of one 128³ microbatch, forward and backward:
+     y, dx, dγ, dβ, the mean, the unbiased variance and the running
+     statistics held against the plain version and float64, in bf16 and
+     fp32 (``check_bn_outputs``); in bf16 its four kernels' device time by
+     name, the plain version's and the stock SyncBatchNorm ops' with a ReLU
+     (torch.profiler), against the least time, BN_BYTES an element at 3.35
+     TB/s; the 18 layers' sums. ``python3 chip_smoke.py
+     --only bn`` runs the build, this phase and the time phase (one step's
+     B1, B2 and BatchNorm launches with remat off and on, step times);
   6. gradients: one 128³ microbatch through the base-64 model in BN
      training mode under the Dice loss; each conv's autograd Function as
      the kernel path ran it, layer by layer, against its plain version on
@@ -165,7 +175,7 @@ kernel on them:
      kernel events by name, each step timed (synchronised) inside and
      outside the window; a ``PredictionServer`` over the serve cases whose
      window, written by ``close()``, holds 18 B1 per forward and one
-     ``case:`` span per case; ``predict --profile`` in its own process;
+     ``serve.case`` span per case; ``predict --profile`` in its own process;
  15. async_ckpt: the 12 cases, flagship configuration, 2 epochs from the
      same init with synchronous and asynchronous checkpoints: histories
      and parameters equal, latest, best and best.pth bitwise-equal tensors
@@ -623,7 +633,7 @@ def serve(work: str, config, device, card: str):
 
     from pcmseg_tpu_torch.data.io import read_volume
     from pcmseg_tpu_torch.infer.serve import PredictionServer
-    from pcmseg_tpu_torch.ops.kernels import conv3d
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d
 
     inbox, outbox, pth = (os.path.join(work, n) for n in ("inbox", "outbox", "model.pth"))
     t0 = time.perf_counter()
@@ -633,7 +643,7 @@ def serve(work: str, config, device, card: str):
     server = PredictionServer(config, pth, inbox, outbox, min_age=0.0, device=device)
     log(f"serve setup (cases, checkpoint, load + fold) {time.perf_counter() - t0:.1f} s")
 
-    conv3d.launches = 0
+    conv3d.launches = batchnorm.launches = 0
     t0 = time.perf_counter()
     stats = server.run_once()
     wall = time.perf_counter() - t0
@@ -641,8 +651,10 @@ def serve(work: str, config, device, card: str):
     forwards = expected_forwards(server.config)
     if stats != {"done": len(CASES), "failed": 0, "skipped": 0, "waiting": 0}:
         raise AssertionError(f"serve stats {stats}")
-    if launches != 18 * forwards:
-        raise AssertionError(f"{launches} conv kernel launches for {forwards} forwards, expected {18 * forwards}")
+    bn_launches = batchnorm.launches
+    if launches != 18 * forwards or bn_launches:
+        raise AssertionError(f"{launches} conv kernel launches for {forwards} forwards, expected {18 * forwards}; "
+                             f"{bn_launches} BatchNorm launches, expected none (the folded graph)")
     log(f"served {stats['done']} cases, {forwards} forwards, {launches} conv kernel launches "
         f"(18 per forward), {wall:.2f} s cold [{card}]")
     for case_id, shape in CASES.items():
@@ -685,7 +697,7 @@ def serve(work: str, config, device, card: str):
     check_probs(predictor, predictor.load_case(os.path.join(inbox, tiled))[0], tiled)
     if device.type == "cuda":
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, server
+    return (launches, bn_launches), server
 
 
 @contextlib.contextmanager
@@ -1344,16 +1356,20 @@ def check_fp32_kernels(device, card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_train_conv(model, dtype):
-    """Train ``model`` with the plain conv (autograd of F.conv3d) in ``dtype``."""
+    """Train ``model`` with the plain conv (autograd of F.conv3d) and the
+    plain BatchNorm + ReLU (``batchnorm_train_reference``) in ``dtype``."""
     from pcmseg_tpu_torch.models import unet3d
     from pcmseg_tpu_torch.ops import hybrid_conv
+    from pcmseg_tpu_torch.ops.kernels import batchnorm
 
     saved = model.dtype
     unet3d.conv3x3_train, model.dtype = hybrid_conv.conv3x3_plain, dtype
+    unet3d.batchnorm_train = batchnorm.batchnorm_train_reference
     try:
         yield
     finally:
         unet3d.conv3x3_train, model.dtype = hybrid_conv.conv3x3, saved
+        unet3d.batchnorm_train = batchnorm.batchnorm_train
 
 
 def blob_label(shape, device):
@@ -1377,7 +1393,8 @@ def bn_surviving_share(model):
 
         def on_grad(dy):
             dims = tuple(range(x.dim() - 1))
-            xf, dyf = x.float(), dy.float()
+            # the norm's own cotangent: the ReLU inside the module masks it
+            xf, dyf = x.float(), (dy * (out > 0) if module.relu else dy).float()
             xh = (xf - xf.mean(dims)) * (xf.var(dims, unbiased=False) + module.eps).rsqrt()
             kept = dyf - dyf.mean(dims) - xh * (dyf * xh).mean(dims)
             shares.append((kept.norm() / dyf.norm()).item())
@@ -1507,7 +1524,7 @@ def check_gradients(device, card: str) -> None:
     import torch
 
     from pcmseg_tpu_torch.models.unet3d import UNet3D
-    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d, conv3d_grad
     from pcmseg_tpu_torch.ops.losses import dice_loss
 
     model = UNet3D(base_features=BASE_FEATURES, generator=torch.Generator().manual_seed(5)).to(device).train()
@@ -1530,19 +1547,23 @@ def check_gradients(device, card: str) -> None:
         return loss.item(), {k: p.grad.float().clone() for k, p in model.named_parameters()}
 
     for loss_name, loss_of in losses.items():
-        conv3d.launches = conv3d_grad.launches = 0
+        conv3d.launches = conv3d_grad.launches = batchnorm.launches = 0
         with conv_io(model) if loss_name == "dice" else contextlib.nullcontext({}) as records:
             loss_k, g_k = grads(loss_of)
-        if (conv3d.launches, conv3d_grad.launches) != (18 + 17, 18):
-            raise AssertionError(f"kernel path launched B1 {conv3d.launches}x, B2 {conv3d_grad.launches}x; "
-                                 "expected 35 and 18")
+        # 18 BatchNorm layers, two launches forward and two backward each
+        if (conv3d.launches, conv3d_grad.launches, batchnorm.launches) != (18 + 17, 18, 18 * 4):
+            raise AssertionError(f"kernel path launched B1 {conv3d.launches}x, B2 {conv3d_grad.launches}x, "
+                                 f"BatchNorm {batchnorm.launches}x; expected 35, 18 and 72")
         if loss_name == "dice":
             check_conv_function(model, records, g_k, card)
         for rec in records.values():
             rec.clear()  # a record's x holds a hook that holds the record: free it now, not at gc
         del records
+        batchnorm.launches = 0
         with plain_train_conv(model, torch.bfloat16):
             loss_p, g_p = grads(loss_of)
+        if batchnorm.launches:
+            raise AssertionError(f"the plain arm launched {batchnorm.launches} BatchNorm kernels")
         shares, handles = bn_surviving_share(model)
         with plain_train_conv(model, torch.float32):
             loss_32, g_32 = grads(loss_of)
@@ -1625,6 +1646,13 @@ def expected_train_launches(config, steps: int, eval_forwards: int):
     return steps * b1_step + 18 * eval_forwards, steps * micro * 18
 
 
+def expected_bn_launches(config, steps: int) -> int:
+    """Training BatchNorm + ReLU kernel launches of ``steps`` optimizer
+    steps: per microbatch and BatchNorm layer (18) two forward (two more
+    recomputed under remat) and two backward; none in eval forwards."""
+    return steps * config.accum_steps * 18 * (4 + (2 if config.remat else 0))
+
+
 def train(work: str, device, card: str):
     """The port's training path: ``Trainer(config).train()`` for 2 epochs on
     5 synthetic 128^3 cases in the flagship configuration, then a run killed
@@ -1635,7 +1663,7 @@ def train(work: str, device, card: str):
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.infer.predict import Predictor
-    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d, conv3d_grad
     from pcmseg_tpu_torch.train.checkpoints import train_checkpoint_path
     from pcmseg_tpu_torch.train.trainer import Trainer
 
@@ -1650,17 +1678,18 @@ def train(work: str, device, card: str):
     if len(trainer.train_indices) != 4 or len(trainer.val_indices) != 1:
         raise AssertionError(f"split {trainer.train_indices} / {trainer.val_indices}")
     log(f"train path: {data_path(trainer, TRAIN_CASES)}")
-    conv3d.launches = conv3d_grad.launches = 0
+    conv3d.launches = conv3d_grad.launches = batchnorm.launches = 0
     t0 = time.perf_counter()
     history = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (conv3d.launches, conv3d_grad.launches)
-    want = expected_train_launches(config, steps=2, eval_forwards=2)
+    launches = (conv3d.launches, conv3d_grad.launches, batchnorm.launches)
+    want = (*expected_train_launches(config, steps=2, eval_forwards=2), expected_bn_launches(config, steps=2))
     log(f"trained 2 epochs in {wall:.1f} s (first epoch cold, checkpoints included): history "
-        f"{json.dumps(history)}; launches B1 {launches[0]}, B2 {launches[1]} (expected {want}) [{card}]")
+        f"{json.dumps(history)}; launches B1 {launches[0]}, B2 {launches[1]}, BatchNorm {launches[2]} (expected "
+        f"{want}) [{card}]")
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+        raise AssertionError(f"kernel launches (B1, B2, BatchNorm) {launches}, expected {want}")
     if not all(math.isfinite(v) for vals in history.values() for v in vals):
         raise AssertionError(f"non-finite history {history}")
     for name in ("latest", "best"):
@@ -1728,35 +1757,40 @@ def profile_step(run, what: str, card: str) -> None:
         log(f"  {us / 1e3:8.3f} ms  {count:4d}x  {name[:100]}")
 
 
-def time_steps(device, card: str) -> list:
+def time_steps(device, card: str) -> tuple:
     """Median warm train-step time at the flagship configuration on one
     synthetic device batch, kernel path and plain conv, peak device memory;
     the launch counts of one step with remat on; the device time of one
     kernel step by kernel (torch.profiler). Returns the kernel step's
-    medians (seconds, remat off)."""
+    medians (seconds, remat off) and one step's BatchNorm launches with
+    remat off and on (``time``, ``time_remat``)."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
-    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d, conv3d_grad
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
 
     g = torch.Generator(device=device).manual_seed(7)
     n = TRAIN["batch_size"]
     batch = {"image": torch.randn((n, SIZE, SIZE, SIZE, 5), generator=g, device=device).to(torch.bfloat16),
              "label": blob_label((SIZE,) * 3, device)[None].expand(n, -1, -1, -1, -1).contiguous()}
-    results = {}
+    results, bn_launches = {}, {}
     for remat in (False, True):
         config = get_config(base_features=BASE_FEATURES, **{**TRAIN, "remat": remat})
         model = UNet3D.from_config(config, generator=torch.Generator().manual_seed(0)).to(device)
         state = create_train_state(model, config)
         step = make_train_step(model, config)
-        conv3d.launches = conv3d_grad.launches = 0
+        conv3d.launches = conv3d_grad.launches = batchnorm.launches = 0
         float(step(state, batch)["loss"])
         want = expected_train_launches(config, steps=1, eval_forwards=0)
-        if (conv3d.launches, conv3d_grad.launches) != want:
+        bn_want = expected_bn_launches(config, steps=1)
+        log(f"train step remat={remat}: launches B1 {conv3d.launches}, B2 {conv3d_grad.launches}, BatchNorm "
+            f"{batchnorm.launches} (expected {want}, {bn_want}) [{card}]")
+        if (conv3d.launches, conv3d_grad.launches) != want or batchnorm.launches != bn_want:
             raise AssertionError(f"remat={remat}: one step launched {(conv3d.launches, conv3d_grad.launches)}, "
-                                 f"expected {want}")
+                                 f"BatchNorm {batchnorm.launches}, expected {want}, {bn_want}")
+        bn_launches["time_remat" if remat else "time"] = batchnorm.launches
         arms = (("kernel", None), ("plain", torch.bfloat16), ("kernel", None)) if not remat else (("kernel", None),)
         for arm, dtype in arms:
             ctx = plain_train_conv(model, dtype) if dtype else contextlib.nullcontext()
@@ -1782,7 +1816,206 @@ def time_steps(device, card: str) -> list:
     log(f"flagship step (batch 4 = 4 x 1, remat off): kernel {min(k) * 1e3:.1f}-{max(k) * 1e3:.1f} ms, "
         f"plain conv {results[('plain', False)][0] * 1e3:.1f} ms; remat on kernel "
         f"{results[('kernel', True)][0] * 1e3:.1f} ms [{card}]")
-    return k
+    return k, bn_launches
+
+
+# the training BatchNorm + ReLU (csrc/batchnorm_relu.cu) at the 18 layers of
+# a 128^3 base-64 microbatch: (layers, cubic side, channels) a level
+BN_LAYERS = ((4, 128, 64), (4, 64, 128), (4, 32, 256), (4, 16, 512), (2, 8, 1024))
+BN_REPS = 10
+# bytes an element the four kernels move in bf16: x read by the statistics,
+# x read and y written by the apply, x and dy read by the sums, x and dy
+# read and dx written by dx
+BN_BYTES = 16
+
+
+def kernel_name(name: str) -> str:
+    """A BatchNorm kernel's name without its namespace, template and arguments."""
+    found = re.search(r"batchnorm_\w+_kernel", name)
+    return found.group(0) if found else name
+
+
+def bn_case(device, side: int, c: int, seed: int):
+    """A conv output's like in bf16 (a per-channel scale and offset), γ, β
+    (fp32) and a bf16 cotangent, at one level's shape."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((1, side, side, side, c), generator=g, device=device)
+    x = x * (torch.rand(c, generator=g, device=device) * 2 + 0.2) + torch.randn(c, generator=g, device=device)
+    gamma = torch.rand(c, generator=g, device=device) + 0.5
+    beta = torch.randn(c, generator=g, device=device) * 0.3
+    dy = torch.randn(x.shape, generator=g, device=device) * 1e-2
+    return x.to(torch.bfloat16), gamma, beta, dy.to(torch.bfloat16)
+
+
+def check_bn_outputs(x, gamma, beta, dy, what: str, card: str) -> float:
+    """The kernels' y, dx, dγ, dβ, mean, unbiased variance and running
+    statistics on one input, against the plain version's and float64's
+    (both backwards on the kernels' ReLU mask). Held: each within twice the
+    plain version's largest error from float64 of the plain version's
+    value; the ReLU's mask no further from float64's rounded to x's dtype
+    than the plain version's; the running statistics, moved from (0, 1),
+    bit for bit the plain version's update (``momentum_update``) of the
+    kernels' own mean and unbiased variance. No further from float64 than
+    the plain version, as the largest and the rms error: y in every dtype
+    (the plain version rounds mult, the product and the sum to it), and in
+    fp32 also dx. (A 16-bit dx is the same fp32 formula rounded once on both
+    sides, so which is nearer there is a tie that the last rounding breaks:
+    logged, not held.) Returns the largest error from float64 of y, dx, dγ,
+    dβ, the mean and the unbiased variance."""
+    import torch
+
+    from pcmseg_tpu_torch.models.unet3d import BatchNorm
+    from pcmseg_tpu_torch.ops.kernels import batchnorm
+
+    c, eps = x.shape[-1], 1e-5
+    n = x.numel() // c
+    kern, plain = (BatchNorm(c, relu=True).to(x.device).train() for _ in range(2))
+    xin, w, b = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    before = batchnorm.launches
+    y, mean, unbiased = batchnorm.batchnorm_train(xin, w, b, eps, relu=True, running=kern)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    if batchnorm.launches != before + 4:
+        raise AssertionError(f"BatchNorm {what}: {batchnorm.launches - before} launches, expected 4")
+    y, mask = y.detach(), y.detach() > 0
+    got = {"y": y, "dx": xin.grad, "dgamma": w.grad, "dbeta": b.grad, "mean": mean, "unbiased": unbiased,
+           "running_mean": kern.running_mean, "running_var": kern.running_var}
+    y_p, mean_p, unbiased_p = batchnorm.batchnorm_train_reference(x, gamma, beta, eps, relu=True, running=plain)
+    xin, w, b = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    batchnorm.BatchNormTrain.apply(xin, w, b, eps)[0].backward(dy * mask)
+    ref = {"y": y_p, "dx": xin.grad, "dgamma": w.grad, "dbeta": b.grad, "mean": mean_p, "unbiased": unbiased_p,
+           "running_mean": plain.running_mean, "running_var": plain.running_var}
+    x64, g64, b64 = (t.double().requires_grad_() for t in (x, gamma, beta))
+    z64, mean64, var64 = batchnorm.BatchNormTrain.apply(x64, g64, b64, eps)
+    z64.backward(dy.double() * mask)
+    unbiased64 = var64 * (n / (n - 1))
+    exact = {"y": torch.relu(z64.detach()), "dx": x64.grad, "dgamma": g64.grad, "dbeta": b64.grad, "mean": mean64,
+             "unbiased": unbiased64, "running_mean": 0.1 * mean64, "running_var": 0.9 + 0.1 * unbiased64}
+
+    def errs(a, want):
+        d = (a.double() - want).abs()
+        return float(d.max()), float(d.square().mean().sqrt())
+
+    flips = [float((m != (exact["y"].to(x.dtype) > 0)).double().mean()) for m in (mask, y_p > 0)]
+    rows = {k: (errs(got[k], exact[k]), errs(ref[k], exact[k]), float((got[k].double() - ref[k].double()).abs().max()))
+            for k in got}
+    name = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[x.dtype]
+    log(f"BatchNorm + ReLU {what}, {name}: ReLU mask flips from float64 kernels {flips[0]:.3e}, plain "
+        f"{flips[1]:.3e}; (max, rms) error from float64 kernels / plain, max |kernels - plain|: "
+        + ", ".join(f"{k} ({a[0]:.6g}, {a[1]:.6g}) / ({p[0]:.6g}, {p[1]:.6g}), {d:.6g}"
+                    for k, (a, p, d) in rows.items()) + f" [{card}]")
+    nearer = ("y", "dx") if x.dtype == torch.float32 else ("y",)
+    bad = [k for k, (_, (p_max, _), d) in rows.items() if not d <= 2 * p_max]
+    bad += [k for k in nearer if not (rows[k][0][0] <= rows[k][1][0] and rows[k][0][1] <= rows[k][1][1])]
+    if flips[0] > flips[1] or bad:
+        raise AssertionError(f"BatchNorm {what} {name}: the kernels' {bad or 'ReLU mask'} off the plain version's")
+    own = BatchNorm(c, relu=True).to(x.device)
+    own.momentum_update(mean, unbiased)
+    if not (torch.equal(kern.running_mean, own.running_mean) and torch.equal(kern.running_var, own.running_var)
+            and int(kern.num_batches_tracked) == 1):
+        raise AssertionError(f"BatchNorm {what}: the running statistics are not the plain update of the kernels' "
+                             f"own mean and variance")
+    return max(rows[k][0][0] for k in ("y", "dx", "dgamma", "dbeta", "mean", "unbiased"))
+
+
+def bn_library(x, gamma, beta, dy):
+    """The stock route to the same layer: PyTorch's SyncBatchNorm ops on the
+    channels-last view of x (statistics, running update, apply), an
+    in-place ReLU, its mask, and the two backward ops; fp32 sums, x in bf16.
+    Returns a function that runs them once."""
+    import torch
+
+    c = x.shape[-1]
+    xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)  # (N, C, D, H, W), channels-last strides
+    running = (torch.zeros(c, device=x.device), torch.ones(c, device=x.device))
+    counts = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+    count_i32 = counts.to(torch.int32)
+
+    def run():
+        mean, invstd = torch.batch_norm_stats(xc, 1e-5)
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(xc, mean[None], invstd[None], *running, 0.1, 1e-5,
+                                                                 counts)
+        y = torch.batch_norm_elemt(xc, gamma, beta, mean, invstd, 1e-5).relu_()
+        dz = torch.ops.aten.threshold_backward(dyc, y, 0)
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(dz, xc, mean, invstd, gamma, True, True, True)
+        return torch.batch_norm_backward_elemt(dz, xc, mean, invstd, gamma, sum_dy, sum_dy_xmu, count_i32)
+
+    return run
+
+
+def bn_kernels(device, card: str) -> dict:
+    """The training BatchNorm + ReLU at each level's shape of one 128^3
+    microbatch in bf16, forward and backward: the outputs held against the
+    plain version and float64, in bf16 and fp32 (``check_bn_outputs``); the
+    four kernels' bf16 times by name, the plain version's and the stock
+    library route's (``bn_library``; torch.profiler over BN_REPS passes,
+    after a warm one), against the least time, BN_BYTES an element at
+    PEAK_BYTES. Returns the
+    18 layers' sums (ms), the kernels' time by name and the largest error
+    from float64."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from pcmseg_tpu_torch.ops.kernels import batchnorm
+
+    def device_ms(run) -> dict:
+        run()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(BN_REPS):
+                run()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / BN_REPS
+        return by_name
+
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "other_ms": 0.0, "max_abs_err": 0.0}
+    kernels = {}
+    for count, side, c in BN_LAYERS:
+        x, gamma, beta, dy = bn_case(device, side, c, seed=side * c + 1)
+        what = f"{side}^3 x {c}"
+        out["max_abs_err"] = max(out["max_abs_err"], check_bn_outputs(x, gamma, beta, dy, what, card))
+        check_bn_outputs(x.float(), gamma, beta, dy.float(), what, card)
+
+        def run_with(fn):
+            def run():
+                xin, w, b = (t.detach().requires_grad_() for t in (x, gamma, beta))
+                fn(xin, w, b, 1e-5, relu=True)[0].backward(dy)
+            return run
+
+        kern = device_ms(run_with(batchnorm.batchnorm_train))
+        plain = device_ms(run_with(batchnorm.batchnorm_train_reference))
+        library = device_ms(bn_library(x, gamma, beta, dy))
+        mine = {k: v for k, v in kern.items() if "batchnorm_" in k}
+        bound = BN_BYTES * x.numel() / PEAK_BYTES * 1e3
+        ms, plain_ms, library_ms = sum(mine.values()), sum(plain.values()), sum(library.values())
+        log(f"BatchNorm + ReLU {what} bf16, forward + backward: kernels {ms:.4f} ms ({bound / ms:.3f} of the "
+            f"{bound:.4f} ms bound), other device time {sum(kern.values()) - ms:.4f} ms; plain {plain_ms:.4f} ms "
+            f"({len(plain)} kernels); library {library_ms:.4f} ms ({len(library)} kernels: "
+            + ", ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(library.items(), key=lambda kv: -kv[1]))
+            + "); by kernel: " + ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in sorted(mine.items()))
+            + f" [{card}]")
+        out["ms"] += count * ms
+        out["plain_ms"] += count * plain_ms
+        out["library_ms"] += count * library_ms
+        out["bound_ms"] += count * bound
+        out["other_ms"] += count * (sum(kern.values()) - ms)
+        for k, v in mine.items():
+            kernels[kernel_name(k)] = kernels.get(kernel_name(k), 0.0) + count * v
+        del x, gamma, beta, dy
+        torch.cuda.empty_cache()
+    log(f"BatchNorm + ReLU, the 18 layers of one 128^3 microbatch: kernels {out['ms']:.3f} ms ("
+        f"{out['bound_ms'] / out['ms']:.3f} of the {out['bound_ms']:.3f} ms bound at {BN_BYTES} B an element), "
+        f"other device time {out['other_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, library (SyncBatchNorm's ops "
+        f"and a ReLU) {out['library_ms']:.3f} ms; by kernel "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(kernels.items()))
+        + f"; largest error from float64 {out['max_abs_err']:.4g} [{card}]")
+    return {**out, "kernels_ms": kernels}
 
 
 # ---- cross-validation and the Validator (slice 4) ----------------------------------
@@ -2736,7 +2969,7 @@ def profiling_phase(work: str, device, card: str):
     process of its own, as a user's ``train --profile`` / ``serve
     --profile`` / ``predict --profile`` runs: the Trainer's trace file
     holds exactly 2 x 140 B1 and 2 x 72 B2 kernel events by name, the
-    server's window 18 B1 per forward and one ``case:`` span per case, and
+    server's window 18 B1 per forward and one ``serve.case`` span per case, and
     ``predict --profile`` exits 0 with 18 B1 in its trace. (Run in this
     script's own process, after the phases before it, the Trainer's window
     lost one B1 kernel event of ~10,560 in each of three H100 runs.)
@@ -2771,13 +3004,13 @@ def profiling_phase(work: str, device, card: str):
                              f"{len(kernels)} kernel events, the first (us) {kernels[:4]}, the last {kernels[-3:]}")
 
     events = trace_events(os.path.join(work, "prof_serve"))
-    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("case:"))
+    spans = sorted(e["name"] for e in events if e.get("cat") == "user_annotation" and e["name"] == "serve.case")
     traced, forwards = kernel_events(events), run["forwards"]
     log(f"profiling, PredictionServer over {len(CASES)} cases ({forwards} forwards, window of {run['profile_steps']} "
         f"cases written by close()): trace B1 {traced[0]} (expected {18 * forwards}), spans {spans}; launches B1 "
         f"{run['serve_launches']} [{card}]")
     if (run["serve_stats"]["done"] != len(CASES) or traced != (18 * forwards, 0)
-            or run["serve_launches"] != 18 * forwards or spans != [f"case:{c}" for c in sorted(CASES)]):
+            or run["serve_launches"] != 18 * forwards or spans != ["serve.case"] * len(CASES)):
         raise AssertionError(f"profiled server: stats {run['serve_stats']}, trace {traced}, spans {spans}")
 
     # predict --profile
@@ -3080,7 +3313,7 @@ def dp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
-    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d, conv3d_grad
     from pcmseg_tpu_torch.parallel import collectives, multihost
     from pcmseg_tpu_torch.parallel.sharding import Mesh, shard_batch, shard_state
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
@@ -3107,13 +3340,13 @@ def dp_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict:
     for batch in dp_batches(device):
         local = shard_batch(batch, Mesh(world), rank=rank, accum=config.accum_steps)
         torch.cuda.synchronize(device)
-        conv3d.launches = conv3d_grad.launches = 0
+        conv3d.launches = conv3d_grad.launches = batchnorm.launches = 0
         t = time.perf_counter()
         metrics = step(state, local)
         out["loss"].append(float(metrics["loss"]))
         torch.cuda.synchronize(device)
         out["step_s"].append(time.perf_counter() - t)
-        out["launches"].append([conv3d.launches, conv3d_grad.launches])
+        out["launches"].append([conv3d.launches, conv3d_grad.launches, batchnorm.launches])
         out["grad_norm"].append(float(metrics["grad_norm"]))
         if len(out["loss"]) in (1, DP_STEPS):
             name = "1" if len(out["loss"]) == 1 else "final"
@@ -3257,14 +3490,14 @@ def spawn_ranks(args_of, world: int, timeout: int = 900) -> list:
 def dp_steps(work: str, ref: dict, world: int, backend: str, card: str, what: str) -> list:
     """``world`` ranks of ``backend`` through dp_rank, held against each
     other and against ``ref`` (dp_reference); logs each rank's step and
-    all-reduce times. Returns the (B1, B2) launches of all ranks."""
+    all-reduce times. Returns the (B1, B2, BatchNorm) launches of all ranks."""
     import torch
 
     port, t0 = free_port(), time.perf_counter()
     ranks = spawn_ranks(lambda r: ["--dp-rank", str(r), str(world), str(port), work, backend], world)
     wall = time.perf_counter() - t0
     micro = TRAIN["accum_steps"] // world
-    per_step = [micro * 35, micro * 18]
+    per_step = [micro * 35, micro * 18, micro * 18 * 4]  # B1, B2, BatchNorm (its statistics deferred)
     note = "; gloo through the host on one shared card, not NCCL numbers" if backend == "gloo" else ""
     compared = {}
     for when in ("1", "final"):
@@ -3319,7 +3552,7 @@ def dp_steps(work: str, ref: dict, world: int, backend: str, card: str, what: st
                              f"{ref['grad_norm'][0]}")
     if not first["worst"] <= DP_PARAM_ATOL:
         raise AssertionError(f"dp parameters after step 1 {first['worst']} from one process's")
-    return [sum(sum(s[i] for s in r["launches"]) for r in ranks) for i in (0, 1)]
+    return [sum(sum(s[i] for s in r["launches"]) for r in ranks) for i in (0, 1, 2)]
 
 
 def dp_trainers(work: str, world: int, backend: str, card: str, what: str) -> list:
@@ -3372,7 +3605,7 @@ def dp_c_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict
 
     from pcmseg_tpu_torch.core.config import get_config
     from pcmseg_tpu_torch.models.unet3d import UNet3D
-    from pcmseg_tpu_torch.ops.kernels import conv3d, conv3d_grad
+    from pcmseg_tpu_torch.ops.kernels import batchnorm, conv3d, conv3d_grad
     from pcmseg_tpu_torch.parallel import multihost
     from pcmseg_tpu_torch.parallel.sharding import Mesh, microbatch_layout, shard_batch, shard_state
     from pcmseg_tpu_torch.train.steps import create_train_state, make_train_step
@@ -3386,14 +3619,14 @@ def dp_c_rank(rank: int, world: int, port: int, work: str, backend: str) -> dict
     state, step = create_train_state(model, config), make_train_step(model, config)
     local = shard_batch(dp_batches(device)[0], Mesh(world), rank=rank, accum=DP_C_ACCUM)
     torch.cuda.synchronize(device)
-    conv3d.launches = conv3d_grad.launches = 0
+    conv3d.launches = conv3d_grad.launches = batchnorm.launches = 0
     t = time.perf_counter()
     metrics = step(state, local)
     torch.cuda.synchronize(device)
     out = {"rank": rank, "rows": len(local["image"]), "step_s": time.perf_counter() - t,
            "layout": microbatch_layout(TRAIN["batch_size"], DP_C_ACCUM, world),
            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-           "launches": [conv3d.launches, conv3d_grad.launches]}
+           "launches": [conv3d.launches, conv3d_grad.launches, batchnorm.launches]}
     out["state"] = state_digest(model.state_dict())
     multihost.shutdown()
     return out
@@ -3405,10 +3638,10 @@ def dp_layout_c(work: str, device, card: str) -> list:
     microbatches (layout (c)): two groups of 2 ranks, each group one
     microbatch, a row a rank, BatchNorm and the loss summed over the
     group. One step: every rank's state, loss and grad norm bitwise equal,
-    35 B1 and 18 B2 launches a rank (its one microbatch), the loss within
+    35 B1, 18 B2 and 72 BatchNorm launches a rank (its one microbatch), the loss within
     DP_LOSS_RTOL of one process's same step (the group sums BatchNorm's
     statistics in another order) and the grad norm reported beside it.
-    Returns the (B1, B2) launches of all ranks."""
+    Returns the (B1, B2, BatchNorm) launches of all ranks."""
     import torch
 
     from pcmseg_tpu_torch.core.config import get_config
@@ -3435,11 +3668,12 @@ def dp_layout_c(work: str, device, card: str) -> list:
         f"{rel(ranks[0]['grad_norm'], one['grad_norm']):.3g} (reported); every rank's state bitwise equal {bitwise}, "
         f"metrics equal {same}; launches {[r['launches'] for r in ranks]}; step "
         f"{', '.join(f'{r['step_s'] * 1e3:.0f}' for r in ranks)} ms (cold); processes {wall:.1f} s [{card}]")
-    if not bitwise or not same or any(r["layout"] != "c" or r["launches"] != [35, 18] for r in ranks):
+    # a rank's one microbatch: 35 B1, 18 B2 and 72 BatchNorm launches, synchronised over its group
+    if not bitwise or not same or any(r["layout"] != "c" or r["launches"] != [35, 18, 72] for r in ranks):
         raise AssertionError("dp (c): the ranks differ, or a rank ran other than one microbatch in layout (c)")
     if not math.isfinite(ranks[0]["loss"]) or rel(ranks[0]["loss"], one["loss"]) > DP_LOSS_RTOL:
         raise AssertionError("dp (c): the loss is off one process's")
-    return [sum(r["launches"][i] for r in ranks) for i in (0, 1)]
+    return [sum(r["launches"][i] for r in ranks) for i in (0, 1, 2)]
 
 
 def dp_phase(work: str, device, card: str, ref: dict):
@@ -3449,7 +3683,8 @@ def dp_phase(work: str, device, card: str, ref: dict):
     host: its times on a shared card are not NCCL's) against ``ref``
     (dp_reference); (b) a one-rank NCCL group through ``dp_trainers``; (c)
     layout (c) on DP_C_RANKS gloo ranks through ``dp_layout_c``. Returns the
-    (B1, B2) launches of (a)'s ranks, of (b) and of (c)'s ranks."""
+    (B1, B2, BatchNorm) launches of (a)'s and of (c)'s ranks, and the (B1,
+    B2) of (b)."""
     launches_a = dp_steps(work, ref, DP_RANKS, "gloo", card, "dp (a)")
     launches_b = dp_trainers(work, 1, "nccl", card, "dp (b)")
     return launches_a, launches_b, dp_layout_c(work, device, card)
@@ -5037,12 +5272,18 @@ def main() -> int:
         phase("dw_sum", dw_sum, device, card)
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "bn"]:  # the BatchNorm kernels' times, then one step's launches and times
+        phase("bn_kernels", bn_kernels, device, card)
+        phase("time", time_steps, device, card)
+        print(card)
+        return 0
     record = phase("kernels", check_kernels, device, card, (1, config.window_tile_batch))
     dx = phase("dx", check_dx_kernels, device, card)
     dw = phase("dw", check_dw_kernels, device, card)
     fp32k = phase("fp32_kernels", check_fp32_kernels, device, card)
     fp16k = phase("fp16_kernels", check_fp16_kernels, device, card)
     same_sign = phase("dw_sum", dw_sum, device, card)
+    bn = phase("bn_kernels", bn_kernels, device, card)
     phase("gradients", check_gradients, device, card)
 
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -5068,7 +5309,7 @@ def main() -> int:
         print(card)
         return 0
     train_launches = phase("train", train, work, device, card)
-    bn_step_s = phase("time", time_steps, device, card)
+    bn_step_s, time_bn_launches = phase("time", time_steps, device, card)
     cv_launches, cv_dir = phase("cv", cross_validate, work, device, card)
     validate_launches = phase("validate", validate, work, cv_dir, device, card)
     phase("cli", cli, work, cv_dir, card)
@@ -5078,7 +5319,7 @@ def main() -> int:
 
     native = get_native_lib() is not None
     log(f"host preprocessing: {'native C++ normalize' if native else 'numpy fallback'}")
-    serve_launches, server = phase("serve", serve, work, config, device, card)
+    (serve_launches, serve_bn_launches), server = phase("serve", serve, work, config, device, card)
     phase("profile", profile, work, server, card)
     profiling_launches = phase("profiling", profiling_phase, work, device, card)
     async_launches = phase("async_ckpt", async_ckpt, work, device, card)
@@ -5196,6 +5437,23 @@ def main() -> int:
                                  "fp16_param_f16": fp16_launches["param_f16"][1]},
             **fp16k["dw"],
             "same_sign_max_rel_err": same_sign["fp16"],
+        },
+        {
+            "name": "batchnorm_relu",
+            "route": "cuda",
+            "source": "pcmseg_tpu_torch/csrc/batchnorm_relu.cu",
+            # no Pallas kernel: the JAX package leaves BatchNorm and ReLU to XLA
+            "replaces": None,
+            # the train phase's 2 steps, held exact there
+            "launches": train_launches[2],
+            "launches_by_path": {"train": train_launches[2], **time_bn_launches, "serve": serve_bn_launches,
+                                 "dp_a": dp_launches[0][2], "dp_c": dp_launches[2][2]},
+            # the largest error from float64 of y, dx, dγ, dβ, the mean and the
+            # unbiased variance at the 5 levels' shapes, bf16
+            "max_abs_err": bn["max_abs_err"],
+            # the 18 layers of one 128^3 microbatch, forward and backward, bf16;
+            # library_ms: PyTorch's SyncBatchNorm ops and a ReLU
+            **{k: bn[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "kernels_ms")},
         },
     ]}))
     print(card)

@@ -14,10 +14,12 @@ kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor. With
 ``norm_layer='none'`` (the BN-folded serving graph) the ReLU is fused into
 the kernel's epilogue. With grad enabled a conv runs
 ``ops.hybrid_conv.conv3x3``, whose backward is the kernels too (dx and dW).
-Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm,
-GroupNorm (``norm_layer='group'``, ``min(group_norm_groups, features)``
-groups, as ``unet3d.py:247-253``) and the 1×1×1 head are stock PyTorch, as
-the JAX package leaves them to XLA.
+A training BatchNorm and the ReLU after it run as one layer
+(``ops.kernels.batchnorm``: hand-written CUDA kernels for a CUDA tensor).
+Max-pool, the 2³ stride-2 transposed conv, pad-align, concat, BatchNorm in
+eval, GroupNorm (``norm_layer='group'``, ``min(group_norm_groups,
+features)`` groups, as ``unet3d.py:247-253``) and the 1×1×1 head are stock
+PyTorch, as the JAX package leaves them to XLA.
 With ``remat`` the blocks (``inc``, ``down1-4``, ``up1-4``) are recomputed
 in the backward (``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
 With ``deep_supervision`` (training only) three more 1×1×1 heads, ``ds1``,
@@ -73,6 +75,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pcmseg_tpu_torch.parallel import collectives
 from pcmseg_tpu_torch.ops.hybrid_conv import conv3x3 as conv3x3_train, halo_conv
+from pcmseg_tpu_torch.ops.kernels.batchnorm import batchnorm_train
 from pcmseg_tpu_torch.ops.kernels.conv3d import conv3x3x3, pack_weight
 
 MIN_INPUT_SIZE = 16  # four 2x max-pools
@@ -156,73 +159,20 @@ class Conv3x3(nn.Module):
         return torch.relu(y) if train and self.relu else y
 
 
-class _BatchNormTrain(torch.autograd.Function):
-    """``y = x·mult + shift`` with batch statistics; returns (y, mean, var).
-
-    Statistics in fp32 over (N, D, H, W): mean and E[x²] − mean² clamped at
-    0 (``norm.py:58-66``); the normalization in x's dtype. The backward is
-    the analytic one, in fp32, saving only x in its own dtype.
-
-    With ``sync`` (inside ``collectives.synchronized_batch``) the batch is
-    every rank's part of it, as JAX's BatchNorm over a batch sharded on
-    'data' and 'spatial' is: the forward all-reduces (Σx, Σx²) before the
-    mean and variance over the ranks that ``collectives.norm_scope`` names
-    for the module's ``level`` (the other rows and, at a sharded level, the
-    other D-slabs), with the count of their voxels, and the backward
-    all-reduces (Σdy, Σdy·(x − mean)) over the same ranks for dx only. dγ
-    and dβ stay this rank's sums: the gradient all-reduce sums them once.
-    """
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps, sync=False, level=0):
-        dims = tuple(range(x.dim() - 1))
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        voxels = x.numel() // x.shape[-1]
-        comm, n = collectives.norm_scope(level, voxels, x.shape[1]) if sync else (None, voxels)
-        if comm is not None:
-            sums = comm.all_reduce(torch.stack([xf.sum(dims), xf.square().sum(dims)]))
-            mean = sums[0] / n
-            var = (sums[1] / n - mean.square()).clamp_min(0.0)
-        else:
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
-        r = torch.rsqrt(var + eps)
-        mult = weight.to(mean.dtype) * r
-        shift = bias.to(mean.dtype) - mean * mult
-        ctx.save_for_backward(x, weight, mean, r, mult)
-        ctx.comm, ctx.n = comm, n
-        ctx.mark_non_differentiable(mean, var)
-        return x * mult.to(x.dtype) + shift.to(x.dtype), mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, weight, mean, r, mult = ctx.saved_tensors
-        dims = tuple(range(x.dim() - 1))
-        n = ctx.n
-        dyf = dy.to(mean.dtype)
-        xc = x.to(mean.dtype) - mean
-        ds = dyf.sum(dims)  # dL/dshift
-        dxc = (dyf * xc).sum(dims)  # Σ dy·(x − mean)
-        ds_all, dxc_all = ds, dxc
-        if ctx.comm is not None:
-            ds_all, dxc_all = ctx.comm.all_reduce(torch.stack([ds, dxc]))
-        # mult = γ·r, shift = β − mean·mult, r = (var + eps)^-½
-        dvar = -0.5 * r.pow(3) * weight.to(mean.dtype) * dxc_all
-        dx = dyf * mult + xc * (2.0 * dvar / n) - mult * ds_all / n
-        return dx.to(x.dtype), (r * dxc).to(weight.dtype), ds.to(weight.dtype), None, None, None
-
-
 class BatchNorm(nn.BatchNorm3d):
-    """BatchNorm over NDHWC with the JAX package's arithmetic (``norm.py``).
+    """BatchNorm over NDHWC with the JAX package's arithmetic (``norm.py``),
+    and with ``relu`` the ReLU after it.
 
     Eval: ``mult = gamma * rsqrt(var + eps)`` and ``shift = beta - mean *
     mult`` in fp32 from the running statistics, applied to the tensor in
-    its own dtype (``norm.py:77-82``). Training: the same with the batch's
-    statistics (``_BatchNormTrain``), and the running statistics move by
-    momentum 0.1 (flax 0.9) toward the batch mean and the unbiased batch
-    variance, once per forward: not while a rematerialized block recomputes
-    its forward in the backward (``update_running_stats`` is then False).
-    State-dict keys are ``nn.BatchNorm3d``'s.
+    its own dtype (``norm.py:77-82``), then the ReLU. Training
+    (``ops.kernels.batchnorm.batchnorm_train``: the CUDA kernels for a CUDA
+    tensor, the plain version for a CPU tensor): the same with the batch's
+    statistics, and the running statistics move by momentum 0.1 (flax 0.9)
+    toward the batch mean and the unbiased batch variance, once per
+    forward: not while a rematerialized block recomputes its forward in the
+    backward (``update_running_stats`` is then False). State-dict keys are
+    ``nn.BatchNorm3d``'s.
     """
 
     update_running_stats = True
@@ -233,23 +183,23 @@ class BatchNorm(nn.BatchNorm3d):
     # var) instead, and the step replays the global chain in microbatch order
     stat_log = None
 
+    def __init__(self, num_features: int, relu: bool = False, **kwargs):
+        super().__init__(num_features, **kwargs)
+        self.relu = relu
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            sync = collectives.batch_synchronized()
-            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, sync, self.level)
-            if self.update_running_stats:
-                n = x.numel() // x.shape[-1]
-                if sync:
-                    n = collectives.norm_scope(self.level, n, x.shape[1])[1]
-                unbiased = var * (n / max(n - 1, 1))
-                if self.stat_log is not None:
-                    self.stat_log.append((mean, unbiased))
-                else:
-                    self.momentum_update(mean, unbiased)
+            deferred = self.stat_log is not None
+            running = self if self.update_running_stats and not deferred else None
+            y, mean, unbiased = batchnorm_train(x, self.weight, self.bias, self.eps, collectives.batch_synchronized(),
+                                                self.level, self.relu, running)
+            if self.update_running_stats and deferred:
+                self.stat_log.append((mean, unbiased))
             return y
         mult = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * mult
-        return x * mult.to(x.dtype) + shift.to(x.dtype)
+        y = x * mult.to(x.dtype) + shift.to(x.dtype)
+        return torch.relu(y) if self.relu else y
 
     @torch.no_grad()
     def momentum_update(self, mean: torch.Tensor, unbiased_var: torch.Tensor) -> None:
@@ -424,7 +374,10 @@ def _remat_contexts(module: nn.Module):
 
 
 class DoubleConv(nn.Module):
-    """(3³ conv → norm → ReLU) × 2, as ``conv`` = Sequential of 6."""
+    """(3³ conv → norm → ReLU) × 2, as ``conv`` = Sequential of 6. The ReLU
+    runs inside the BatchNorm (``relu``) or the conv (``norm_layer='none'``)
+    where there is one, and its place holds an ``nn.Identity``: the
+    indices, and so the state-dict keys, stay the reference's."""
 
     def __init__(self, in_ch: int, out_ch: int, norm_layer: str, groups: int = 8, device=None):
         super().__init__()
@@ -436,11 +389,11 @@ class DoubleConv(nn.Module):
             elif norm_layer == "group":
                 norm = GroupNorm(min(groups, out_ch), out_ch, eps=1e-5, device=device)
             else:
-                norm = BatchNorm(out_ch, device=device)
+                norm = BatchNorm(out_ch, relu=True, device=device)
             layers += [
                 Conv3x3(ci, out_ch, relu=fused, device=device),
                 norm,
-                nn.Identity() if fused else nn.ReLU(),
+                nn.ReLU() if norm_layer == "group" else nn.Identity(),
             ]
         self.conv = nn.Sequential(*layers)
 

@@ -137,6 +137,17 @@ def load_library() -> ctypes.CDLL:
         lib.pcmseg_conv3x3_dw_f32_workspace_bytes.restype = ll
         lib.pcmseg_conv3x3_dw_f32.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, i]
         lib.pcmseg_conv3x3_dw_f32.restype = i
+        d, f = ctypes.c_double, ctypes.c_float
+        lib.pcmseg_batchnorm_scratch_bytes.argtypes = []
+        lib.pcmseg_batchnorm_scratch_bytes.restype = ll
+        lib.pcmseg_batchnorm_stats.argtypes = [i, p, ll, i, p, ll, p, p, i]
+        lib.pcmseg_batchnorm_stats.restype = i
+        lib.pcmseg_batchnorm_relu.argtypes = [i, p, p, ll, i, p, p, p, d, d, i, p, p, p, p, f, f, f, p, i]
+        lib.pcmseg_batchnorm_relu.restype = i
+        lib.pcmseg_batchnorm_grad_sums.argtypes = [i, p, p, ll, i, p, i, p, ll, p, p, i]
+        lib.pcmseg_batchnorm_grad_sums.restype = i
+        lib.pcmseg_batchnorm_dx.argtypes = [i, p, p, p, ll, i, p, p, p, d, i, p, i]
+        lib.pcmseg_batchnorm_dx.restype = i
         lib.pcmseg_cuda_error_string.argtypes = [i]
         lib.pcmseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -251,7 +251,7 @@ def _worker(pid: int, port: int, out: str) -> int:
     import torch
     import torch.distributed as dist
 
-    from pcmseg_tpu_torch.models.unet3d import _BatchNormTrain
+    from pcmseg_tpu_torch.ops.kernels.batchnorm import BatchNormTrain
     from pcmseg_tpu_torch.parallel import collectives, multihost
 
     torch.set_num_threads(1)
@@ -287,7 +287,7 @@ def _worker(pid: int, port: int, out: str) -> int:
     def run(xin, dy, world):
         xin = xin.clone().requires_grad_(True)
         w, b = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
-        y, mean, var = _BatchNormTrain.apply(xin, w, b, 1e-5, world)
+        y, mean, var = BatchNormTrain.apply(xin, w, b, 1e-5, world)
         y.backward(dy)
         return y.detach(), mean, var, xin.grad, w.grad, b.grad
 
