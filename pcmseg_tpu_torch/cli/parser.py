@@ -2,10 +2,13 @@
 ``pcmseg_tpu/cli/main.py`` (``build_parser`` and ``_config_from_args``), so
 a command line moves between the two packages unchanged.
 
-The one addition is ``--device {cuda,cpu}`` on every verb: the counterpart
-of ``JAX_PLATFORMS=cpu``. ``_config_from_args`` does not read it; the CLI
+The additions are ``--device {cuda,cpu}`` on every verb, the counterpart
+of ``JAX_PLATFORMS=cpu`` (``_config_from_args`` does not read it; the CLI
 hands it to the Trainer, CrossValidationTrainer, Validator, Predictor,
-PredictionServer and the environment check.
+PredictionServer and the environment check), and the port's own config
+fields (``core/config.py`` ``PORT_FIELDS``): ``--model`` on every verb that
+builds a network, ``--optimizer`` on ``train``. A command
+line without them moves between the two packages unchanged.
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
         help="rematerialize DoubleConv blocks (memory for compute)",
     )
     p.add_argument("--norm_layer", choices=["batch", "group"], default=None)
+    p.add_argument("--model", choices=["unet3d", "nnunet"], default=None,
+                   help="the network: the reference's 4-level U-Net "
+                        "(default) or nnU-Net's 3d_fullres PlainConvUNet "
+                        "(InstanceNorm, LeakyReLU, strided downsampling)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,6 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--preset", choices=sorted(PRESETS), default="standard")
     pt.add_argument("--epochs", type=int, default=None)
     pt.add_argument("--learning_rate", type=float, default=None)
+    pt.add_argument("--optimizer", choices=["adam", "sgd"], default=None,
+                    help="Adam with coupled L2 (default), or Nesterov SGD "
+                         "(momentum 0.99, coupled weight decay): nnU-Net's "
+                         "optimizer")
     pt.add_argument("--cross_validation", action="store_true",
                     help="K-fold cross-validation training")
     pt.add_argument("--n_splits", type=int, default=None)
@@ -351,6 +362,8 @@ def _config_from_args(args, preset: str = "standard", with_explicit: bool = Fals
         "async_checkpoint": "async_checkpoint",
         "remat": "remat",
         "norm_layer": "norm_layer",
+        "model": "model",
+        "optimizer": "optimizer",
         "epochs": "num_epochs",
         "learning_rate": "learning_rate",
         "n_splits": "n_splits",

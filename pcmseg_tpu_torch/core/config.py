@@ -41,6 +41,11 @@ NORMALIZE_MODES = ("percentile", "minmax", "zscore", "none")
 MIN_INPUT_SIZE = 16
 LOSSES = ("dice", "bce_dice", "tversky", "focal", "focal_dice")
 NORM_LAYERS = ("batch", "group", "none")
+MODELS = ("unet3d", "nnunet")
+# the fields the JAX package's Config does not have: the port's second
+# network. A config that leaves them at their defaults is the JAX package's
+# config, and writes its dict (``Config.to_dict``)
+PORT_FIELDS = ("model", "nnunet_features")
 
 
 @dataclass
@@ -110,7 +115,9 @@ class Config:
     val_fraction: float = 0.2
     seed: int = 42
 
-    # optimizer (reference OPTIMIZER_CONFIG, config_example.py:99-105)
+    # optimizer (reference OPTIMIZER_CONFIG, config_example.py:99-105):
+    # 'adam' (coupled L2), or 'sgd' (Nesterov, momentum 0.99 and coupled
+    # weight decay: nnU-Net's optimizer, fp32 parameters only)
     optimizer: str = "adam"
     weight_decay: float = 1e-5
     betas: Tuple[float, float] = (0.9, 0.999)
@@ -186,6 +193,13 @@ class Config:
     oversample_mode: str = "center"
 
     # ---- model ------------------------------------------------------------
+    # 'unet3d': the reference's 4-level U-Net (models/unet3d.py); 'nnunet':
+    # nnU-Net's 3d_fullres PlainConvUNet (models/nnunet.py), a stage for each
+    # of ``nnunet_features``, strided-conv downsampling, InstanceNorm and
+    # LeakyReLU (base_features, norm_layer and group_norm_groups are the
+    # U-Net's and do not apply to it)
+    model: str = "unet3d"
+    nnunet_features: Tuple[int, ...] = (32, 64, 128, 256, 320, 320)
     n_modalities: int = 5
     n_classes: int = 1  # sigmoid binary everywhere (SURVEY.md §8.4)
     base_features: int = 64
@@ -340,6 +354,9 @@ class Config:
                 f"'center' (nnU-Net) or 'window' (round-4 variant)"
             )
         self.betas = tuple(self.betas)
+        self.nnunet_features = tuple(self.nnunet_features)
+        if self.model not in MODELS:
+            raise ValueError(f"model={self.model!r}; expected one of {MODELS}")
         self.norm_percentiles = tuple(self.norm_percentiles)
         if self.missing_strategy not in MISSING_STRATEGIES:
             raise ValueError(
@@ -394,7 +411,14 @@ class Config:
 
     # -- dict round-trips (the reference API was plain dicts) ----------------
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as a dict, the port's own (``PORT_FIELDS``) only where
+        they differ from their defaults: a U-Net config's dict, and so its
+        checkpoints' and CV results' snapshots, are the JAX package's."""
+        d = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in PORT_FIELDS and d[f.name] == f.default:
+                del d[f.name]
+        return d
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":

@@ -19,7 +19,10 @@ The port of ``pcmseg_tpu/infer/predict.py`` for ``.pth`` checkpoints:
   * BN folded into the convs (``config.fold_bn``), so all 18 3³ convs run
     the CUDA kernel with bias and ReLU fused; a GroupNorm model is served
     unfolded (per-sample statistics cannot fold): each conv runs the kernel
-    with its bias and no ReLU, then GroupNorm and ReLU;
+    with its bias and no ReLU, then GroupNorm and ReLU; so is nnU-Net's
+    PlainConvUNet (``config.model='nnunet'``, ``models/nnunet.py``): its
+    stride-1 convs the kernel with bias, its strided convs cuDNN, each
+    followed by InstanceNorm and LeakyReLU;
   * a fold ensemble when several checkpoints are given: every member
     folded and resident on the device, its probabilities summed in fp32
     and divided by K (a loop over the members, where the JAX package

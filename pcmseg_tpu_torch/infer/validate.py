@@ -34,6 +34,7 @@ one with ``python run.py export`` to validate it here.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,13 +42,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pcmseg_tpu_torch.core.config import Config
+from pcmseg_tpu_torch.core.config import PORT_FIELDS, Config
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.io import read_volume
 from pcmseg_tpu_torch.data.loader import DataLoader, to_device
 from pcmseg_tpu_torch.data.resample import normalize_intensity, resample_array
 from pcmseg_tpu_torch.infer.postprocess import postprocess_from_config
-from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype, param_dtype, to_param_dtype
+from pcmseg_tpu_torch.models import build_model
+from pcmseg_tpu_torch.models.unet3d import compute_dtype, param_dtype, to_param_dtype
 from pcmseg_tpu_torch.ops.metrics import per_class_dice_iou, per_sample_dice_iou
 from pcmseg_tpu_torch.ops.surface import case_surface_metrics
 from pcmseg_tpu_torch.train.checkpoints import load_pth
@@ -58,6 +60,8 @@ from pcmseg_tpu_torch.utils.logging import get_logger
 # fields of the checkpoint's config snapshot that must match the weights
 # (architecture) or the input distribution they were trained on
 _ARCH_KEYS = (
+    "model",
+    "nnunet_features",
     "n_modalities",
     "n_classes",
     "base_features",
@@ -99,6 +103,8 @@ def adopt_checkpoint_config(
     explicit_set = set(explicit)
     _, snap = loaded or load_pth(checkpoint_path)
     if snap:
+        # a snapshot leaves the port's own fields out at their defaults
+        snap = {**{f.name: f.default for f in dataclasses.fields(Config) if f.name in PORT_FIELDS}, **snap}
         updates = {}
         for k in _ARCH_KEYS + _PREP_KEYS:
             if k not in snap or k in explicit_set:
@@ -123,7 +129,7 @@ def adopt_checkpoint_config(
 
 def load_model_state(
     config: Config, checkpoint_path: str, loaded: Optional[Loaded] = None
-) -> Tuple[UNet3D, Dict[str, torch.Tensor]]:
+) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
     """(model with the checkpoint's weights on the CPU, its state dict).
 
     The model is built on the meta device and takes the loaded tensors,
@@ -134,7 +140,7 @@ def load_model_state(
     require_pth(checkpoint_path)
     state_dict, _ = loaded or load_pth(checkpoint_path)
     state_dict = to_param_dtype(state_dict, param_dtype(config.param_dtype))
-    model = UNet3D.from_config(config, device="meta")
+    model = build_model(config, device="meta")
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model, state_dict
 

@@ -5,7 +5,8 @@ the K logits, integer label maps of class ids, which keep their integer
 dtype through ``align_labels`` and reach the losses' one-hot as class ids).
 Models with GroupNorm have no running statistics to move.
 
-With a deep-supervision model (``UNet3D(deep_supervision=True)``) the
+With a deep-supervision model (``UNet3D(deep_supervision=True)``, or
+nnU-Net's ``PlainConvUNet(deep_supervision=True)``) the
 training loss is the loss at every decoder scale, weighted ``DS_WEIGHTS``
 fine to coarse, each against the labels nearest-resized to its scale
 (``steps.py:42-46, 199-224``).
@@ -110,6 +111,8 @@ from pcmseg_tpu_torch.utils.profiling import span
 # deep-supervision loss weights, full resolution first, then the 1/2, 1/4 and
 # 1/8 heads: geometric halving normalised to sum to 1 (nnU-Net's scheme)
 DS_WEIGHTS = (8 / 15, 4 / 15, 2 / 15, 1 / 15)
+# SGD's momentum under optimizer='sgd', as nnU-Net's nnUNetTrainer fixes it
+NNUNET_MOMENTUM = 0.99
 
 
 @dataclass
@@ -225,10 +228,18 @@ def _fused(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def make_optimizer(model: nn.Module, config) -> torch.optim.Optimizer:
     """Adam with coupled L2 from the config: ``torch.optim.Adam`` for fp32
-    parameters, ``Adam16`` for 16-bit ones."""
+    parameters, ``Adam16`` for 16-bit ones. With ``optimizer='sgd'``
+    ``torch.optim.SGD`` over the trainable parameters (Nesterov, momentum
+    ``NNUNET_MOMENTUM``, coupled ``weight_decay``: nnU-Net's), fp32 ones only."""
+    params = list(model.parameters())
+    if config.optimizer == "sgd":
+        if any(p.dtype in LOW_PRECISION for p in params):
+            raise NotImplementedError("optimizer='sgd' takes fp32 parameters (param_dtype='float32')")
+        return torch.optim.SGD([p for p in params if p.requires_grad], lr=config.learning_rate,
+                               momentum=NNUNET_MOMENTUM, nesterov=True,
+                               weight_decay=config.weight_decay)
     if config.optimizer != "adam":
         raise ValueError(f"unsupported optimizer: {config.optimizer!r}")
-    params = list(model.parameters())
     kwargs = dict(lr=config.learning_rate, betas=tuple(config.betas), eps=config.eps,
                   weight_decay=config.weight_decay)
     if params and params[0].dtype in LOW_PRECISION:
@@ -357,14 +368,16 @@ def align_labels(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Labels shaped like ``logits`` (``steps.py:155-169``): add the trailing
     channel dim if missing, then nearest-resize each differing spatial dim
     with ``jax.image.resize``'s half-pixel rule: source index
-    ``floor((i + 0.5) · in / out)``, in exact integer arithmetic."""
+    ``floor((i + 0.5) · in / out)``, in exact integer arithmetic, on the
+    labels' device (an index copied from the host would wait for the card:
+    three heads of deep supervision made nine such waits a step)."""
     if labels.dim() == logits.dim() - 1:
         labels = labels[..., None]
     for axis in range(1, logits.dim() - 1):
         m, n = labels.shape[axis], logits.shape[axis]
         if m != n:
-            idx = (2 * torch.arange(n) + 1) * m // (2 * n)
-            labels = labels.index_select(axis, idx.to(labels.device))
+            idx = (2 * torch.arange(n, device=labels.device) + 1) * m // (2 * n)
+            labels = labels.index_select(axis, idx)
     return labels
 
 

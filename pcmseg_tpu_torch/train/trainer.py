@@ -100,7 +100,8 @@ from pcmseg_tpu_torch.data import device_cache
 from pcmseg_tpu_torch.data.dataset import ProstateDataset
 from pcmseg_tpu_torch.data.loader import DataLoader, RamCaseCache, _padded_plan, prefetch_to_device
 from pcmseg_tpu_torch.infer.predict import resolve_device
-from pcmseg_tpu_torch.models.unet3d import UNet3D, compute_dtype
+from pcmseg_tpu_torch.models import build_model
+from pcmseg_tpu_torch.models.unet3d import compute_dtype
 from pcmseg_tpu_torch.parallel import collectives, multihost
 from pcmseg_tpu_torch.parallel.sharding import (
     Mesh,
@@ -249,7 +250,7 @@ class Trainer:
         )
 
         # -- model / state ----------------------------------------------------
-        model = UNet3D.from_config(
+        model = build_model(
             config, deep_supervision=config.deep_supervision,
             generator=torch.Generator().manual_seed(config.seed),
         )
